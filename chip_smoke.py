@@ -4,16 +4,25 @@
 
 Phases, in order; any failure raises and the script exits non-zero:
   1. device  -- require CUDA, print the card's name and power limit;
-  2. build   -- compile the port's kernels from `whisper_tpu_torch/csrc`;
+  2. build   -- compile the port's kernels from `whisper_tpu_torch/csrc`
+                (one nvcc per source, all at once);
   3. kernels -- each hand-written kernel against its plain PyTorch version
-                at the large-v2 shapes of the greedy slice, with error,
-                tolerance and CUDA-event times of both;
-  4. slice   -- large-v2 bf16 (random weights from a seed) greedy
+                at the large-v2 shapes of the two slices, then larger ones,
+                with error, tolerance, CUDA-event times of the kernel, its
+                plain version and one PyTorch library call computing the
+                same function (where there is one), and the kernel's bound
+                (the least time the H100's data-sheet rates allow);
+  4. greedy  -- large-v2 bf16 (random weights from a seed) greedy
                 transcription of ~35 s of synthetic audio (3 windows)
                 through `Transcriber.transcribe`, with every kernel's launch
                 count read around that run, then the kernel path held
-                against the plain path (attention="xla") on one window,
-                whose encoder output and logits must be finite.
+                against the plain path (attention="xla") on one window;
+  5. beam    -- the same audio with the default `DecodeOptions()` (beam
+                search, 5 beams, max_depth 100), cold and warm, all five
+                kernels' launch counts read around the run, then prefill +
+                8 beam steps on one window through both paths, fed the
+                kernel path's tokens and parents: logits within PATH_RTOL,
+                permuted caches equal to `torch.index_select`.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -65,9 +74,27 @@ def time_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+# The H100 SXM data sheet: HBM3 bandwidth and dense peak rates.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+
+
+def bound(n_bytes: float, flops: float, dtype=torch.bfloat16) -> tuple:
+    """(least ms, "bytes" or "operations"): the larger of the bytes over
+    the memory rate and the operations over the peak rate of their type."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[dtype]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
 def compare(name: str, got, want, atol: float, rtol: float) -> tuple:
     """(max abs error, max of error / (atol + rtol*|want|)); raises if any
-    element is outside atol + rtol*|want|."""
+    element is outside atol + rtol*|want| (atol = rtol = 0: bit-exact).
+    Tuples of tensors are compared pairwise."""
+    if isinstance(got, (tuple, list)):
+        res = [compare(name, g, w, atol, rtol) for g, w in zip(got, want)]
+        return max(r[0] for r in res), max(r[1] for r in res)
     torch.cuda.synchronize()
     got, want = got.float(), want.float()
     if not bool(torch.isfinite(got).all()):
@@ -75,7 +102,8 @@ def compare(name: str, got, want, atol: float, rtol: float) -> tuple:
     err = (got - want).abs()
     tol = atol + rtol * want.abs()
     bad = err > tol
-    max_err, ratio = float(err.max()), float((err / tol).max())
+    max_err = float(err.max())
+    ratio = float((err / tol).max()) if atol or rtol else 0.0
     if bool(bad.any()):
         raise AssertionError(
             f"{name}: {int(bad.sum())} elements outside atol={atol} "
@@ -120,23 +148,35 @@ def _randn(shape, gen, scale=1.0, dtype=torch.bfloat16):
 
 
 def phase_kernels() -> dict:
-    """Each kernel vs its plain version: first at the shapes the slice's
-    main path gives it (large-v2, batch 1: a 14.9 s window is 1500 mel
-    frames, so the encoder runs S = M = Sa = 750), then at larger ones."""
+    """Each kernel vs its plain version: first at the shapes the slices'
+    main paths give it (large-v2: a 14.9 s window is 1500 mel frames, so
+    the encoder runs S = M = Sa = 750; greedy decodes 1 lane, beam 5
+    lanes against one window's cross cache), then at larger ones."""
+    import torch.nn.functional as F
+
     from whisper_tpu_torch.ops.kernels import decode_attention as KC
     from whisper_tpu_torch.ops.kernels import encoder_block as KB
     from whisper_tpu_torch.ops.kernels import flash_attention as KA
+    from whisper_tpu_torch.ops.kernels import permute as KP
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    d, heads, hidden = 1280, 20, 5120
-    rows = {"flash_attention": [], "encoder_mlp": [], "decode_attention": []}
+    d, heads, hidden, hd = 1280, 20, 5120, 64
+    rows = {name: [] for name, *_ in KERNELS}
 
-    def record(name, shape, call, plain_call, atol, rtol):
+    def record(name, shape, call, plain_call, atol, rtol, work,
+               library_call=None, dtype=torch.bfloat16):
         err, ratio = compare(f"{name} [{shape}]", call(), plain_call(), atol,
                              rtol)
-        rows[name].append(dict(shape=shape, max_abs_err=err, atol=atol,
-                               rtol=rtol, err_over_tol=ratio, ms=time_ms(call),
-                               plain_ms=time_ms(plain_call)))
+        bound_ms, bound_by = bound(*work, dtype)
+        rows[name].append(dict(
+            shape=shape, max_abs_err=err, atol=atol, rtol=rtol,
+            err_over_tol=ratio, ms=time_ms(call),
+            plain_ms=time_ms(plain_call), bound_ms=bound_ms,
+            bound_by=bound_by,
+            library_ms=None if library_call is None else time_ms(library_call)))
+
+    def heads_view(x, n):  # (B, n, d) -> (B, H, n, hd), a view
+        return x.view(x.shape[0], n, heads, hd).transpose(1, 2)
 
     # A: self-attention q/k/v are the strided slices of one fused QKV
     # output, as in the encoder; causal and Sq != Sk are off the slice's path.
@@ -154,13 +194,19 @@ def phase_kernels() -> dict:
         else:
             q, k = _randn((b, sq, d), gen), _randn((b, sk, d), gen)
             v = _randn((b, sk, d), gen) + 1
+        pairs = sq * (sq + 1) / 2 if causal else sq * sk
         record("flash_attention",
                f"B={b} Sq={sq} Sk={sk} H={heads}{' causal' if causal else ''}",
                lambda: KA.attention_bhsd(q, k, v, heads, causal),
                lambda: KA.attention_bhsd_plain(q, k, v, heads, causal),
-               KA.ATOL, KA.RTOL)
+               KA.ATOL, KA.RTOL,
+               ((2 * b * sq * d + 2 * b * sk * d) * 2, 4 * b * heads * pairs * hd),
+               lambda: F.scaled_dot_product_attention(
+                   heads_view(q, sq), heads_view(k, sk), heads_view(v, sk),
+                   is_causal=causal))
 
-    # B: weights at the init scale, LN affine away from identity.
+    # B: weights at the init scale, LN affine away from identity. No single
+    # PyTorch call computes LN + MLP + GELU + residual.
     ln_g = (1 + 0.1 * torch.randn(d, generator=gen, device="cuda")).bfloat16()
     ln_b = _randn((d,), gen, 0.1)
     w1, b1 = _randn((d, hidden), gen, 0.02), _randn((hidden,), gen, 0.02)
@@ -169,39 +215,113 @@ def phase_kernels() -> dict:
         args = (_randn((m, d), gen), ln_g, ln_b, w1, b1, w2, b2)
         record("encoder_mlp", f"M={m} d={d} h={hidden}",
                lambda: KB.fused_mlp_block(*args),
-               lambda: KB.fused_mlp_block_plain(*args), KB.ATOL, KB.RTOL)
+               lambda: KB.fused_mlp_block_plain(*args), KB.ATOL, KB.RTOL,
+               ((2 * m * d + 2 * d * hidden + hidden + 3 * d) * 2,
+                4 * m * d * hidden))
 
     # C: self caches (B, L, C, d) with mixed pos, cross caches (L, B, Sa, d)
-    # with every row visible; the main path's two shapes first.
+    # with every row visible; the beam path's shape (5 lanes) first, then
+    # the greedy path's two. C.g: the grouped kernel, R q rows per
+    # cross-cache row; v of mean 1, so a dropped mask shows.
     bf16, f32 = torch.bfloat16, torch.float32
-    for kind, b, n_layer, c, dt, pos, cu in (
-            ("self", 1, 32, 128, bf16, [37], None),
-            ("cross", 1, 32, 750, bf16, None, None),
-            ("self", 8, 32, 128, bf16, [0, 5, 17, 63, 64, 100, 126, 127], None),
-            ("cross", 8, 32, 1500, bf16, None, None),
-            ("self", 2, 2, 64, f32, [3, 40], 48)):
+    for name, kind, b, rep, n_layer, c, dt, pos, cu in (
+            ("decode_attention", "self", 5, 1, 32, 128, bf16,
+             [40] * 5, None),
+            ("decode_attention", "self", 1, 1, 32, 128, bf16, [37], None),
+            ("decode_attention", "cross", 1, 1, 32, 750, bf16, None, None),
+            ("decode_attention", "self", 8, 1, 32, 128, bf16,
+             [0, 5, 17, 63, 64, 100, 126, 127], None),
+            ("decode_attention", "cross", 8, 1, 32, 1500, bf16, None, None),
+            ("decode_attention", "self", 2, 1, 2, 64, f32, [3, 40], 48),
+            ("decode_attention_group", "cross", 5, 5, 32, 750, bf16, None,
+             None),
+            ("decode_attention_group", "cross", 40, 5, 32, 1500, bf16, None,
+             None),
+            ("decode_attention_group", "cross", 10, 5, 4, 128, f32, None,
+             None)):
         bm = kind == "self"
-        shape = (b, n_layer, c, d) if bm else (n_layer, b, c, d)
-        kc, vc = _randn(shape, gen, dtype=dt), _randn(shape, gen, dtype=dt)
+        bk = b // rep
+        shape = (bk, n_layer, c, d) if bm else (n_layer, bk, c, d)
+        kc = _randn(shape, gen, dtype=dt)
+        vc = (_randn(shape, gen, dtype=f32) + (rep > 1)).to(dt)
         q = _randn((b, d), gen, 0.125, dtype=dt)
-        pos = (c - 1 if pos is None
-               else torch.tensor(pos, dtype=torch.int32, device="cuda"))
+        pos_t = torch.tensor([c - 1] * b if pos is None else pos,
+                             dtype=torch.int32, device="cuda")
         layer = 7 % n_layer
-        record("decode_attention",
-               f"{kind} {str(dt)[6:]} B={b} L={n_layer} C={c}"
-               + (f" c_used={cu}" if cu else ""),
+        n_vis = [min(p + 1, cu or c) for p in pos_t.tolist()]
+        es = kc.element_size()
+        if rep == 1:  # every lane reads its own rows
+            read = sum(2 * n * d * es for n in n_vis)
+        else:  # one read of each window's rows serves its R lanes
+            read = sum(2 * n_vis[j * rep] * d * es for j in range(bk))
+        work = (read + 2 * b * d * es + 4 * b, sum(4 * n * d for n in n_vis))
+        kl = kc[:, layer] if bm else kc[layer]
+        vl = vc[:, layer] if bm else vc[layer]
+        ncu = cu or c
+        kh, vh = heads_view(kl[:, :ncu], ncu), heads_view(vl[:, :ncu], ncu)
+        if rep == 1:
+            qh = heads_view(q[:, None], 1)
+            mask = (torch.arange(ncu, device="cuda")[None, None, None, :]
+                    <= pos_t[:, None, None, None])
+        else:  # the R lanes of a window as R queries of one head row
+            qh = heads_view(q.view(bk, rep, d), rep)
+            mask = None
+        record(name,
+               f"{kind} {str(dt)[6:]} B={b}" + (f" R={rep}" if rep > 1 else "")
+               + f" L={n_layer} C={c}" + (f" c_used={cu}" if cu else ""),
                lambda: KC.decode_attention_stacked(
-                   q, kc, vc, pos, layer, heads, batch_major=bm, c_used=cu),
+                   q, kc, vc, pos_t, layer, heads, batch_major=bm,
+                   kv_rep=rep, c_used=cu),
                lambda: KC.decode_attention_stacked_plain(
-                   q, kc, vc, pos, layer, heads, batch_major=bm, c_used=cu),
-               *KC.TOL[dt])
-        del kc, vc
+                   q, kc, vc, pos_t, layer, heads, batch_major=bm,
+                   kv_rep=rep, c_used=cu),
+               *KC.TOL[dt], work,
+               lambda: F.scaled_dot_product_attention(qh, kh, vh,
+                                                      attn_mask=mask,
+                                                      scale=1.0),
+               dtype=dt)
+        del kc, vc, kl, vl, kh, vh
+
+    # D: the beam reshuffle of the self caches, window-local parents; the
+    # slice's shape first (5 lanes, whole slabs, as the bf16 main path),
+    # then 8 windows, then the prefix mode of the int8 path with two
+    # rank-4 caches and two rank-3 per-row arrays. Bit-exact.
+    for w, valid in ((1, None), (8, None), (1, 37), (1, 128)):
+        b = 5 * w
+        arrays = [_randn((b, 32, 128, d), gen) for _ in range(2)]
+        if valid is not None:
+            arrays += [_randn((b, 32, 128), gen, dtype=f32) for _ in range(2)]
+        par = (torch.randint(0, 5, (b,), generator=gen, device="cuda")
+               + torch.arange(w, device="cuda").repeat_interleave(5) * 5
+               ).to(torch.int32)
+        out_k = [torch.zeros_like(a) for a in arrays]
+        out_p = [torch.zeros_like(a) for a in arrays]
+        copied = sum(
+            a.numel() * a.element_size() if valid is None or a.dim() < 4
+            else a.shape[0] * a.shape[1] * -(-valid // 32) * 32 * d
+            * a.element_size() for a in arrays)
+        idx = par.long()
+        record("permute",
+               f"{len(arrays)} arrays B={b} (W={w}) L=32 C=128 d={d}"
+               + (f" valid_len={valid}" if valid else " whole slabs"),
+               lambda: KP.permute_lanes_arrays(arrays, par, out_k,
+                                               valid_len=valid),
+               lambda: KP.permute_lanes_arrays_plain(arrays, par, out_p,
+                                                     valid_len=valid),
+               0.0, 0.0, (2 * copied, 0),
+               None if valid else lambda: [
+                   torch.index_select(a, 0, idx, out=o)
+                   for a, o in zip(arrays, out_p)])
+        del arrays, out_k, out_p
     for name, rs in rows.items():
         for r in rs:
+            lib = ("none" if r["library_ms"] is None
+                   else f"{r['library_ms']:.4f} ms")
             log(f"kernel {name} [{r['shape']}]: max_abs_err {r['max_abs_err']:.3g}"
                 f" (atol {r['atol']}, rtol {r['rtol']}; worst err/tol "
                 f"{r['err_over_tol']:.3f}) kernel {r['ms']:.4f} ms"
-                f" plain {r['plain_ms']:.4f} ms")
+                f" plain {r['plain_ms']:.4f} ms library {lib}"
+                f" bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
     return rows
 
 
@@ -213,14 +333,50 @@ KERNELS = [
      "whisper_tpu/ops/pallas/encoder_block.py:61"),
     ("decode_attention", "whisper_tpu_torch/csrc/decode_attention.cu",
      "whisper_tpu/ops/pallas/decode_attention.py:481"),
+    ("decode_attention_group", "whisper_tpu_torch/csrc/decode_attention.cu",
+     "whisper_tpu/ops/pallas/decode_attention.py:417"),
+    ("permute", "whisper_tpu_torch/csrc/permute.cu",
+     "whisper_tpu/ops/pallas/permute.py:96"),
 ]
+
+
+def _counters() -> dict:
+    """KERNELS name -> (wrapper, attribute) of its launch counter."""
+    from whisper_tpu_torch.ops.kernels import decode_attention as KC
+    from whisper_tpu_torch.ops.kernels import encoder_block as KB
+    from whisper_tpu_torch.ops.kernels import flash_attention as KA
+    from whisper_tpu_torch.ops.kernels import permute as KP
+
+    return {"flash_attention": (KA.attention_bhsd, "launches"),
+            "encoder_mlp": (KB.fused_mlp_block, "launches"),
+            "decode_attention": (KC.decode_attention_stacked, "launches"),
+            "decode_attention_group": (KC.decode_attention_stacked,
+                                       "group_launches"),
+            "permute": (KP.permute_lanes_arrays, "launches")}
+
+
+def launch_counts() -> dict:
+    return {n: getattr(fn, a) for n, (fn, a) in _counters().items()}
+
+
+def reset_counts() -> None:
+    for fn, a in _counters().values():
+        setattr(fn, a, 0)
 
 
 def main() -> int:
     device = phase_device()
     phase_build()
     rows = phase_kernels()
-    launches, slice_info = phase_slice()
+    setup = slice_setup()
+    greedy = phase_greedy(*setup)
+    beam = phase_beam(*setup)
+    beam["same_text_as_greedy"] = beam.pop("text") == greedy.pop("text")
+    log(f"beam text == greedy text: {beam['same_text_as_greedy']}")
+    launches = beam["launches"]
+    missing = [n for n, *_ in KERNELS if launches[n] == 0]
+    if missing:
+        raise AssertionError(f"kernels the beam path never launched: {missing}")
     entries = []
     for name, source, replaces in KERNELS:
         first = rows[name][0]
@@ -229,9 +385,11 @@ def main() -> int:
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": max(r["max_abs_err"] for r in rows[name]),
             "ms": first["ms"], "plain_ms": first["plain_ms"],
+            "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
+            "library_ms": first["library_ms"],
             "shape": first["shape"], "all_shapes": rows[name],
         })
-    log(json.dumps({"kernels": entries, "slice": slice_info}))
+    log(json.dumps({"kernels": entries, "greedy": greedy, "beam": beam}))
     print(json.dumps({"ok": True, "device": device}), flush=True)
     return 0
 
@@ -262,22 +420,16 @@ def rel_err(a, b) -> float:
 PATH_RTOL = 5e-2
 
 
-def phase_slice() -> tuple:
-    from whisper_tpu.config import preset
-    from whisper_tpu.text.tokenizer import (WhisperTokenizer,
-                                            build_full_scale_tokenizer_json)
-
-    import whisper_tpu_torch.models.whisper as M
-    from whisper_tpu_torch.ops import audio
+def slice_setup() -> tuple:
+    """Large-v2 bf16 random weights from the seed, its full-scale
+    tokenizer, the Transcriber (on the card by default) and 35 s of
+    synthetic audio: 3 windows."""
+    from whisper_tpu_torch.config import preset
     from whisper_tpu_torch.ops.kernels import _build
-    from whisper_tpu_torch.ops.kernels.decode_attention import (
-        decode_attention_stacked)
-    from whisper_tpu_torch.ops.kernels.encoder_block import fused_mlp_block
-    from whisper_tpu_torch.ops.kernels.flash_attention import attention_bhsd
     from whisper_tpu_torch.params import init_params
-    from whisper_tpu_torch.pipeline.transcribe import (DecodeOptions,
-                                                       Transcriber,
-                                                       window_waveform)
+    from whisper_tpu_torch.pipeline.transcribe import Transcriber
+    from whisper_tpu_torch.text.tokenizer import (
+        WhisperTokenizer, build_full_scale_tokenizer_json)
 
     cfg = preset("large-v2")
     tok_path = _build.BUILD_DIR / "tokenizer_large_v2.json"
@@ -289,20 +441,26 @@ def phase_slice() -> tuple:
     params = init_params(cfg, gen, dtype=torch.bfloat16)
     torch.cuda.synchronize()
     log(f"slice: large-v2 bf16 random weights in {time.perf_counter() - t0:.1f} s")
+    tr = Transcriber(params, cfg, tok)
+    if tr.device.type != "cuda" or tr.cfg.attention != "flash":
+        raise AssertionError(f"the Transcriber's defaults gave "
+                             f"{tr.device} / {tr.cfg.attention}")
+    return params, tr, synthetic_speech(35 * 16000, SEED)
+
+
+def run_slice(tr, wave, opts, label: str) -> dict:
+    """Cold and warm `Transcriber.transcribe` runs; the launch counts of
+    each kernel are set to 0 just before the cold run and read just after
+    it."""
+    from whisper_tpu_torch.ops import audio
+    from whisper_tpu_torch.pipeline.transcribe import window_waveform
 
     sr = 16000
-    wave = synthetic_speech(35 * sr, SEED)
-    tr = Transcriber(params, cfg, tok)
-    if tr.cfg.attention != "flash":
-        raise AssertionError(f"auto attention on CUDA gave {tr.cfg.attention}")
-    opts = DecodeOptions(strategy="greedy", max_depth=100)
+    cfg = tr.cfg
     n_window = audio.max_waveform_samples(cfg.encoder_ctx_size - opts.padding)
-    overlap = int(sr * opts.chunk_overlap_seconds)
-    bounds = list(window_waveform(wave, sr, n_window, overlap))
-
-    counters = {"flash_attention": attention_bhsd,
-                "encoder_mlp": fused_mlp_block,
-                "decode_attention": decode_attention_stacked}
+    bounds = list(window_waveform(wave, sr, n_window,
+                                  int(sr * opts.chunk_overlap_seconds)))
+    n_layer = cfg.text_decoder_config.n_text_layer
     runs = []
     for run in ("cold", "warm"):
         stamps = []
@@ -310,19 +468,19 @@ def phase_slice() -> tuple:
         def on_chunk(i, text, stamps=stamps):
             stamps.append((i, time.perf_counter()))
 
-        for fn in counters.values():
-            fn.launches = 0
+        reset_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         text, tokens = tr.transcribe(wave, sr, opts, on_chunk=on_chunk)
         torch.cuda.synchronize()
         total = time.perf_counter() - t0
-        counts = {n: fn.launches for n, fn in counters.items()}
+        counts = launch_counts()
         if run == "cold":
             launches = counts
-        # an S = 1 step launches the decode kernel twice a layer (self, cross)
-        steps = counts["decode_attention"] // (
-            2 * cfg.text_decoder_config.n_text_layer)
+        # an S = 1 step launches two decode attentions a layer: self and
+        # cross (the per-lane kernel for greedy, the grouped one for beam)
+        steps = (counts["decode_attention"]
+                 + counts["decode_attention_group"]) // (2 * n_layer)
         prev, per_window = t0, []
         for i, ts in stamps:
             start, end = bounds[i]
@@ -330,41 +488,88 @@ def phase_slice() -> tuple:
             prev = ts
         runs.append(dict(run=run, seconds=total, xrt=len(wave) / sr / total,
                          window_xrt=per_window, decoder_steps=steps,
-                         n_tokens=len(tokens)))
-        log(f"slice {run}: {len(wave) / sr:.1f} s audio, {len(stamps)} "
+                         n_tokens=len(tokens), text_chars=len(text)))
+        if run == "cold":
+            cold_text = text
+        elif text != cold_text:
+            raise AssertionError(f"{label}: the warm run's text differs")
+        log(f"{label} {run}: {len(wave) / sr:.1f} s audio, {len(stamps)} "
             f"windows, {len(tokens)} tokens, {steps} S=1 decoder steps in "
             f"{total:.3f} s = {len(wave) / sr / total:.2f}x real time "
-            f"(eager, batch 1); per window "
+            f"(eager, one window at a time); per window "
             + ", ".join(f"{x:.2f}x" for x in per_window))
-    log(f"slice launches: {launches}")
+    log(f"{label} launches: {launches}")
     if len(stamps) != 3:
-        raise AssertionError(f"expected 3 windows, got {len(stamps)}")
-    missing = [n for n, c in launches.items() if c == 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the main path: {missing}")
+        raise AssertionError(f"{label}: expected 3 windows, got {len(stamps)}")
     if not tokens:
-        raise AssertionError("the transcription returned no tokens")
+        raise AssertionError(f"{label}: the transcription returned no tokens")
+    return dict(launches=launches, runs=runs, window=bounds[0],
+                text=cold_text)
 
+
+def phase_greedy(params, tr, wave) -> dict:
+    from whisper_tpu_torch.pipeline.transcribe import DecodeOptions
+
+    opts = DecodeOptions(strategy="greedy", max_depth=100)
+    info = run_slice(tr, wave, opts, "greedy slice")
+    for name in ("flash_attention", "encoder_mlp", "decode_attention"):
+        if info["launches"][name] == 0:
+            raise AssertionError(f"greedy slice never launched {name}")
     # finite encoder output and logits: checked here, outside the timed runs
-    compare_paths = compare_kernel_and_plain_paths(
-        M, audio, params, tr.cfg, tok, wave[:n_window], opts)
-    return launches, dict(runs=runs, text_chars=len(text),
-                          paths=compare_paths)
+    start, end = info.pop("window")
+    info["paths"] = compare_kernel_and_plain_paths(
+        params, tr.cfg, tr.tok, wave[start:end], opts)
+    return info
 
 
-def compare_kernel_and_plain_paths(M, audio, params, cfg_k, tok, window, opts):
+def phase_beam(params, tr, wave) -> dict:
+    from whisper_tpu_torch.pipeline.transcribe import DecodeOptions
+
+    opts = DecodeOptions()  # beam search, 5 beams, max_depth 100
+    if opts.strategy != "beam" or opts.beam_size != 5:
+        raise AssertionError(f"default options are not beam 5: {opts}")
+    info = run_slice(tr, wave, opts, "beam slice")
+    start, end = info.pop("window")
+    info["paths"] = compare_beam_paths(params, tr.cfg, tr.tok,
+                                       wave[start:end], opts)
+    return info
+
+
+def _window_encodings(params, cfg_k, window, opts):
+    """The window's log-mel through both encoders: {attention: enc}."""
+    import dataclasses
+
+    import whisper_tpu_torch.models.whisper as M
+    from whisper_tpu_torch.ops import audio
+
+    cfg_p = dataclasses.replace(cfg_k, attention="xla")
+    mel = audio.prep_audio(torch.from_numpy(window).cuda()[None])
+    keep = min(mel.shape[2], cfg_k.encoder_ctx_size - opts.padding)
+    mel = torch.nn.functional.pad(mel[:, :, :keep], (0, opts.padding))
+    return cfg_p, {c.attention: M.encoder_forward(params, mel, c)
+                   for c in (cfg_k, cfg_p)}
+
+
+def _check_paths(label: str, res: dict, finite: dict) -> dict:
+    for name, t in finite.items():
+        if not bool(torch.isfinite(t).all()):
+            raise AssertionError(f"{label}: kernel path {name} is not finite")
+    log(f"{label}: kernel path vs plain path (relative L2, limit "
+        f"{PATH_RTOL}): " + ", ".join(f"{k} {v:.3g}" for k, v in res.items()))
+    bad = {k: v for k, v in res.items() if not v <= PATH_RTOL}
+    if bad:
+        raise AssertionError(f"{label}: kernel and plain paths disagree: {bad}")
+    return res
+
+
+def compare_kernel_and_plain_paths(params, cfg_k, tok, window, opts):
     """One window through the kernel path and the plain path: encoder
     output, prefill logits and 8 greedy steps (the same tokens fed to both,
     so near-ties of random weights cannot split them)."""
-    import dataclasses
+    import whisper_tpu_torch.models.whisper as M
 
-    cfg_p = dataclasses.replace(cfg_k, attention="xla")
     with torch.inference_mode():
-        mel = audio.prep_audio(torch.from_numpy(window).cuda()[None])
-        keep = min(mel.shape[2], cfg_k.encoder_ctx_size - opts.padding)
-        mel = torch.nn.functional.pad(mel[:, :, :keep], (0, opts.padding))
-        enc = {c.attention: M.encoder_forward(params, mel, c)
-               for c in (cfg_k, cfg_p)}
+        cfg_p, enc = _window_encodings(params, cfg_k, window, opts)
         prompt = torch.tensor([tok.prompt_ids("en")], device="cuda")
         out, caches = {}, {}
         for c in (cfg_k, cfg_p):
@@ -384,16 +589,70 @@ def compare_kernel_and_plain_paths(M, audio, params, cfg_k, tok, window, opts):
            "prefill_logits": rel_err(out["flash"][0], out["xla"][0]),
            "step_logits": max(rel_err(a, b) for a, b in
                               zip(out["flash"][1:], out["xla"][1:]))}
-    for name, t in (("encoder", enc["flash"]),
-                    ("logits", torch.stack(out["flash"]))):
-        if not bool(torch.isfinite(t).all()):
-            raise AssertionError(f"kernel path {name} is not finite")
-    log(f"kernel path vs plain path (relative L2, limit {PATH_RTOL}): "
-        + ", ".join(f"{k} {v:.3g}" for k, v in res.items()))
-    bad = {k: v for k, v in res.items() if not v <= PATH_RTOL}
-    if bad:
-        raise AssertionError(f"kernel and plain paths disagree: {bad}")
-    return res
+    return _check_paths("greedy window", res, {
+        "encoder": enc["flash"], "logits": torch.stack(out["flash"])})
+
+
+def compare_beam_paths(params, cfg_k, tok, window, opts, steps: int = 8):
+    """Prefill + `steps` beam steps (5 lanes, one window's cross cache)
+    through the kernel path and the plain path, both fed the kernel path's
+    tokens and parents: each step's logits within PATH_RTOL, and the
+    kernel path's permuted self caches (K4) equal, bit for bit, to
+    `torch.index_select` of the buffers they were permuted from."""
+    import whisper_tpu_torch.models.whisper as M
+    from whisper_tpu_torch.decode.beam import top_k_stable
+    from whisper_tpu_torch.ops.kernels.permute import (
+        permute_lanes_arrays, permute_lanes_arrays_plain)
+
+    k = opts.beam_size
+    v = cfg_k.text_decoder_config.n_vocab
+    with torch.inference_mode():
+        cfg_p, enc = _window_encodings(params, cfg_k, window, opts)
+        prompt = torch.tensor(tok.prompt_ids("en"), device="cuda")
+        tokens = prompt[None].expand(k, -1).contiguous()
+        out, caches, spares = {}, {}, {}
+        for c in (cfg_k, cfg_p):
+            cache = M.init_cache(params, enc[c.attention], c, batch=k,
+                                 cache_len=128)
+            logits, cache = M.decoder_step(params, tokens, 0, cache, c)
+            out[c.attention], caches[c.attention] = [logits[:, -1]], cache
+            spares[c.attention] = (torch.zeros_like(cache.self_k),
+                                   torch.zeros_like(cache.self_v))
+        lane = torch.arange(k, device="cuda")
+        cur_logp = torch.where(lane == 0, 0.0, float("-inf"))
+        pos, exact = prompt.shape[0], True
+        for _ in range(steps):
+            logp = torch.log_softmax(out["flash"][-1].float(), -1)
+            cur_logp, flat = top_k_stable(
+                (cur_logp[:, None] + logp).reshape(-1), k)
+            parent, tok_ids = (flat // v).to(torch.int32), flat % v
+            for c, permute in ((cfg_k, permute_lanes_arrays),
+                               (cfg_p, permute_lanes_arrays_plain)):
+                a = c.attention
+                cache = caches[a]
+                new = permute((cache.self_k, cache.self_v), parent, spares[a])
+                if a == "flash":
+                    idx = parent.long()
+                    exact &= bool(torch.equal(
+                        new[0], torch.index_select(cache.self_k, 0, idx)))
+                    exact &= bool(torch.equal(
+                        new[1], torch.index_select(cache.self_v, 0, idx)))
+                spares[a] = (cache.self_k, cache.self_v)
+                cache = M.DecoderCache(*new, cache.cross_k, cache.cross_v)
+                logits, caches[a] = M.decoder_step(params, tok_ids[:, None],
+                                                   pos, cache, c)
+                out[a].append(logits[:, -1])
+            pos += 1
+    if not exact:
+        raise AssertionError("K4's permuted self caches differ from "
+                             "torch.index_select")
+    res = {"encoder": rel_err(enc["flash"], enc["xla"]),
+           "prefill_logits": rel_err(out["flash"][0], out["xla"][0]),
+           "step_logits": max(rel_err(a, b) for a, b in
+                              zip(out["flash"][1:], out["xla"][1:]))}
+    res = _check_paths("beam window", res, {
+        "encoder": enc["flash"], "logits": torch.stack(out["flash"])})
+    return dict(res, permuted_caches_equal=exact)
 
 
 if __name__ == "__main__":

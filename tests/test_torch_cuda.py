@@ -19,6 +19,7 @@ from whisper_tpu_torch.models import whisper as M
 from whisper_tpu_torch.ops.kernels import decode_attention as KC
 from whisper_tpu_torch.ops.kernels import encoder_block as KB
 from whisper_tpu_torch.ops.kernels import flash_attention as KA
+from whisper_tpu_torch.ops.kernels import permute as KP
 
 pytestmark = pytest.mark.cuda
 
@@ -82,6 +83,59 @@ def test_decode_attention_kernel(gen, dtype, batch_major):
     _close(got, want, *KC.TOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("batch_major", [True, False])
+@pytest.mark.parametrize("rep", [2, 5])
+def test_decode_attention_group_kernel(gen, dtype, batch_major, rep):
+    """K3g: kv row j serves q rows [j*rep, (j+1)*rep); v of mean 1, so a
+    dropped mask shows."""
+    bk, n_layer, c, d = 3, 4, 50, 128
+    shape = (bk, n_layer, c, d) if batch_major else (n_layer, bk, c, d)
+    kc = _randn(shape, gen, dtype=dtype)
+    vc = (_randn(shape, gen) + 1).to(dtype)
+    q = _randn((bk * rep, d), gen, 0.125, dtype=dtype)
+    pos = torch.tensor([0, 17, 39], dtype=torch.int32,
+                       device="cuda").repeat_interleave(rep)
+    before = (KC.decode_attention_stacked.launches,
+              KC.decode_attention_stacked.group_launches)
+    got = KC.decode_attention_stacked(q, kc, vc, pos, 2, 2,
+                                      batch_major=batch_major, kv_rep=rep,
+                                      c_used=40)
+    assert (KC.decode_attention_stacked.launches,
+            KC.decode_attention_stacked.group_launches) == (before[0],
+                                                            before[1] + 1)
+    want = KC.decode_attention_stacked_plain(q, kc, vc, pos, 2, 2,
+                                             batch_major=batch_major,
+                                             kv_rep=rep, c_used=40)
+    _close(got, want, *KC.TOL[dtype])
+
+
+@pytest.mark.parametrize("valid_len", [None, 37, 64])
+def test_permute_kernel_bit_exact(gen, valid_len):
+    """K4, whole slabs and the prefix mode (2 rank-4 caches + 2 rank-3
+    per-row arrays, copied whole); rows the prefix mode skips keep the
+    out buffer's old values."""
+    b, n_layer, c, d = 6, 3, 64, 128
+    arrays = [_randn((b, n_layer, c, d), gen) for _ in range(2)]
+    arrays += [_randn((b, n_layer, c), gen, dtype=torch.float32)
+               for _ in range(2)]
+    out = [torch.full_like(a, 3.0) for a in arrays]
+    parents = torch.tensor([1, 1, 0, 5, 2, 2], dtype=torch.int32,
+                           device="cuda")
+    before = KP.permute_lanes_arrays.launches
+    KP.permute_lanes_arrays(arrays, parents, out, valid_len=valid_len)
+    assert KP.permute_lanes_arrays.launches == before + 1
+    torch.cuda.synchronize()
+    idx = parents.long()
+    rows = c if valid_len is None else -(-valid_len // 32) * 32
+    for a, o in zip(arrays, out):
+        if a.dim() == 4:
+            assert torch.equal(o[:, :, :rows], a[idx][:, :, :rows])
+            assert bool((o[:, :, rows:] == 3.0).all())
+        else:
+            assert torch.equal(o, a[idx])
+
+
 def test_cuda_wrappers_raise_instead_of_falling_back(gen):
     x = _randn((1, 8, 96), gen)  # head dim 48: no kernel for it
     with pytest.raises(ValueError, match="head dim"):
@@ -90,6 +144,17 @@ def test_cuda_wrappers_raise_instead_of_falling_back(gen):
         KB.fused_mlp_block(x, x[0, 0], x[0, 0], _randn((96, 384), gen),
                            _randn((384,), gen), _randn((384, 96), gen),
                            x[0, 0])
+    kc = _randn((2, 1, 16, 128), gen)
+    with pytest.raises(ValueError, match="kv_rep"):
+        KC.decode_attention_stacked(_randn((18, 128), gen), kc, kc, 3, 0, 2,
+                                    kv_rep=9)
+    par = torch.zeros(2, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="overlaps"):
+        KP.permute_lanes_arrays((kc,), par, (kc,))
+    odd = _randn((2, 1, 16, 4), gen)  # 8-byte rows: no 16-byte vectors
+    with pytest.raises(ValueError, match="16 bytes"):
+        KP.permute_lanes_arrays((odd,), par, (torch.empty_like(odd),),
+                                valid_len=3, chunk=1)
 
 
 def test_encoder_block_never_runs_the_plain_mlp_on_the_card(gen):
@@ -165,3 +230,22 @@ def test_cli_transcribes_through_the_kernels(cli_dir, monkeypatch, capsys):
     assert rc == 1
     assert "bfloat16" in capsys.readouterr().err
     assert not os.path.exists("f32.txt")
+
+
+def test_cli_beam_search_goes_through_all_five_kernels(cli_dir, monkeypatch,
+                                                       capsys):
+    """The CLI's default (beam 5) on the card: K1, K2, K3, K3g and K4."""
+    monkeypatch.chdir(cli_dir)
+    counts = {"K1": lambda: KA.attention_bhsd.launches,
+              "K2": lambda: KB.fused_mlp_block.launches,
+              "K3": lambda: KC.decode_attention_stacked.launches,
+              "K3g": lambda: KC.decode_attention_stacked.group_launches,
+              "K4": lambda: KP.permute_lanes_arrays.launches}
+    before = {k: f() for k, f in counts.items()}
+    rc = torch_cli.main(["transcribe", "dump", "audio.wav", "en", "beam.txt",
+                         "--max-depth", "8"])
+    out, err = capsys.readouterr()
+    assert rc == 0, err
+    assert "Transcription finished." in out and os.path.exists("beam.txt")
+    grew = {k: f() - before[k] for k, f in counts.items()}
+    assert all(n > 0 for n in grew.values()), grew

@@ -1,4 +1,5 @@
-"""The plain PyTorch versions of the port's three kernels vs the JAX Pallas
+"""The plain PyTorch versions of the port's kernels (K1 flash attention, K2
+fused MLP, K3/K3g decode attention, K4 lane permute) vs the JAX Pallas
 kernels they replace, run as tests/test_pallas.py runs them on the CPU
 (interpret=True), plus the CPU dispatch, the launch counters and the build
 helper.
@@ -20,10 +21,12 @@ from whisper_tpu.ops.pallas.decode_attention import (
     decode_attention_stacked as j_decode)
 from whisper_tpu.ops.pallas.encoder_block import fused_mlp_block as j_mlp
 from whisper_tpu.ops.pallas.flash_attention import attention_bhsd as j_flash
+from whisper_tpu.ops.pallas.permute import permute_lanes_arrays as j_permute
 from whisper_tpu_torch.ops.kernels import _build
 from whisper_tpu_torch.ops.kernels import decode_attention as KC
 from whisper_tpu_torch.ops.kernels import encoder_block as KB
 from whisper_tpu_torch.ops.kernels import flash_attention as KA
+from whisper_tpu_torch.ops.kernels import permute as KP
 
 ATOL_F32 = 2e-5
 BF16 = dict(atol=2e-2, rtol=1e-2)
@@ -100,6 +103,30 @@ def test_decode_attention_plain_matches_pallas(dtype, batch_major, c_used):
     _check(got, want, dtype)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("batch_major", [True, False])
+@pytest.mark.parametrize("rep", [2, 5])
+def test_decode_attention_group_plain_matches_pallas(dtype, batch_major, rep):
+    """K3g: kv row j serves q rows [j*rep, (j+1)*rep). Every lane of a
+    window sees the same rows (the grouped TPU kernel reads one pos per
+    window); the windows' pos differ."""
+    rng = np.random.default_rng(rep)
+    bk, n_layer, c, d, heads, layer = 3, 2, 40, 128, 2, 1
+    shape = (bk, n_layer, c, d) if batch_major else (n_layer, bk, c, d)
+    kc = rng.standard_normal(shape).astype(np.float32)
+    vc = (1 + rng.standard_normal(shape)).astype(np.float32)
+    q = (rng.standard_normal((bk * rep, d)) * 0.125).astype(np.float32)
+    pos = np.repeat(np.array([c - 1, 4, 21], np.int32), rep)
+    (jq, tq), (jk, tk), (jv, tv) = (_both(a, dtype) for a in (q, kc, vc))
+    want = j_decode(jq, jk, jv, jnp.asarray(pos), jnp.int32(layer), heads,
+                    interpret=True, batch_major=batch_major, kv_rep=rep)
+    got = KC.decode_attention_stacked(tq, tk, tv, torch.from_numpy(pos),
+                                      layer, heads, batch_major=batch_major,
+                                      kv_rep=rep)
+    assert got.dtype == dtype and got.shape == (bk * rep, d)
+    _check(got, want, dtype)
+
+
 def test_decode_attention_scalar_pos_and_unported_variants():
     rng = np.random.default_rng(3)
     kc = torch.from_numpy(rng.standard_normal((2, 2, 16, 128)).astype(
@@ -109,24 +136,87 @@ def test_decode_attention_scalar_pos_and_unported_variants():
     b = KC.decode_attention_stacked(q, kc, kc, torch.tensor([9, 9]), 0, 2,
                                     batch_major=True)
     torch.testing.assert_close(a, b, rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match="K3g"):
+    with pytest.raises(ValueError, match="kv_rep"):  # 2 q rows, 2 kv rows
         KC.decode_attention_stacked(q, kc, kc, 9, 0, 2, kv_rep=2)
     with pytest.raises(NotImplementedError, match="K3s"):
         KC.decode_attention_stacked(q, kc, kc, 9, 0, 2, batch_major=True,
                                     k_rowscale=torch.ones(2, 2, 16))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_permute_plain_matches_pallas_whole_slabs(dtype):
+    rng = np.random.default_rng(4)
+    arrs = [rng.standard_normal((5, 2, 32, 128)).astype(np.float32)
+            for _ in range(2)]
+    parents = np.array([2, 2, 0, 4, 1], np.int32)
+    pairs = [_both(a, dtype) for a in arrs]
+    want = j_permute([p[0] for p in pairs], jnp.asarray(parents),
+                     interpret=True)
+    out = [torch.zeros_like(p[1]) for p in pairs]
+    got = KP.permute_lanes_arrays([p[1] for p in pairs],
+                                  torch.from_numpy(parents), out)
+    assert all(g is o for g, o in zip(got, out))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(_np(g), np.asarray(w, np.float32))
+
+
+@pytest.mark.parametrize("valid_len", [5, 37, 64])
+def test_permute_plain_matches_pallas_prefix(valid_len):
+    """Prefix mode with mixed ranks: two (B, L, C, d) caches copy rows
+    [0, ceil(valid/32)*32), two (B, L, C) arrays copy whole; compared on
+    the rows the kernels copy (the TPU kernel leaves the rest
+    uninitialised)."""
+    rng = np.random.default_rng(valid_len)
+    b, n_layer, c = 4, 2, 64
+    arrs = [rng.standard_normal((b, n_layer, c, 128)).astype(np.float32)
+            for _ in range(2)]
+    arrs += [rng.standard_normal((b, n_layer, c)).astype(np.float32)
+             for _ in range(2)]
+    parents = np.array([3, 0, 0, 1], np.int32)
+    want = j_permute([jnp.asarray(a) for a in arrs], jnp.asarray(parents),
+                     interpret=True, valid_len=jnp.int32(valid_len))
+    out = [torch.zeros(a.shape) for a in arrs]
+    KP.permute_lanes_arrays([torch.from_numpy(a) for a in arrs],
+                            torch.from_numpy(parents), out,
+                            valid_len=valid_len)
+    rows = -(-valid_len // 32) * 32
+    for g, w, a in zip(out, want, arrs):
+        g, w = g.numpy(), np.asarray(w)
+        if a.ndim == 4:
+            np.testing.assert_array_equal(g[:, :, :rows], w[:, :, :rows])
+            assert not g[:, :, rows:].any()  # left as the buffer was
+        else:
+            np.testing.assert_array_equal(g, w)
+
+
+def test_permute_plain_raises_on_aliased_out():
+    x, y = torch.randn(3, 2, 8, 16), torch.randn(3, 2, 8, 16)
+    par = torch.tensor([1, 0, 2])
+    for out in ((x, torch.empty_like(y)), (torch.empty_like(x), x),
+                (torch.empty_like(x), y.view(3, 2, 8, 16))):
+        with pytest.raises(ValueError, match="overlaps"):
+            KP.permute_lanes_arrays((x, y), par, out)
+    with pytest.raises(ValueError, match="multiple of chunk"):
+        KP.permute_lanes_arrays((x,), par, (torch.empty_like(x),),
+                                valid_len=3, chunk=5)
+
+
 def test_cpu_tensors_never_launch_a_kernel():
     counters = (KA.attention_bhsd, KB.fused_mlp_block,
-                KC.decode_attention_stacked)
+                KC.decode_attention_stacked, KP.permute_lanes_arrays)
     before = [f.launches for f in counters]
+    before_group = KC.decode_attention_stacked.group_launches
     x = torch.randn(1, 8, 128)
     KA.attention_bhsd(x, x, x, 2)
     KB.fused_mlp_block(x, torch.ones(128), torch.zeros(128),
                        torch.randn(128, 512), torch.zeros(512),
                        torch.randn(512, 128), torch.zeros(128))
     KC.decode_attention_stacked(x[:, 0], x[None], x[None], 3, 0, 2)
-    assert [f.launches for f in counters] == before == [0, 0, 0]
+    KC.decode_attention_stacked(x[0, :4], x[None], x[None], 3, 0, 2,
+                                kv_rep=4)
+    KP.permute_lanes_arrays((x,), torch.tensor([0]), (torch.empty_like(x),))
+    assert [f.launches for f in counters] == before == [0, 0, 0, 0]
+    assert KC.decode_attention_stacked.group_launches == before_group == 0
     assert _build._lib is None  # nothing was built or loaded
 
 

@@ -140,8 +140,38 @@ def test_whisper_forward_and_conv_layout(setup):
 
 def test_unported_cache_options_raise(setup):
     _, tp, mel, _ = setup
-    xa = torch.zeros(1, 15, 128)
+    xa = torch.zeros(2, 15, 128)
     with pytest.raises(NotImplementedError, match="item 9"):
         TM.init_cache(tp, xa, CFG, kv_quant=True)
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(ValueError, match="multiple"):
         TM.init_cache(tp, xa, CFG, batch=5)
+
+
+@pytest.mark.parametrize("attention", ["xla", "flash"])
+def test_beam_lanes_share_one_cross_cache(setup, attention):
+    """R = 3 decode lanes per window over 2 windows: the cross cache keeps
+    one row per window and lane i reads window i // 3, in the prefill
+    (einsum path) and in the S = 1 steps (the grouped kernel's plain
+    version under "flash"), as in the JAX package."""
+    jp, tp, mel, _ = setup
+    cfg = dataclasses.replace(CFG, attention=attention)
+    rng = np.random.default_rng(1)
+    toks = rng.integers(0, 80, (6, PROMPT + STEPS))
+    with jax.default_matmul_precision("highest"):
+        enc = JM.encoder_forward(jp, jnp.asarray(mel), cfg)
+        cache = JM.init_cache(jp, enc, cfg, batch=6, cache_len=16)
+        want = []
+        for i in [0, *range(PROMPT, PROMPT + STEPS)]:
+            n = PROMPT if i == 0 else 1
+            logits, cache = JM.decoder_step(
+                jp, jnp.asarray(toks[:, i:i + n]), jnp.int32(i), cache, cfg)
+            want.append(np.asarray(logits))
+    cache = TM.init_cache(tp, torch.tensor(np.asarray(enc)), cfg, batch=6,
+                          cache_len=16)
+    assert cache.cross_k.shape[1] == 2 and cache.self_k.shape[0] == 6
+    for j, i in enumerate([0, *range(PROMPT, PROMPT + STEPS)]):
+        n = PROMPT if i == 0 else 1
+        logits, cache = TM.decoder_step(
+            tp, torch.from_numpy(toks[:, i:i + n]), i, cache, cfg)
+        np.testing.assert_allclose(logits.numpy(), want[j], atol=LOGIT_ATOL,
+                                   rtol=0)

@@ -1,5 +1,6 @@
-"""The port's greedy decode and long-form pipeline vs the JAX package's,
-same weights and audio, f32 on the CPU.
+"""The port's greedy decode and long-form pipeline (beam and greedy) vs the
+JAX package's, same weights and audio, f32 on the CPU (device="cpu" and
+--device cpu, since the port's entry points default to the card).
 
 Setup as tests/test_golden_oracle.py: ENC_CTX 96 (0.87 s windows), the
 synthetic test tokenizer, a 2-layer n_state-32 model, PRNGKey(7). Random
@@ -89,7 +90,7 @@ def test_multiwindow_greedy_token_exact(setup, jax_transcript, attention):
     plain versions on the CPU."""
     params, cfg, tok, _ = setup
     t = TT.Transcriber(params, cfg, tok, attention=attention,
-                       matmul_precision="highest")
+                       matmul_precision="highest", device="cpu")
     chunks = []
     text, tokens = t.transcribe(
         _multiwindow_wave(), options=TT.DecodeOptions(
@@ -100,6 +101,50 @@ def test_multiwindow_greedy_token_exact(setup, jax_transcript, attention):
     assert tokens == want_tokens
     assert text == want_text and chunks == want_chunks
     assert len(tokens) > len(tok.prompt_ids("en"))  # not vacuous
+
+
+@pytest.fixture(scope="module")
+def jax_beam_transcript(setup):
+    params, cfg, tok, _ = setup
+    t = JT.Transcriber(params, cfg, tok, attention="xla",
+                       matmul_precision="highest")
+    chunks = []
+    text, tokens = t.transcribe(
+        _multiwindow_wave(), options=JT.DecodeOptions(
+            max_depth=12, chunk_overlap_seconds=OVERLAP_S),
+        on_chunk=lambda i, s: chunks.append(s))
+    return text, tokens, chunks
+
+
+@pytest.mark.parametrize("attention", ["xla", "flash"])
+def test_multiwindow_default_beam_token_exact(setup, jax_beam_transcript,
+                                              attention):
+    """Default options (beam search, 5 beams) over 3 windows against the
+    JAX Transcriber's."""
+    params, cfg, tok, _ = setup
+    assert TT.DecodeOptions().strategy == "beam"
+    t = TT.Transcriber(params, cfg, tok, attention=attention,
+                       matmul_precision="highest", device="cpu")
+    chunks = []
+    text, tokens = t.transcribe(
+        _multiwindow_wave(), options=TT.DecodeOptions(
+            max_depth=12, chunk_overlap_seconds=OVERLAP_S),
+        on_chunk=lambda i, s: chunks.append(s))
+    want_text, want_tokens, want_chunks = jax_beam_transcript
+    assert len(chunks) == 3
+    assert tokens == want_tokens
+    assert text == want_text and chunks == want_chunks
+    assert len(tokens) > len(tok.prompt_ids("en"))  # not vacuous
+
+
+def test_transcriber_defaults_to_the_card(setup, monkeypatch):
+    """device=None means "cuda": without a card the constructor raises
+    instead of running on the CPU."""
+    params, cfg, tok, _ = setup
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TT.Transcriber(params, cfg, tok)
+    assert TT.Transcriber(params, cfg, tok, device="cpu").device.type == "cpu"
 
 
 def _jnp(params):
@@ -284,13 +329,13 @@ def test_condition_on_previous_text_matches_jax(setup):
     want = JT.Transcriber(params, cfg, tok, attention="xla",
                           matmul_precision="highest").transcribe(
         wave, options=JT.DecodeOptions(**opts), on_chunk=lambda i, s: None)
-    got = TT.Transcriber(params, cfg, tok).transcribe(
+    got = TT.Transcriber(params, cfg, tok, device="cpu").transcribe(
         wave, options=TT.DecodeOptions(**opts), on_chunk=lambda i, s: None)
     assert got == want
 
 
 @pytest.mark.parametrize("change", [
-    dict(strategy="beam"), dict(timestamps=True), dict(kv_quant=True),
+    dict(strategy="sample"), dict(timestamps=True), dict(kv_quant=True),
     dict(self_quant=True), dict(temperature=(0.0, 0.2)),
     dict(temperature=0.5), dict(no_speech_threshold=0.6),
     dict(clip_timestamps="0,1"),
@@ -298,7 +343,7 @@ def test_condition_on_previous_text_matches_jax(setup):
 def test_unported_options_raise(setup, change):
     params, cfg, tok, _ = setup
     opts = TT.DecodeOptions(**{"strategy": "greedy", **change})
-    t = TT.Transcriber(params, cfg, tok)
+    t = TT.Transcriber(params, cfg, tok, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         t.transcribe(np.zeros(8000, np.float32), options=opts)
 
@@ -306,7 +351,7 @@ def test_unported_options_raise(setup, change):
 def test_draft_raises(setup):
     params, cfg, tok, _ = setup
     with pytest.raises(NotImplementedError, match="item 11"):
-        TT.Transcriber(params, cfg, tok, draft=(params, cfg))
+        TT.Transcriber(params, cfg, tok, draft=(params, cfg), device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -321,37 +366,55 @@ def cli_dir(setup):
     return d
 
 
-def test_cli_transcribe_matches_jax_cli(cli_dir, monkeypatch, capsys):
-    monkeypatch.chdir(cli_dir)
-    common = ["dump", "audio.wav", "en", "--greedy", "--max-depth", "8"]
-    assert jax_cli.main(["transcribe", *common[:3], "jax.txt",
-                         *common[3:]]) == 0
-    assert torch_cli.main(["transcribe", *common[:3], "torch.txt",
-                           *common[3:]]) == 0
+def _cli_pair(decode_args, capsys):
+    """The same transcription through the JAX CLI and the port's CLI (on
+    the CPU); returns both output files' text."""
+    args = ["dump", "audio.wav", "en"]
+    opts = [*decode_args, "--max-depth", "8"]
+    name = "greedy" if decode_args else "beam"
+    assert jax_cli.main(["transcribe", *args, f"jax_{name}.txt", *opts]) == 0
+    assert torch_cli.main(["transcribe", *args, f"torch_{name}.txt", *opts,
+                           "--device", "cpu"]) == 0
     out = capsys.readouterr().out
     assert "Loading waveform..." in out and "Loading model..." in out
     assert "Transcription finished." in out
-    with open("jax.txt") as a, open("torch.txt") as b:
-        want, got = a.read(), b.read()
+    with open(f"jax_{name}.txt") as a, open(f"torch_{name}.txt") as b:
+        return a.read(), b.read()
+
+
+def test_cli_transcribe_matches_jax_cli(cli_dir, monkeypatch, capsys):
+    monkeypatch.chdir(cli_dir)
+    want, got = _cli_pair(["--greedy"], capsys)
     assert got == want and got
 
 
-def test_cli_requires_greedy(cli_dir, monkeypatch, capsys):
+def test_cli_beam_search_matches_jax_cli(cli_dir, monkeypatch, capsys):
+    """Without --greedy both CLIs run beam search (5 beams)."""
     monkeypatch.chdir(cli_dir)
-    rc = torch_cli.main(["transcribe", "dump", "audio.wav", "en", "x.txt"])
-    assert rc != 0
-    assert "--greedy" in capsys.readouterr().err
-    assert not os.path.exists("x.txt")
+    want, got = _cli_pair([], capsys)
+    assert got == want and got
+
+
+def test_cli_without_a_card_exits_nonzero(cli_dir, monkeypatch, capsys):
+    """--device cuda is the default; with no card the CLI says so and
+    exits non-zero instead of falling back to the CPU."""
+    monkeypatch.chdir(cli_dir)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for extra in ([], ["--device", "cuda"]):
+        rc = torch_cli.main(["transcribe", "dump", "audio.wav", "en",
+                             "nocard.txt", *extra])
+        assert rc != 0
+        assert "--device cpu" in capsys.readouterr().err
+    assert not os.path.exists("nocard.txt")
 
 
 def test_cli_process_never_imports_jax(cli_dir):
-    """The CLI loads weights and audio through whisper_tpu's io modules
-    without their package __init__ (which imports jax)."""
+    """The CLI loads weights and audio with the port's own io modules."""
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     code = ("import sys\n"
             "from whisper_tpu_torch.cli import main\n"
             "rc = main(['transcribe', 'dump', 'audio.wav', 'en', 'sub.txt', "
-            "'--greedy', '--max-depth', '4'])\n"
+            "'--greedy', '--max-depth', '4', '--device', 'cpu'])\n"
             "print(rc, 'jax' in sys.modules)\n")
     env = dict(os.environ, PYTHONPATH=repo)
     proc = subprocess.run([sys.executable, "-c", code], cwd=cli_dir, env=env,

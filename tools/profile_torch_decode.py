@@ -1,0 +1,109 @@
+"""Where a decode step's time goes on the card, for the PyTorch port.
+
+    python3 tools/profile_torch_decode.py [--depth 30]
+
+Large-v2 bf16 with random weights from a seed, one 14.9 s window of
+synthetic audio (the chip_smoke slice's first window): the encoder once,
+then greedy decoding and beam search (5 beams) of `--depth` steps each,
+after a warm-up run of each. Each decode runs once under the host clock
+alone and once under `torch.profiler`; the profile gives the device time
+per kernel name, the number of kernel launches, and the device's busy
+share (summed kernel time over the host-clock wall time of the unprofiled
+run; kernels do not overlap on one stream). Prints one JSON line per
+decoder. Needs a CUDA card; it exits non-zero without one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import sys
+import time
+
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--depth", type=int, default=30)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_torch_decode: no CUDA device", file=sys.stderr)
+        return 1
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from chip_smoke import SEED, synthetic_speech
+    from whisper_tpu_torch.config import preset
+    from whisper_tpu_torch.decode.beam import beam_search
+    from whisper_tpu_torch.decode.greedy import greedy_decode
+    from whisper_tpu_torch.models.whisper import encoder_forward
+    from whisper_tpu_torch.ops.audio import max_waveform_samples, prep_audio
+    from whisper_tpu_torch.params import init_params
+    from whisper_tpu_torch.text.tokenizer import (
+        WhisperTokenizer, build_full_scale_tokenizer_json)
+
+    from whisper_tpu_torch.ops.kernels._build import BUILD_DIR
+
+    cfg = dataclasses.replace(preset("large-v2"), attention="flash")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tok_path = str(BUILD_DIR / "tokenizer_large_v2.json")
+    build_full_scale_tokenizer_json(tok_path)
+    tok = WhisperTokenizer(tok_path)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED),
+                         dtype=torch.bfloat16)
+    n = max_waveform_samples(cfg.encoder_ctx_size - 10)
+    wave = torch.from_numpy(synthetic_speech(n, SEED)).cuda()[None]
+    suppress = torch.as_tensor(tok.suppress_mask(), device="cuda")
+    prompt = torch.tensor(tok.prompt_ids("en"), device="cuda")
+    with torch.inference_mode():
+        mel = prep_audio(wave)
+        mel = torch.nn.functional.pad(mel[:, :, :cfg.encoder_ctx_size - 10],
+                                      (0, 10))
+        enc = encoder_forward(params, mel, cfg)
+    smi = os.popen("nvidia-smi --query-gpu=name,power.limit "
+                   "--format=csv,noheader").read().strip()
+    print(smi, flush=True)
+    common = dict(eot_id=tok.eot, suppress_mask=suppress,
+                  max_depth=args.depth)
+    runs = {"greedy": lambda: greedy_decode(params, enc, prompt, cfg,
+                                            **common),
+            "beam5": lambda: beam_search(params, enc, prompt, cfg,
+                                         beam_size=5, **common)}
+    for name, fn in runs.items():
+        with torch.inference_mode():
+            fn()  # warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+        # the device-side rows: kernels, copies and sets themselves (an
+        # aten op's row also carries its kernels' time, so it is left out)
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        device_us = sum(e.self_device_time_total for e in events)
+        launches = sum(e.count for e in events)
+        top = sorted(events, key=lambda e: -e.self_device_time_total)[:12]
+        print(json.dumps({
+            "decoder": name, "steps": args.depth, "wall_ms": wall * 1e3,
+            "wall_ms_per_step": wall * 1e3 / args.depth,
+            "device_ms": device_us / 1e3,
+            "device_ms_per_step": device_us / 1e3 / args.depth,
+            "device_busy_share": device_us / 1e6 / wall,
+            "kernel_launches": launches,
+            "top_kernels_ms": {e.key[:80]: e.self_device_time_total / 1e3
+                               for e in top}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

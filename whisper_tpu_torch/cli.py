@@ -1,14 +1,15 @@
 """Command-line interface of the PyTorch/CUDA port.
 
-    python -m whisper_tpu_torch.cli transcribe <model> <audio.wav> <lang> <out.txt> --greedy
+    python -m whisper_tpu_torch.cli transcribe <model> <audio.wav> <lang> <out.txt>
 
 Keeps the reference's positional contract (whisper-burn
 src/bin/transcribe/main.rs:85-94) and its progress lines, as
 `whisper_tpu.cli transcribe` does: loads `<model>.cfg` + weights through
-`whisper_tpu.io.checkpoint.load_params` and `tokenizer.json` (next to the
-model, then the working directory), asserts 16 kHz audio unless
-`--resample`, writes the transcription file. Only greedy decoding is
-ported: without `--greedy` it exits non-zero.
+`io.checkpoint.load_params` and `tokenizer.json` (next to the model, then
+the working directory), asserts 16 kHz audio unless `--resample`, writes
+the transcription file. It decodes with beam search (`--beam-size`,
+default 5) unless `--greedy`, on the CUDA card unless `--device cpu`:
+without a card it exits non-zero rather than fall back to the CPU.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ def cmd_transcribe(argv) -> int:
     p = argparse.ArgumentParser(
         prog="whisper_tpu_torch transcribe",
         description="Transcribe a WAV file on the PyTorch/CUDA port "
-                    "(reference CLI contract; greedy decoding only).")
+                    "(reference CLI contract).")
     p.add_argument("model", help="model name: <name>.cfg + <name>.safetensors/"
                                  ".mpk.gz, or a npy dump directory")
     p.add_argument("audio", help="16 kHz mono WAV file")
@@ -34,34 +35,32 @@ def cmd_transcribe(argv) -> int:
                    help="path to tokenizer.json (default: next to model, "
                         "then CWD)")
     p.add_argument("--greedy", action="store_true",
-                   help="greedy decoding (required: beam search is not "
-                        "ported yet)")
+                   help="greedy decoding instead of beam search")
+    p.add_argument("--beam-size", type=int, default=5)
     p.add_argument("--max-depth", type=int, default=100)
     p.add_argument("--resample", action="store_true",
                    help="resample input to 16 kHz instead of rejecting it")
+    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                   help="where the model runs (default: the CUDA card; the "
+                        "CPU only when asked for)")
     p.add_argument("--dtype", choices=["float32", "bfloat16"], default=None,
-                   help="weight dtype (default: bfloat16 on a CUDA device, "
-                        "whose kernels take only bfloat16; float32 on the "
-                        "CPU)")
+                   help="weight dtype (default: bfloat16 on the card, whose "
+                        "kernels take only bfloat16; float32 on the CPU)")
     p.add_argument("-v", "--verbose", action="count", default=0)
     args = p.parse_args(argv)
 
-    if not args.greedy:
-        print("whisper_tpu_torch decodes greedily only: pass --greedy (beam "
-              "search is not ported yet)", file=sys.stderr)
-        return 2
-
     import torch
 
-    from whisper_tpu.config import SAMPLE_RATE, WhisperConfig
-    from whisper_tpu.text.tokenizer import LANGUAGES_V3, WhisperTokenizer
+    if args.device == "cuda" and not torch.cuda.is_available():
+        print("No CUDA device: whisper_tpu_torch runs on the card by "
+              "default; pass --device cpu to run on the CPU.", file=sys.stderr)
+        return 1
 
-    from ._reuse import reuse
+    from .config import SAMPLE_RATE, WhisperConfig
+    from .io import checkpoint, native as wav_native, wav
     from .pipeline.transcribe import DecodeOptions, Transcriber
+    from .text.tokenizer import LANGUAGES_V3, WhisperTokenizer
 
-    checkpoint = reuse("whisper_tpu.io.checkpoint")
-    wav_native = reuse("whisper_tpu.io.native")
-    wav = reuse("whisper_tpu.io.wav")
     logging.basicConfig(
         stream=sys.stderr, format="[%(asctime)s %(name)s %(levelname)s] "
         "%(message)s", datefmt="%H:%M:%S",
@@ -108,7 +107,7 @@ def cmd_transcribe(argv) -> int:
         print(f"Failed to load whisper model file: {e}", file=sys.stderr)
         return 1
 
-    device = "cuda" if torch.cuda.is_available() else "cpu"
+    device = args.device
     dtype_name = args.dtype or ("bfloat16" if device == "cuda" else "float32")
     dtype = getattr(torch, dtype_name)
     t0 = time.perf_counter()
@@ -118,7 +117,8 @@ def cmd_transcribe(argv) -> int:
         print(f"Failed to set up the model: {e}", file=sys.stderr)
         return 1
     text, _ = t.transcribe(waveform, rate, DecodeOptions(
-        lang=args.lang, strategy="greedy", max_depth=args.max_depth))
+        lang=args.lang, strategy="greedy" if args.greedy else "beam",
+        beam_size=args.beam_size, max_depth=args.max_depth))
     dt = time.perf_counter() - t0
     with open(args.out, "w") as f:
         f.write(text)
@@ -134,8 +134,9 @@ def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
     if not argv or argv[0] != "transcribe":
         print("usage: python -m whisper_tpu_torch.cli transcribe <model> "
-              "<audio> <lang> <out> --greedy [--max-depth N] [--resample] "
-              "[--dtype float32|bfloat16] [--tokenizer PATH]", file=sys.stderr)
+              "<audio> <lang> <out> [--greedy | --beam-size K] [--max-depth N]"
+              " [--resample] [--device cuda|cpu] [--dtype float32|bfloat16] "
+              "[--tokenizer PATH]", file=sys.stderr)
         return 2
     return cmd_transcribe(argv[1:])
 

@@ -146,18 +146,160 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// K3g: R query lanes share one kv row (the beam lanes of one window against
+// that window's cross cache: kv row j serves q rows [j*R, (j+1)*R)).
+//
+// Replaces: whisper_tpu/ops/pallas/decode_attention.py::
+// _decode_attn_stacked_group_kernel (and its `_attend_group`), plus the f32
+// per-lane kv_rep path of _decode_attn_stacked_kernel. Same numerics as the
+// kernel above, lane by lane: exact f32 scores of each pre-scaled query,
+// rows past that lane's pos masked, f32 softmax, weights rounded once to
+// bf16 for a bf16 cache (f32 for an f32 cache), f32 value sum, output in
+// the cache dtype.
+//
+// Bound on the H100: device-memory bandwidth. R lanes per kv row read the
+// same K/V rows, so the per-lane kernel would stream the window's cross
+// cache R times; at large-v2 beam 5 one layer's cross K+V is
+// 2 * 750 * 1280 * 2 B = 3.84 MB per window, ~1.15 us at 3.35 TB/s, against
+// 5x that per lane. The design reads each visible K and V row of a head
+// ONCE per block, one block per (head, kv row), and scores it against all R
+// queries held in registers; the block keeps R score rows in shared memory
+// and one warp runs each lane's softmax.
+template <typename T, int R>
+__global__ void __launch_bounds__(THREADS)
+decode_attention_group_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                              const T* __restrict__ v, const int* __restrict__ pos,
+                              T* __restrict__ out, int c_used, int layer, long long q_sb,
+                              long long k_lane, long long k_layer, long long k_row,
+                              long long v_lane, long long v_layer, long long v_row,
+                              long long o_sb) {
+  using V = wtt::Vec16<T>;
+  constexpr int VEC = V::N;
+  constexpr int LPR = HD / VEC;
+  constexpr int RPW = 32 / LPR;
+  constexpr int RPB = RPW * WARPS;
+
+  extern __shared__ float scores[];  // [R][c_used]
+  __shared__ float sq[R * HD];
+  __shared__ int sn[R];
+  __shared__ float part[R * WARPS * HD];
+
+  const int h = blockIdx.x;
+  const int j = blockIdx.y;  // kv row; q rows j*R .. j*R + R - 1
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int sub = lane % LPR;
+  const int rin = lane / LPR;
+
+  for (int t = threadIdx.x; t < R * HD; t += THREADS)
+    sq[t] = wtt::to_f32(q[(long long)(j * R + t / HD) * q_sb + h * HD + t % HD]);
+  if (threadIdx.x < R) sn[threadIdx.x] = min(pos[j * R + threadIdx.x] + 1, c_used);
+  const T* kb = k + j * k_lane + layer * k_layer + h * HD + sub * VEC;
+  const T* vb = v + j * v_lane + layer * v_layer + h * HD + sub * VEC;
+  __syncthreads();
+
+  int n_max = 0;
+#pragma unroll
+  for (int r = 0; r < R; ++r) n_max = max(n_max, sn[r]);
+
+  float qv[R][VEC];
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) qv[r][e] = sq[r * HD + sub * VEC + e];
+
+  // Scores: each K row is loaded once and dotted with all R queries.
+  for (int base = 0; base < n_max; base += RPB) {
+    const int c = base + warp * RPW + rin;
+    float kv[VEC];
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) kv[e] = 0.f;
+    if (c < n_max) V::load(kb + c * k_row, kv);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      float dot = 0.f;
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) dot += qv[r][e] * kv[e];
+#pragma unroll
+      for (int o = LPR / 2; o > 0; o >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, o);
+      if (c < n_max && sub == 0) scores[r * c_used + c] = dot;
+    }
+  }
+  __syncthreads();
+
+  // Softmax: one warp per lane r; rows past that lane's pos weigh 0.
+  for (int r = warp; r < R; r += WARPS) {
+    float* sr = scores + r * c_used;
+    const int n = sn[r];
+    float mx = -INFINITY;
+    for (int c = lane; c < n; c += 32) mx = fmaxf(mx, sr[c]);
+    mx = wtt::warp_max(mx);
+    float sum = 0.f;
+    for (int c = lane; c < n; c += 32) {
+      const float p = expf(sr[c] - mx);
+      sr[c] = p;
+      sum += p;
+    }
+    sum = wtt::warp_sum(sum);
+    for (int c = lane; c < n; c += 32) sr[c] = wtt::to_f32(wtt::from_f32<T>(sr[c] / sum));
+    for (int c = n + lane; c < n_max; c += 32) sr[c] = 0.f;
+  }
+  __syncthreads();
+
+  // Weighted value sums: each V row is loaded once for all R lanes.
+  float acc[R][VEC];
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) acc[r][e] = 0.f;
+  for (int c = warp * RPW + rin; c < n_max; c += RPB) {
+    float vv[VEC];
+    V::load(vb + c * v_row, vv);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const float w = scores[r * c_used + c];
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) acc[r][e] += w * vv[e];
+    }
+  }
+#pragma unroll
+  for (int o = LPR; o < 32; o <<= 1) {
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) acc[r][e] += __shfl_xor_sync(0xffffffffu, acc[r][e], o);
+  }
+  if (rin == 0) {
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) part[(r * WARPS + warp) * HD + sub * VEC + e] = acc[r][e];
+  }
+  __syncthreads();
+  for (int t = threadIdx.x; t < R * HD; t += THREADS) {
+    const int r = t / HD, ch = t % HD;
+    float s = 0.f;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) s += part[(r * WARPS + w) * HD + ch];
+    out[(long long)(j * R + r) * o_sb + h * HD + ch] = wtt::from_f32<T>(s);
+  }
+}
+
+template <typename K>
+int set_smem(K kernel, size_t smem) {
+  if (smem <= 48 * 1024) return (int)cudaSuccess;
+  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)smem);
+}
+
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const int* pos, void* out, int B,
            int H, int c_used, int layer, long long q_sb, long long k_lane, long long k_layer,
            long long k_row, long long v_lane, long long v_layer, long long v_row,
            long long o_sb, cudaStream_t stream) {
   const size_t smem = (size_t)c_used * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(decode_attention_kernel<T>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
+  const int err = set_smem(decode_attention_kernel<T>, smem);
+  if (err != cudaSuccess) return err;
   dim3 grid(H, B);
   decode_attention_kernel<T><<<grid, THREADS, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, pos, (T*)out, c_used, layer, q_sb, k_lane,
@@ -165,20 +307,65 @@ int launch(const void* q, const void* k, const void* v, const int* pos, void* ou
   return (int)cudaGetLastError();
 }
 
+template <typename T, int R>
+int launch_group(const void* q, const void* k, const void* v, const int* pos, void* out,
+                 int B, int H, int c_used, int layer, long long q_sb, long long k_lane,
+                 long long k_layer, long long k_row, long long v_lane, long long v_layer,
+                 long long v_row, long long o_sb, cudaStream_t stream) {
+  const size_t smem = (size_t)R * c_used * sizeof(float);
+  const int err = set_smem(decode_attention_group_kernel<T, R>, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid(H, B / R);
+  decode_attention_group_kernel<T, R><<<grid, THREADS, smem, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, pos, (T*)out, c_used, layer, q_sb, k_lane,
+      k_layer, k_row, v_lane, v_layer, v_row, o_sb);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int dispatch(int rep, const void* q, const void* k, const void* v, const int* pos, void* out,
+             int B, int H, int c_used, int layer, long long q_sb, long long k_lane,
+             long long k_layer, long long k_row, long long v_lane, long long v_layer,
+             long long v_row, long long o_sb, cudaStream_t s) {
+#define WTT_GROUP(R)                                                                     \
+  case R:                                                                                \
+    return launch_group<T, R>(q, k, v, pos, out, B, H, c_used, layer, q_sb, k_lane,      \
+                              k_layer, k_row, v_lane, v_layer, v_row, o_sb, s);
+  switch (rep) {
+    case 1:
+      return launch<T>(q, k, v, pos, out, B, H, c_used, layer, q_sb, k_lane, k_layer, k_row,
+                       v_lane, v_layer, v_row, o_sb, s);
+      WTT_GROUP(2)
+      WTT_GROUP(3)
+      WTT_GROUP(4)
+      WTT_GROUP(5)
+      WTT_GROUP(6)
+      WTT_GROUP(7)
+      WTT_GROUP(8)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef WTT_GROUP
+}
+
 }  // namespace
 
-// Strides are in elements. is_f32 selects the f32 cache variant (else bf16).
+// Strides are in elements; the lane strides step over kv rows. B is the
+// number of q rows, rep the q rows per kv row (1: the per-lane K3 kernel,
+// 2..MAX_REP: the grouped K3g kernel). is_f32 selects the f32 cache variant
+// (else bf16).
 extern "C" int wtt_decode_attention(const void* q, const void* k, const void* v,
-                                    const void* pos, void* out, int B, int H, int c_used,
-                                    int layer, int is_f32, long long q_sb, long long k_lane,
-                                    long long k_layer, long long k_row, long long v_lane,
-                                    long long v_layer, long long v_row, long long o_sb,
-                                    void* stream) {
+                                    const void* pos, void* out, int B, int H, int rep,
+                                    int c_used, int layer, int is_f32, long long q_sb,
+                                    long long k_lane, long long k_layer, long long k_row,
+                                    long long v_lane, long long v_layer, long long v_row,
+                                    long long o_sb, void* stream) {
+  if (rep < 1 || B % rep) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const int* p = (const int*)pos;
   if (is_f32)
-    return launch<float>(q, k, v, p, out, B, H, c_used, layer, q_sb, k_lane, k_layer, k_row,
-                         v_lane, v_layer, v_row, o_sb, s);
-  return launch<__nv_bfloat16>(q, k, v, p, out, B, H, c_used, layer, q_sb, k_lane, k_layer,
-                               k_row, v_lane, v_layer, v_row, o_sb, s);
+    return dispatch<float>(rep, q, k, v, p, out, B, H, c_used, layer, q_sb, k_lane, k_layer,
+                           k_row, v_lane, v_layer, v_row, o_sb, s);
+  return dispatch<__nv_bfloat16>(rep, q, k, v, p, out, B, H, c_used, layer, q_sb, k_lane,
+                                 k_layer, k_row, v_lane, v_layer, v_row, o_sb, s);
 }

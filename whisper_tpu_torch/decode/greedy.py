@@ -17,8 +17,7 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
-from whisper_tpu.config import WhisperConfig
-
+from ..config import WhisperConfig
 from ..models import whisper as M
 
 NEG_INF = float("-inf")

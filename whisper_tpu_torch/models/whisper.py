@@ -28,8 +28,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from whisper_tpu.config import WhisperConfig
-
+from ..config import WhisperConfig
 from ..ops.kernels.decode_attention import decode_attention_stacked
 from ..ops.kernels.encoder_block import fused_mlp_block
 from ..ops.kernels.flash_attention import attention_bhsd
@@ -240,7 +239,8 @@ class DecoderCache(NamedTuple):
     """Fixed-shape decoder state, updated IN PLACE by `decoder_step`.
 
     self_k/self_v: (B, L, cache_len, d), batch-major;
-    cross_k/cross_v: (L, B, Sa, d), layer-major, computed once per window.
+    cross_k/cross_v: (L, W, Sa, d), layer-major, computed once per window;
+    W = B / R when R decode lanes share each window (beam search).
     """
 
     self_k: torch.Tensor
@@ -254,9 +254,10 @@ def init_cache(params: ParamTree, enc_out: torch.Tensor, cfg: WhisperConfig,
                kv_quant: bool = False, self_quant: bool = False
                ) -> DecoderCache:
     """Zeroed self cache (capped at `cache_len` rows) and the cross K/V of
-    every layer from enc_out. bf16/f32 caches only: quantized caches are
-    ROADMAP queue 1 item 9, and decode lanes sharing one window's cross
-    cache (batch a multiple of enc_out's) belong to beam search, item 7."""
+    every layer from enc_out. A `batch` that is a multiple R of enc_out's
+    gives each window R decode lanes that share ONE cross-KV copy (the
+    beam case, whisper.py:584-593): lane i reads window i // R. bf16/f32
+    caches only: quantized caches are ROADMAP queue 1 item 9."""
     if kv_quant or self_quant:
         raise NotImplementedError(
             "quantized KV caches are ROADMAP queue 1 item 9, not ported yet")
@@ -265,14 +266,13 @@ def init_cache(params: ParamTree, enc_out: torch.Tensor, cfg: WhisperConfig,
     n_layer, d = dec_cfg.n_text_layer, dec_cfg.n_text_state
     b_enc, sa, _ = enc_out.shape
     b = batch or b_enc
-    if b != b_enc:
-        raise NotImplementedError(
-            f"decode batch {b} != enc_out batch {b_enc}: shared per-window "
-            "cross-KV (beam) is ROADMAP queue 1 item 7, not ported yet")
+    if b % b_enc:
+        raise ValueError(
+            f"decode batch {b} must be a multiple of enc_out batch {b_enc}")
     dtype = dec["tok_emb"].dtype
     xa = enc_out.to(dtype)
     blocks = dec["blocks"]
-    ck = torch.empty((n_layer, b, sa, d), dtype=dtype, device=xa.device)
+    ck = torch.empty((n_layer, b_enc, sa, d), dtype=dtype, device=xa.device)
     cv = torch.empty_like(ck)
     for l in range(n_layer):
         ck[l], cv[l] = _kv_proj(xa, blocks["cross_kv_w"][l],
@@ -284,20 +284,23 @@ def init_cache(params: ParamTree, enc_out: torch.Tensor, cfg: WhisperConfig,
 
 def _cached_attention(q, k_cache, v_cache, last_visible: torch.Tensor,
                       n_head: int) -> torch.Tensor:
-    """S new queries (B, S, d) against a (B, C, d) cache; key c is visible
-    to query i iff c <= last_visible[i]. The einsum path of the JAX
-    `_cached_attention` (whisper.py:713-745): q scaled by hd^-0.5 in f32
-    and cast back, f32 scores, -inf mask, f32 softmax cast to q's dtype,
-    f32 value sum, output in the cache dtype."""
+    """S new queries (B, S, d) against a (B/R, C, d) cache; key c is
+    visible to query i iff c <= last_visible[i]. R = B / cache rows > 1:
+    kv row w serves q rows [w*R, (w+1)*R), the beam lanes of one window
+    (whisper.py:692-742). The einsum path of the JAX `_cached_attention`:
+    q scaled by hd^-0.5 in f32 and cast back, f32 scores, -inf mask, f32
+    softmax cast to q's dtype, f32 value sum, output in the cache dtype."""
     b, s, d = q.shape
-    c = k_cache.shape[1]
+    bk, c = k_cache.shape[:2]
+    rep = b // bk
     hd = d // n_head
-    qh = (q * float(hd) ** -0.5).reshape(b, s, n_head, hd).transpose(1, 2)
-    kh = k_cache.to(q.dtype).reshape(b, c, n_head, hd).transpose(1, 2)
-    vh = v_cache.to(q.dtype).reshape(b, c, n_head, hd).transpose(1, 2)
+    qh = (q * float(hd) ** -0.5).reshape(bk, rep * s, n_head, hd)
+    qh = qh.transpose(1, 2)
+    kh = k_cache.to(q.dtype).reshape(bk, c, n_head, hd).transpose(1, 2)
+    vh = v_cache.to(q.dtype).reshape(bk, c, n_head, hd).transpose(1, 2)
     scores = torch.matmul(qh.float(), kh.float().transpose(-1, -2))
-    hidden = (torch.arange(c, device=q.device)[None, :]
-              > last_visible.reshape(-1, 1))
+    vis = last_visible.reshape(-1, 1).repeat(rep, 1)  # (rep * S, 1)
+    hidden = torch.arange(c, device=q.device)[None, :] > vis
     scores = scores.masked_fill(hidden, NEG_INF)
     w = torch.softmax(scores, dim=-1).to(q.dtype)
     out = torch.matmul(w.float(), vh.float())
@@ -315,14 +318,18 @@ def _decoder_step_fused(params, tokens, pos: int, cache: DecoderCache,
     attention kernel takes the whole cache and the layer index, for the
     self cache (batch-major, rows <= pos visible) and the cross cache
     (layer-major, all rows visible). The bf16/f32 branch of the JAX
-    `_decoder_step_fused` (whisper.py:923-943); `c_used` is the full
-    cache length (the JAX prefix-rung ladder is a TPU A/B hook)."""
+    `_decoder_step_fused` (whisper.py:923-954); `c_used` is the full
+    cache length (the JAX prefix-rung ladder is a TPU A/B hook). With R
+    lanes per window the cross call passes kv_rep = R (the grouped
+    kernel)."""
     dec = params["decoder"]
     dec_cfg = cfg.text_decoder_config
     n_head, eps = dec_cfg.n_text_head, cfg.ln_eps
     b = tokens.shape[0]
     scale = float(dec_cfg.n_text_state // n_head) ** -0.5
-    sa, c_self = cache.cross_k.shape[2], cache.self_k.shape[2]
+    _, b_cross, sa, _ = cache.cross_k.shape
+    kv_rep = b // b_cross
+    c_self = cache.self_k.shape[2]
     pos_self = torch.full((b,), pos, dtype=torch.int32, device=tokens.device)
     pos_cross = torch.full((b,), sa - 1, dtype=torch.int32, device=tokens.device)
 
@@ -342,7 +349,8 @@ def _decoder_step_fused(params, tokens, pos: int, cache: DecoderCache,
         q = _linear(hn, p["cross_q_w"], p["cross_q_b"])
         q1 = q[:, 0] * scale
         cross = decode_attention_stacked(
-            q1, cache.cross_k, cache.cross_v, pos_cross, l, n_head)
+            q1, cache.cross_k, cache.cross_v, pos_cross, l, n_head,
+            kv_rep=kv_rep)
         h = h + _linear(cross[:, None], p["cross_o_w"], p["cross_o_b"])
         h = _mlp(h, p, eps)
     return _logits(layer_norm(h, dec["ln_g"], dec["ln_b"], eps), dec), cache

@@ -24,7 +24,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from whisper_tpu.config import HOP_LENGTH, N_FFT, N_MELS
+from ..config import HOP_LENGTH, N_FFT, N_MELS
 
 __all__ = ["max_waveform_samples", "num_frames", "hann_window",
            "mel_filters", "stft", "prep_audio"]

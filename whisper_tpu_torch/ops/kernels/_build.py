@@ -1,10 +1,11 @@
 """Build and load the port's hand-written CUDA kernels.
 
-All sources in `whisper_tpu_torch/csrc/` compile with `nvcc` for Hopper
-(`sm_90a`) into ONE shared library with a plain C interface, loaded with
-`ctypes`. Nothing here runs at import time: `library()` builds at first
-use, so importing the package on a machine without `nvcc` or a GPU
-compiles and loads nothing.
+Each source in `whisper_tpu_torch/csrc/` compiles with `nvcc` for Hopper
+(`sm_90a`) into an object file, all of them at once in parallel processes,
+and the objects link into ONE shared library with a plain C interface,
+loaded with `ctypes`. Nothing here runs at import time: `library()` builds
+at first use, so importing the package on a machine without `nvcc` or a
+GPU compiles and loads nothing.
 
 The library lands in `build/whisper_tpu_torch/` at the repository root,
 named by a hash of the sources and flags, so an edit to any source builds
@@ -20,7 +21,9 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
+import time
 from pathlib import Path
 from typing import Optional
 
@@ -28,7 +31,7 @@ CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "whisper_tpu_torch"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 ]
 
@@ -41,8 +44,9 @@ SIGNATURES = {
                             _LL, _LL, _LL, _LL, _LL, _LL, _F, _P],
     "wtt_encoder_mlp": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                         _F, _P],
-    "wtt_decode_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _LL,
-                             _LL, _LL, _LL, _LL, _LL, _LL, _LL, _P],
+    "wtt_decode_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                             _LL, _LL, _LL, _LL, _LL, _LL, _LL, _LL, _P],
+    "wtt_permute_lanes": [_I, _I, _P, _P, _P, _P, _P],
 }
 
 _lock = threading.Lock()
@@ -76,22 +80,41 @@ def library_path() -> Path:
     return BUILD_DIR / f"libwtt_kernels_{h.hexdigest()[:16]}.so"
 
 
-def _compile(out: Path) -> None:
-    import time
+def _run_all(cmds) -> list:
+    """Run the commands as parallel processes; (cmd, returncode, output)
+    for each, in order."""
+    logs = [tempfile.TemporaryFile(mode="w+") for _ in cmds]
+    procs = [subprocess.Popen(c, stdout=f, stderr=subprocess.STDOUT)
+             for c, f in zip(cmds, logs)]
+    runs = []
+    for c, p, f in zip(cmds, procs, logs):
+        rc = p.wait()
+        f.seek(0)
+        runs.append((c, rc, f.read()))
+        f.close()
+    return runs
 
+
+def _compile(out: Path) -> None:
     global build_seconds
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cus = [str(p) for p in _sources() if p.suffix == ".cu"]
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *cus]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    with tempfile.TemporaryDirectory(dir=out.parent) as objdir:
+        cus = [p for p in _sources() if p.suffix == ".cu"]
+        objs = [str(Path(objdir) / f"{p.stem}.o") for p in cus]
+        runs = _run_all([[nvcc, *NVCC_FLAGS, "-c", str(p), "-o", o]
+                         for p, o in zip(cus, objs)])
+        if all(rc == 0 for _, rc, _ in runs):
+            runs += _run_all([[nvcc, "-shared", "-o", str(tmp), *objs]])
     build_seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    out.with_suffix(".log").write_text(" ".join(cmd) + "\n" + log)
-    if proc.returncode != 0:
+    log = "".join(" ".join(c) + "\n" + o for c, _, o in runs)
+    out.with_suffix(".log").write_text(log)
+    failed = [rc for _, rc, _ in runs if rc != 0]
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+        raise RuntimeError(f"nvcc failed ({failed[0]}):\n{log}")
     os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
 
 

@@ -1,18 +1,23 @@
 """Single-query attention over one layer of a layer-stacked KV cache:
-Hopper kernel, its plain PyTorch version, and the wrapper that picks
+Hopper kernels, their plain PyTorch version, and the wrapper that picks
 between them by device.
 
-Replaces the TPU kernel `whisper_tpu/ops/pallas/decode_attention.py::
-_decode_attn_stacked_kernel` (entry `decode_attention_stacked`), the
-bf16/f32 per-lane variant. The CUDA source, `csrc/decode_attention.cu`,
-runs one block per (head, lane) and takes the base pointer, strides and
-layer index of the WHOLE stacked cache -- no per-layer copy is sliced out
-before the launch. Its note reckons the bytes that bound it.
+Replaces two TPU kernels of `whisper_tpu/ops/pallas/decode_attention.py`
+(entry `decode_attention_stacked`):
+  K3  `_decode_attn_stacked_kernel`, the bf16/f32 per-lane variant
+      (kv_rep = 1);
+  K3g `_decode_attn_stacked_group_kernel`, where kv row j serves the q
+      rows [j*kv_rep, (j+1)*kv_rep) -- the beam lanes of one window
+      against that window's one cross cache (kv_rep = 2 .. MAX_REP).
+The CUDA source, `csrc/decode_attention.cu`, runs one block per (head,
+lane) for K3 and one per (head, kv row) for K3g, and takes the base
+pointer, strides and layer index of the WHOLE stacked cache -- no
+per-layer copy is sliced out before the launch. Its notes reckon the
+bytes that bound each.
 
 The int8 per-row-scale variant (`_decode_attn_stacked_scaled_kernel`,
-`k_rowscale`) and the grouped beam variant (`_decode_attn_stacked_group_
-kernel`, `kv_rep > 1`) are not ported yet (ROADMAP queue 2, K3s and K3g):
-both raise NotImplementedError here.
+`k_rowscale`, K3s) is not ported yet (ROADMAP queue 2) and raises
+NotImplementedError here.
 
 Tolerance against the plain version: elementwise
 |kernel - plain| <= ATOL + RTOL * |plain| with (ATOL, RTOL) = TOL[dtype].
@@ -31,14 +36,11 @@ from ._build import check, library, stream_ptr
 
 TOL = {torch.bfloat16: (1e-2, 1e-2), torch.float32: (1e-5, 1e-5)}
 NEG_INF = -1e30  # the TPU kernel's mask value
+MAX_REP = 8  # the largest kv_rep the grouped kernel is instantiated for
 _HD = 64
 
 
-def _unsupported(kv_rep, k_rowscale, v_rowscale):
-    if kv_rep != 1:
-        raise NotImplementedError(
-            "kv_rep > 1 (beam lanes sharing one cross-KV block) is ROADMAP "
-            "queue 2 K3g, not ported yet")
+def _unsupported(k_rowscale, v_rowscale):
     if k_rowscale is not None or v_rowscale is not None:
         raise NotImplementedError(
             "int8 self-KV row scales are ROADMAP queue 2 K3s, not ported yet")
@@ -67,26 +69,33 @@ def decode_attention_stacked_plain(
     v_rowscale: Optional[torch.Tensor] = None,
     c_used: Optional[int] = None,
 ) -> torch.Tensor:
-    """The TPU kernel's `_attend` arithmetic in plain PyTorch: exact f32
-    scores of the pre-scaled query against the stored keys, rows past
-    pos[b] masked, f32 softmax, weights rounded once to bf16 for a bf16
-    cache, f32 value sum, output in the cache dtype."""
-    _unsupported(kv_rep, k_rowscale, v_rowscale)
+    """The TPU kernels' `_attend` / `_attend_group` arithmetic in plain
+    PyTorch, lane by lane: exact f32 scores of the pre-scaled query
+    against the stored keys of its kv row (q row i reads kv row
+    i // kv_rep), rows past pos[i] masked, f32 softmax, weights rounded
+    once to bf16 for a bf16 cache, f32 value sum, output in the cache
+    dtype."""
+    _unsupported(k_rowscale, v_rowscale)
     b, d = q.shape
     hd = d // n_head
     k = _layer_view(k_cache, layer, batch_major)
     v = _layer_view(v_cache, layer, batch_major)
+    bk = k.shape[0]
+    if b != bk * kv_rep:
+        raise ValueError(f"q batch {b} != kv batch {bk} * kv_rep {kv_rep}")
     cu = k.shape[1] if not c_used else min(int(c_used), k.shape[1])
     k, v = k[:, :cu], v[:, :cu]
-    s = torch.einsum("bhe,bche->bhc", q.float().reshape(b, n_head, hd),
-                     k.float().reshape(b, cu, n_head, hd))
-    hidden = (torch.arange(cu, device=q.device)[None, :]
-              > _rows(pos, b, q.device)[:, None].long())
-    s = s.masked_fill(hidden[:, None, :], NEG_INF)
+    s = torch.einsum("brhe,bche->brhc",
+                     q.float().reshape(bk, kv_rep, n_head, hd),
+                     k.float().reshape(bk, cu, n_head, hd))
+    hidden = (torch.arange(cu, device=q.device)
+              > _rows(pos, b, q.device).long().reshape(bk, kv_rep, 1, 1))
+    s = s.masked_fill(hidden, NEG_INF)
     w = torch.softmax(s, dim=-1)
     if v.dtype == torch.bfloat16:
         w = w.to(torch.bfloat16).float()
-    o = torch.einsum("bhc,bche->bhe", w, v.float().reshape(b, cu, n_head, hd))
+    o = torch.einsum("brhc,bche->brhe", w,
+                     v.float().reshape(bk, cu, n_head, hd))
     return o.reshape(b, d).to(v.dtype)
 
 
@@ -106,13 +115,17 @@ def decode_attention_stacked(
     """Returns (B, d) in the cache dtype. CPU tensors take the plain
     version; CUDA tensors launch the Hopper kernel or raise (bf16 or f32
     q/k/v of one dtype, head dim 64, unit channel stride, 16-byte aligned
-    rows). The caller guarantees every pos < c_used."""
-    _unsupported(kv_rep, k_rowscale, v_rowscale)
+    rows, kv_rep <= MAX_REP). kv_rep = 1 is K3 (counted in `.launches`),
+    kv_rep > 1 K3g (counted in `.group_launches`). The caller guarantees
+    every pos < c_used."""
+    _unsupported(k_rowscale, v_rowscale)
     if q.device.type == "cpu":
         return decode_attention_stacked_plain(
-            q, k_cache, v_cache, pos, layer, n_head, batch_major,
+            q, k_cache, v_cache, pos, layer, n_head, batch_major, kv_rep,
             c_used=c_used)
     b, d = q.shape
+    if not 1 <= kv_rep <= MAX_REP:
+        raise ValueError(f"kv_rep {kv_rep} outside the kernel's 1..{MAX_REP}")
     dt = k_cache.dtype
     if dt not in TOL or q.dtype != dt or v_cache.dtype != dt:
         raise TypeError(f"decode attention kernel takes bf16 or f32 of one "
@@ -122,8 +135,9 @@ def decode_attention_stacked(
     if k_cache.shape != v_cache.shape:
         raise ValueError("k and v caches differ in shape")
     lane_dim, layer_dim = (0, 1) if batch_major else (1, 0)
-    if k_cache.shape[lane_dim] != b:
-        raise ValueError(f"q batch {b} != cache lanes {k_cache.shape[lane_dim]}")
+    if k_cache.shape[lane_dim] * kv_rep != b:
+        raise ValueError(f"q batch {b} != kv batch {k_cache.shape[lane_dim]}"
+                         f" * kv_rep {kv_rep}")
     c = k_cache.shape[2]
     cu = c if not c_used else min(int(c_used), c)
     # 16-byte vector loads: unit channel stride, 16-byte aligned rows
@@ -140,12 +154,17 @@ def decode_attention_stacked(
     out = torch.empty((b, d), dtype=dt, device=q.device)
     err = library().wtt_decode_attention(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        pos_rows.data_ptr(), out.data_ptr(), b, n_head, cu, int(layer),
-        int(dt == torch.float32), qs[0], ks[lane_dim], ks[layer_dim], ks[2],
-        vs[lane_dim], vs[layer_dim], vs[2], out.stride(0), stream_ptr(q))
+        pos_rows.data_ptr(), out.data_ptr(), b, n_head, kv_rep, cu,
+        int(layer), int(dt == torch.float32), qs[0], ks[lane_dim],
+        ks[layer_dim], ks[2], vs[lane_dim], vs[layer_dim], vs[2],
+        out.stride(0), stream_ptr(q))
     check(err, "wtt_decode_attention")
-    decode_attention_stacked.launches += 1
+    if kv_rep == 1:
+        decode_attention_stacked.launches += 1
+    else:
+        decode_attention_stacked.group_launches += 1
     return out
 
 
 decode_attention_stacked.launches = 0
+decode_attention_stacked.group_launches = 0

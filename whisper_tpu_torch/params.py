@@ -17,7 +17,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from whisper_tpu.config import WhisperConfig
+from .config import WhisperConfig
 
 
 class ParamTree(nn.Module):

@@ -1,7 +1,8 @@
-"""Long-form transcription: windowing, per-window greedy decode, stitching.
+"""Long-form transcription: windowing, per-window decode, stitching.
 
 Counterpart of `whisper_tpu/pipeline/transcribe.py` (reference:
-whisper-burn `src/transcribe.rs`) for the greedy path: ~14.9 s windows
+whisper-burn `src/transcribe.rs`) for the beam (the default) and greedy
+paths at temperature 0: ~14.9 s windows
 (`max_waveform_samples(encoder_ctx - 10)` samples) with a 3 s overlap,
 each window's mel clipped to (encoder_ctx - padding) frames and
 zero-padded by `padding` frames, the [SOT, lang, task, notimestamps]
@@ -27,13 +28,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from whisper_tpu.config import SAMPLE_RATE, WhisperConfig
-
-from .._reuse import reuse
+from ..config import SAMPLE_RATE, WhisperConfig
+from ..decode.beam import beam_search
 from ..decode.greedy import greedy_decode
 from ..models.whisper import encoder_forward
 from ..ops.audio import max_waveform_samples, prep_audio
 from ..params import ParamTree, from_numpy_tree
+from . import vad
 
 log = logging.getLogger(__name__)
 
@@ -41,9 +42,8 @@ log = logging.getLogger(__name__)
 @dataclasses.dataclass(frozen=True)
 class DecodeOptions:
     """Decoding knobs: the fields and defaults of the JAX package's
-    `DecodeOptions` (redefined because that module imports jax). The
-    default strategy is "beam", which the port does not have yet; pass
-    strategy="greedy"."""
+    `DecodeOptions` (redefined because that module imports jax): beam
+    search with 5 beams by default, or strategy="greedy"."""
 
     lang: str = "en"
     task: str = "transcribe"
@@ -74,11 +74,11 @@ class DecodeOptions:
 
 
 def _check_supported(opt: DecodeOptions) -> None:
-    """Raise for every option the port's greedy slice does not cover."""
+    """Raise for every option the port's beam and greedy paths do not
+    cover."""
     todo = []
-    if opt.strategy != "greedy":
-        todo.append(f"strategy={opt.strategy!r} (beam search: ROADMAP queue "
-                    "1 item 7)")
+    if opt.strategy not in ("beam", "greedy"):
+        todo.append(f"strategy={opt.strategy!r} (ROADMAP queue 1 item 7)")
     if opt.timestamps:
         todo.append("timestamps (ROADMAP queue 1 item 8)")
     if opt.kv_quant or opt.self_quant:
@@ -126,10 +126,13 @@ def window_waveform(waveform: np.ndarray, sample_rate: int,
 
 
 class Transcriber:
-    """Loads once, transcribes many: params on one device, greedy windows.
+    """Loads once, transcribes many: params on one device, one window after
+    another.
 
     `params`: a ParamTree (moved to `device`) or the JAX package's numpy
-    pytree (converted with `from_numpy_tree`). `dtype` casts the floating
+    pytree (converted with `from_numpy_tree`). `device` is "cuda" unless
+    given: without a CUDA device the constructor raises, and the CPU runs
+    only when asked for with device="cpu". `dtype` casts the floating
     parameters. `attention="auto"` is "flash" (the hand-written kernels)
     on a CUDA device and "xla" (plain PyTorch) on the CPU; the kernels take
     bfloat16, so "flash" on CUDA with other weights raises ValueError.
@@ -145,10 +148,11 @@ class Transcriber:
             raise NotImplementedError(
                 "speculative decoding (draft=) is ROADMAP queue 1 item 11, "
                 "not ported yet")
-        if device is None:
-            device = (next(iter(params.buffers())).device
-                      if isinstance(params, ParamTree) else "cpu")
-        self.device = torch.device(device)
+        self.device = torch.device("cuda" if device is None else device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: the Transcriber runs on the card by default; "
+                "pass device='cpu' to run on the CPU")
         if isinstance(params, ParamTree):
             params = params.to(device=self.device)
             if dtype is not None:
@@ -208,18 +212,24 @@ class Transcriber:
     def _decode_window(self, window: np.ndarray, prompt: torch.Tensor,
                        suppress_until_len: int, opt: DecodeOptions
                        ) -> List[int]:
-        """One window: log-mel, clip + pad, encoder, greedy decode; returns
-        the decoded sequence (prompt included)."""
+        """One window: log-mel, clip + pad, encoder, then beam search
+        (as whisper_tpu/pipeline/transcribe.py:559-572) or greedy decode;
+        returns the decoded sequence (prompt included)."""
         cfg = self.cfg
         wave = torch.from_numpy(window).to(self.device)
         mel = prep_audio(wave[None, :], n_mels=cfg.n_mels)
         keep = min(mel.shape[2], cfg.encoder_ctx_size - opt.padding)
         mel = F.pad(mel[:, :, :keep], (0, opt.padding))
         enc = encoder_forward(self.params, mel, cfg)
-        toks, length, _ = greedy_decode(
-            self.params, enc, prompt, cfg, eot_id=self.tok.eot,
-            suppress_mask=self._suppress, max_depth=opt.max_depth,
-            suppress_until_len=suppress_until_len)
+        common = dict(eot_id=self.tok.eot, suppress_mask=self._suppress,
+                      max_depth=opt.max_depth,
+                      suppress_until_len=suppress_until_len)
+        if opt.strategy == "beam":
+            toks, length, _ = beam_search(self.params, enc, prompt, cfg,
+                                          beam_size=opt.beam_size, **common)
+            return toks[: int(length)].tolist()
+        toks, length, _ = greedy_decode(self.params, enc, prompt, cfg,
+                                        **common)
         return toks[0, : int(length[0])].tolist()
 
     def transcribe(self, waveform: np.ndarray, sample_rate: int = SAMPLE_RATE,
@@ -251,7 +261,7 @@ class Transcriber:
                     log.warning("skipping %d-sample tail window (< n_fft)",
                                 len(window))
                     continue
-                if opt.vad and reuse("whisper_tpu.pipeline.vad").is_silent(
+                if opt.vad and vad.is_silent(
                         window, sample_rate, opt.vad_threshold_db,
                         opt.vad_min_speech_seconds):
                     log.info("chunk %d: silent window skipped by VAD", i)
