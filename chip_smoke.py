@@ -7,7 +7,7 @@ Phases, in order; any failure raises and the script exits non-zero:
   2. build   -- compile the port's kernels from `whisper_tpu_torch/csrc`
                 (one nvcc per source, all at once);
   3. kernels -- each hand-written kernel against its plain PyTorch version
-                at the large-v2 shapes of the two slices, then larger ones,
+                at the large-v2 shapes of the slices, then larger ones,
                 with error, tolerance, CUDA-event times of the kernel, its
                 plain version and one PyTorch library call computing the
                 same function (where there is one), and the kernel's bound
@@ -18,13 +18,21 @@ Phases, in order; any failure raises and the script exits non-zero:
                 count read around that run, then the kernel path held
                 against the plain path (attention="xla") on one window;
   5. beam    -- the same audio with the default `DecodeOptions()` (beam
-                search, 5 beams, max_depth 100), cold and warm, all five
-                kernels' launch counts read around the run, then prefill +
+                search, 5 beams, max_depth 100), cold and warm, every
+                kernel's launch count read around the run, then prefill +
                 8 beam steps on one window through both paths, fed the
                 kernel path's tokens and parents: logits within PATH_RTOL,
-                permuted caches equal to `torch.index_select`.
-The line before the last is a JSON object with one entry per kernel; the
-last line is {"ok": true, "device": {...}}.
+                permuted caches equal to `torch.index_select`;
+  6. quantized greedy -- int8 weight-only `quantize_params` of the same
+                weights, greedy with int8 cross and self caches (K3 over
+                int8, K3s), cold and warm, then the two paths on one window;
+  7. quantized beam -- the bench's default configuration: beam 5 over the
+                int8 weights, an int4 cross cache and an int8 self cache
+                (K3g over int4, K5 with copy-on-write slots), cold and warm,
+                then the two paths on one window.
+Every kernel must be launched by some slice. The line before the last is
+a JSON object with one entry per kernel (launches summed over the slices'
+cold runs); the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -158,6 +166,8 @@ def phase_kernels() -> dict:
     from whisper_tpu_torch.ops.kernels import encoder_block as KB
     from whisper_tpu_torch.ops.kernels import flash_attention as KA
     from whisper_tpu_torch.ops.kernels import permute as KP
+    from whisper_tpu_torch.ops.kernels import permute_attention as KF
+    from whisper_tpu_torch.quantize import pack_int4
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     d, heads, hidden, hd = 1280, 20, 5120, 64
@@ -222,52 +232,86 @@ def phase_kernels() -> dict:
     # C: self caches (B, L, C, d) with mixed pos, cross caches (L, B, Sa, d)
     # with every row visible; the beam path's shape (5 lanes) first, then
     # the greedy path's two. C.g: the grouped kernel, R q rows per
-    # cross-cache row; v of mean 1, so a dropped mask shows.
+    # cross-cache row (R = 10 and 16: two groups of lanes a kv row). v of
+    # mean 1 (positive integers for an integer cache), so a dropped mask
+    # shows. Integer caches (int8, packed int4) take a bf16 query scaled as
+    # the model's folded K scale leaves it; no PyTorch attention call takes
+    # integer K/V, so their library column is empty.
     bf16, f32 = torch.bfloat16, torch.float32
-    for name, kind, b, rep, n_layer, c, dt, pos, cu in (
-            ("decode_attention", "self", 5, 1, 32, 128, bf16,
+    for name, kind, b, rep, n_layer, c, st, pos, cu in (
+            ("decode_attention", "self", 5, 1, 32, 128, "bf16",
              [40] * 5, None),
-            ("decode_attention", "self", 1, 1, 32, 128, bf16, [37], None),
-            ("decode_attention", "cross", 1, 1, 32, 750, bf16, None, None),
-            ("decode_attention", "self", 8, 1, 32, 128, bf16,
+            ("decode_attention", "self", 1, 1, 32, 128, "bf16", [37], None),
+            ("decode_attention", "cross", 1, 1, 32, 750, "bf16", None, None),
+            ("decode_attention", "cross", 1, 1, 32, 750, "int8", None, None),
+            ("decode_attention", "cross", 1, 1, 32, 750, "int4", None, None),
+            ("decode_attention", "self", 8, 1, 32, 128, "bf16",
              [0, 5, 17, 63, 64, 100, 126, 127], None),
-            ("decode_attention", "cross", 8, 1, 32, 1500, bf16, None, None),
-            ("decode_attention", "self", 2, 1, 2, 64, f32, [3, 40], 48),
-            ("decode_attention_group", "cross", 5, 5, 32, 750, bf16, None,
+            ("decode_attention", "cross", 8, 1, 32, 1500, "bf16", None, None),
+            ("decode_attention", "self", 2, 1, 2, 64, "f32", [3, 40], 48),
+            ("decode_attention_group", "cross", 5, 5, 32, 750, "bf16", None,
              None),
-            ("decode_attention_group", "cross", 40, 5, 32, 1500, bf16, None,
+            ("decode_attention_group", "cross", 5, 5, 32, 750, "int8", None,
              None),
-            ("decode_attention_group", "cross", 10, 5, 4, 128, f32, None,
+            ("decode_attention_group", "cross", 5, 5, 32, 750, "int4", None,
+             None),
+            ("decode_attention_group", "cross", 10, 10, 32, 750, "bf16",
+             None, None),
+            ("decode_attention_group", "cross", 16, 16, 32, 750, "bf16",
+             None, None),
+            ("decode_attention_group", "cross", 40, 5, 32, 1500, "bf16", None,
+             None),
+            ("decode_attention_group", "cross", 10, 5, 4, 128, "f32", None,
              None)):
         bm = kind == "self"
         bk = b // rep
         shape = (bk, n_layer, c, d) if bm else (n_layer, bk, c, d)
-        kc = _randn(shape, gen, dtype=dt)
-        vc = (_randn(shape, gen, dtype=f32) + (rep > 1)).to(dt)
-        q = _randn((b, d), gen, 0.125, dtype=dt)
+        dt = f32 if st == "f32" else bf16
+        lim = {"int8": 127, "int4": 7}.get(st)
+        if lim is None:
+            kc = _randn(shape, gen, dtype=dt)
+            vc = (_randn(shape, gen, dtype=f32) + (rep > 1)).to(dt)
+            q = _randn((b, d), gen, 0.125, dtype=dt)
+        else:
+            kc = torch.randint(-lim, lim + 1, shape, generator=gen,
+                               device="cuda", dtype=torch.int8)
+            vc = torch.randint(0, lim + 1, shape, generator=gen,
+                               device="cuda", dtype=torch.int8)
+            q = _randn((b, d), gen, 0.5 / lim)
+            if st == "int4":
+                kc, vc = pack_int4(kc), pack_int4(vc)
         pos_t = torch.tensor([c - 1] * b if pos is None else pos,
                              dtype=torch.int32, device="cuda")
         layer = 7 % n_layer
         n_vis = [min(p + 1, cu or c) for p in pos_t.tolist()]
-        es = kc.element_size()
+        row_bytes = kc.shape[3] * kc.element_size()  # int4: d / 2 bytes
         if rep == 1:  # every lane reads its own rows
-            read = sum(2 * n * d * es for n in n_vis)
+            read = sum(2 * n * row_bytes for n in n_vis)
         else:  # one read of each window's rows serves its R lanes
-            read = sum(2 * n_vis[j * rep] * d * es for j in range(bk))
-        work = (read + 2 * b * d * es + 4 * b, sum(4 * n * d for n in n_vis))
-        kl = kc[:, layer] if bm else kc[layer]
-        vl = vc[:, layer] if bm else vc[layer]
+            read = sum(2 * n_vis[j * rep] * row_bytes for j in range(bk))
+        qb = q.element_size()
+        work = (read + 2 * b * d * qb + 4 * b, sum(4 * n * d for n in n_vis))
         ncu = cu or c
-        kh, vh = heads_view(kl[:, :ncu], ncu), heads_view(vl[:, :ncu], ncu)
-        if rep == 1:
-            qh = heads_view(q[:, None], 1)
-            mask = (torch.arange(ncu, device="cuda")[None, None, None, :]
-                    <= pos_t[:, None, None, None])
-        else:  # the R lanes of a window as R queries of one head row
-            qh = heads_view(q.view(bk, rep, d), rep)
-            mask = None
+        library = None
+        if lim is None:
+            kl = kc[:, layer] if bm else kc[layer]
+            vl = vc[:, layer] if bm else vc[layer]
+            kh, vh = heads_view(kl[:, :ncu], ncu), heads_view(vl[:, :ncu],
+                                                              ncu)
+            if rep == 1:
+                qh = heads_view(q[:, None], 1)
+                mask = (torch.arange(ncu, device="cuda")[None, None, None, :]
+                        <= pos_t[:, None, None, None])
+            else:  # the R lanes of a window as R queries of one head row
+                qh = heads_view(q.view(bk, rep, d), rep)
+                mask = None
+
+            def library(qh=qh, kh=kh, vh=vh, mask=mask):
+                return F.scaled_dot_product_attention(qh, kh, vh,
+                                                      attn_mask=mask,
+                                                      scale=1.0)
         record(name,
-               f"{kind} {str(dt)[6:]} B={b}" + (f" R={rep}" if rep > 1 else "")
+               f"{kind} {st} B={b}" + (f" R={rep}" if rep > 1 else "")
                + f" L={n_layer} C={c}" + (f" c_used={cu}" if cu else ""),
                lambda: KC.decode_attention_stacked(
                    q, kc, vc, pos_t, layer, heads, batch_major=bm,
@@ -275,12 +319,99 @@ def phase_kernels() -> dict:
                lambda: KC.decode_attention_stacked_plain(
                    q, kc, vc, pos_t, layer, heads, batch_major=bm,
                    kv_rep=rep, c_used=cu),
-               *KC.TOL[dt], work,
-               lambda: F.scaled_dot_product_attention(qh, kh, vh,
-                                                      attn_mask=mask,
-                                                      scale=1.0),
-               dtype=dt)
-        del kc, vc, kl, vl, kh, vh
+               *KC.TOL[dt], work, library, dtype=dt)
+        del kc, vc, library
+
+    # E: K3s, the int8 self cache with row scales: the greedy slice's shape
+    # (1 lane, C = 128), then 8 lanes with mixed pos and a NaN scale on
+    # each lane's first masked row. No PyTorch call takes int8 K/V with row
+    # scales.
+    for b, pos in ((1, [37]), (8, [0, 5, 17, 63, 64, 100, 125, 126])):
+        shape = (b, 32, 128, d)
+        kc, vc = (torch.randint(-127, 128, shape, generator=gen,
+                                device="cuda", dtype=torch.int8)
+                  for _ in "kv")
+        ks, vs = (0.002 + 0.01 * torch.rand(shape[:3], generator=gen,
+                                            device="cuda") for _ in "kv")
+        pos_t = torch.tensor(pos, dtype=torch.int32, device="cuda")
+        lanes = torch.arange(b, device="cuda")
+        ks[lanes, 7, pos_t.long() + 1] = float("nan")
+        vs[lanes, 7, pos_t.long() + 1] = float("nan")
+        q = _randn((b, d), gen, 0.125)
+        n_vis = [p + 1 for p in pos]
+        work = (sum(2 * n * (d + 4) for n in n_vis) + 2 * b * d * 2,
+                sum(4 * n * d for n in n_vis))
+        record("decode_attention_scaled",
+               f"self int8 B={b} L=32 C=128" + (" mixed pos" if b > 1 else ""),
+               lambda: KC.decode_attention_stacked(
+                   q, kc, vc, pos_t, 7, heads, batch_major=True,
+                   k_rowscale=ks, v_rowscale=vs),
+               lambda: KC.decode_attention_stacked_plain(
+                   q, kc, vc, pos_t, 7, heads, batch_major=True,
+                   k_rowscale=ks, v_rowscale=vs),
+               *KC.TOL[bf16], work)
+        del kc, vc, ks, vs
+
+    # F: K5 at the beam slice's shape, one window of 5 lanes at pos 60:
+    # random, collapsed and identity parents with copy-on-write dests from
+    # `_cow_assign` over a shuffled slot map, then random parents with
+    # dests=None (identity slots, which the wrapper stages). The kernel and
+    # the plain version run on two copies of the same caches: the attention
+    # within K3's tolerance, all four updated arrays bit-equal. No PyTorch
+    # call reshuffles, appends and attends.
+    from whisper_tpu_torch.decode.beam import _cow_assign
+
+    k, ps = 5, 60
+    shape = (k, 32, 128, d)
+    caches = [torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                            dtype=torch.int8) for _ in "kv"]
+    caches += [0.002 + 0.01 * torch.rand(shape[:3], generator=gen,
+                                         device="cuda") for _ in "kv"]
+    new = [torch.randint(-127, 128, (k, d), generator=gen, device="cuda",
+                         dtype=torch.int8) for _ in "kv"]
+    new += [0.002 + 0.01 * torch.rand(k, generator=gen, device="cuda")
+            for _ in "kv"]
+    q = _randn((k, d), gen, 0.125)
+    phys = torch.randperm(k, generator=gen, device="cuda")
+    for kind, cow in (("random", True), ("collapsed", True),
+                      ("identity", True), ("random", False)):
+        parent = {"random": torch.randint(0, k, (k,), generator=gen,
+                                          device="cuda"),
+                  "collapsed": torch.full((k,), 2, device="cuda"),
+                  "identity": torch.arange(k, device="cuda")}[kind]
+        dests = None
+        if cow:
+            parent, dests = (x[0] for x in _cow_assign(parent[None],
+                                                       phys[None]))
+        par = parent.tolist()
+        moved = [True] * k if dests is None else [
+            a != b for a, b in zip(par, dests.tolist())]
+        n = ps + 1
+        read = len(set(par)) * 2 * ps * (d + 4) + 2 * k * (d + 4) + k * d * 2
+        written = sum(2 * (n if m else 1) * (d + 4) for m in moved) + k * d * 2
+        args = lambda arrays: (q, *arrays, *new, parent, ps, 7, heads, k)
+        mine = [x.clone() for x in caches]
+        plain = [x.clone() for x in caches]
+        got = KF.decode_attention_permute_fused(*args(mine), dests=dests)
+        want = KF.decode_attention_permute_fused_plain(*args(plain),
+                                                       dests=dests)
+        err, ratio = compare(f"permute_attention [{kind}]", got[0], want[0],
+                             *KC.TOL[bf16])
+        compare(f"permute_attention [{kind}] caches", got[1:], want[1:],
+                0.0, 0.0)
+        bound_ms, bound_by = bound(read + written, 4 * k * n * d)
+        rows["permute_attention"].append(dict(
+            shape=f"B=5 L=32 C=128 pos={ps} {kind} parents "
+                  + ("COW dests" if cow else "dests=None (staged)"),
+            max_abs_err=err, atol=KC.TOL[bf16][0], rtol=KC.TOL[bf16][1],
+            err_over_tol=ratio, caches_bit_equal=True,
+            ms=time_ms(lambda: KF.decode_attention_permute_fused(
+                *args(mine), dests=dests)),
+            plain_ms=time_ms(lambda: KF.decode_attention_permute_fused_plain(
+                *args(plain), dests=dests)),
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=None))
+        del mine, plain
+    del caches
 
     # D: the beam reshuffle of the self caches, window-local parents; the
     # slice's shape first (5 lanes, whole slabs, as the bf16 main path),
@@ -337,6 +468,10 @@ KERNELS = [
      "whisper_tpu/ops/pallas/decode_attention.py:417"),
     ("permute", "whisper_tpu_torch/csrc/permute.cu",
      "whisper_tpu/ops/pallas/permute.py:96"),
+    ("decode_attention_scaled", "whisper_tpu_torch/csrc/decode_attention.cu",
+     "whisper_tpu/ops/pallas/decode_attention.py:445"),
+    ("permute_attention", "whisper_tpu_torch/csrc/permute_attention.cu",
+     "whisper_tpu/ops/pallas/permute_attention.py:48"),
 ]
 
 
@@ -346,13 +481,18 @@ def _counters() -> dict:
     from whisper_tpu_torch.ops.kernels import encoder_block as KB
     from whisper_tpu_torch.ops.kernels import flash_attention as KA
     from whisper_tpu_torch.ops.kernels import permute as KP
+    from whisper_tpu_torch.ops.kernels import permute_attention as KF
 
     return {"flash_attention": (KA.attention_bhsd, "launches"),
             "encoder_mlp": (KB.fused_mlp_block, "launches"),
             "decode_attention": (KC.decode_attention_stacked, "launches"),
             "decode_attention_group": (KC.decode_attention_stacked,
                                        "group_launches"),
-            "permute": (KP.permute_lanes_arrays, "launches")}
+            "permute": (KP.permute_lanes_arrays, "launches"),
+            "decode_attention_scaled": (KC.decode_attention_stacked,
+                                        "scaled_launches"),
+            "permute_attention": (KF.decode_attention_permute_fused,
+                                  "launches")}
 
 
 def launch_counts() -> dict:
@@ -369,27 +509,37 @@ def main() -> int:
     phase_build()
     rows = phase_kernels()
     setup = slice_setup()
-    greedy = phase_greedy(*setup)
-    beam = phase_beam(*setup)
-    beam["same_text_as_greedy"] = beam.pop("text") == greedy.pop("text")
-    log(f"beam text == greedy text: {beam['same_text_as_greedy']}")
-    launches = beam["launches"]
-    missing = [n for n, *_ in KERNELS if launches[n] == 0]
+    slices = {"greedy": phase_greedy(*setup), "beam": phase_beam(*setup)}
+    text = {s: slices[s].pop("text") for s in slices}
+    slices["beam"]["same_text_as_greedy"] = text["beam"] == text["greedy"]
+    log(f"beam text == greedy text: {slices['beam']['same_text_as_greedy']}")
+    quant = quant_setup(*setup)
+    slices["quant_greedy"] = phase_quant_greedy(*quant)
+    slices["quant_beam"] = phase_quant_beam(*quant)
+    for s, bf16 in (("quant_greedy", "greedy"), ("quant_beam", "beam")):
+        slices[s]["same_text_as_bf16"] = slices[s].pop("text") == text[bf16]
+        log(f"{s} text == {bf16} text: {slices[s]['same_text_as_bf16']}")
+    # every kernel must run on some slice's main path
+    launches = {n: sum(sl["launches"][n] for sl in slices.values())
+                for n, *_ in KERNELS}
+    missing = [n for n, count in launches.items() if count == 0]
     if missing:
-        raise AssertionError(f"kernels the beam path never launched: {missing}")
+        raise AssertionError(f"kernels no slice launched: {missing}")
     entries = []
     for name, source, replaces in KERNELS:
         first = rows[name][0]
         entries.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
+            "launches_by_slice": {s: sl["launches"][name]
+                                  for s, sl in slices.items()},
             "max_abs_err": max(r["max_abs_err"] for r in rows[name]),
             "ms": first["ms"], "plain_ms": first["plain_ms"],
             "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
             "library_ms": first["library_ms"],
             "shape": first["shape"], "all_shapes": rows[name],
         })
-    log(json.dumps({"kernels": entries, "greedy": greedy, "beam": beam}))
+    log(json.dumps({"kernels": entries, **slices}))
     print(json.dumps({"ok": True, "device": device}), flush=True)
     return 0
 
@@ -477,10 +627,11 @@ def run_slice(tr, wave, opts, label: str) -> dict:
         counts = launch_counts()
         if run == "cold":
             launches = counts
-        # an S = 1 step launches two decode attentions a layer: self and
-        # cross (the per-lane kernel for greedy, the grouped one for beam)
-        steps = (counts["decode_attention"]
-                 + counts["decode_attention_group"]) // (2 * n_layer)
+        # an S = 1 step launches two decode attentions a layer: self (K3,
+        # K3s or K5) and cross (K3 for greedy, K3g for beam)
+        steps = sum(counts[n] for n in (
+            "decode_attention", "decode_attention_group",
+            "decode_attention_scaled", "permute_attention")) // (2 * n_layer)
         prev, per_window = t0, []
         for i, ts in stamps:
             start, end = bounds[i]
@@ -535,6 +686,58 @@ def phase_beam(params, tr, wave) -> dict:
     return info
 
 
+def quant_setup(params, tr, wave) -> tuple:
+    """The bench's quantized configuration: int8 weight-only
+    `quantize_params` of the same bf16 weights, and a Transcriber over
+    them."""
+    from whisper_tpu_torch.pipeline.transcribe import Transcriber
+    from whisper_tpu_torch.quantize import quantize_params
+
+    t0 = time.perf_counter()
+    qparams = quantize_params(params, bits=8)
+    torch.cuda.synchronize()
+    log(f"quantized slices: int8 decoder weights in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return qparams, Transcriber(qparams, tr.cfg, tr.tok), wave
+
+
+def phase_quant_greedy(params, tr, wave) -> dict:
+    """Greedy over int8 weights, an int8 cross cache and an int8 self
+    cache: K1, K2, K3 (cross, integer storage) and K3s (self)."""
+    from whisper_tpu_torch.pipeline.transcribe import DecodeOptions
+
+    opts = DecodeOptions(strategy="greedy", max_depth=100, kv_quant=True,
+                         self_quant=True)
+    info = run_slice(tr, wave, opts, "quantized greedy slice")
+    for name in ("flash_attention", "encoder_mlp", "decode_attention",
+                 "decode_attention_scaled"):
+        if info["launches"][name] == 0:
+            raise AssertionError(f"quantized greedy slice never launched "
+                                 f"{name}")
+    start, end = info.pop("window")
+    info["paths"] = compare_kernel_and_plain_paths(
+        params, tr.cfg, tr.tok, wave[start:end], opts)
+    return info
+
+
+def phase_quant_beam(params, tr, wave) -> dict:
+    """The bench's default configuration: beam 5 over int8 weights, an int4
+    cross cache and an int8 self cache: K1, K2, K3g (int4 storage) and K5
+    (the fused copy-on-write reshuffle), no K4."""
+    from whisper_tpu_torch.pipeline.transcribe import DecodeOptions
+
+    opts = DecodeOptions(kv_quant="int4", self_quant=True)
+    info = run_slice(tr, wave, opts, "quantized beam slice")
+    for name in ("flash_attention", "encoder_mlp", "decode_attention_group",
+                 "permute_attention"):
+        if info["launches"][name] == 0:
+            raise AssertionError(f"quantized beam slice never launched {name}")
+    start, end = info.pop("window")
+    info["paths"] = compare_beam_paths(params, tr.cfg, tr.tok,
+                                       wave[start:end], opts)
+    return info
+
+
 def _window_encodings(params, cfg_k, window, opts):
     """The window's log-mel through both encoders: {attention: enc}."""
     import dataclasses
@@ -573,7 +776,9 @@ def compare_kernel_and_plain_paths(params, cfg_k, tok, window, opts):
         prompt = torch.tensor([tok.prompt_ids("en")], device="cuda")
         out, caches = {}, {}
         for c in (cfg_k, cfg_p):
-            cache = M.init_cache(params, enc[c.attention], c, cache_len=128)
+            cache = M.init_cache(params, enc[c.attention], c, cache_len=128,
+                                 kv_quant=opts.kv_quant,
+                                 self_quant=opts.self_quant)
             logits, _ = M.decoder_step(params, prompt, 0, cache, c)
             out[c.attention], caches[c.attention] = [logits[:, -1]], cache
         # feed the kernel path's greedy tokens to both paths
@@ -589,23 +794,33 @@ def compare_kernel_and_plain_paths(params, cfg_k, tok, window, opts):
            "prefill_logits": rel_err(out["flash"][0], out["xla"][0]),
            "step_logits": max(rel_err(a, b) for a, b in
                               zip(out["flash"][1:], out["xla"][1:]))}
-    return _check_paths("greedy window", res, {
+    label = "quantized greedy window" if opts.self_quant else "greedy window"
+    return _check_paths(label, res, {
         "encoder": enc["flash"], "logits": torch.stack(out["flash"])})
 
 
 def compare_beam_paths(params, cfg_k, tok, window, opts, steps: int = 8):
     """Prefill + `steps` beam steps (5 lanes, one window's cross cache)
     through the kernel path and the plain path, both fed the kernel path's
-    tokens and parents: each step's logits within PATH_RTOL, and the
-    kernel path's permuted self caches (K4) equal, bit for bit, to
-    `torch.index_select` of the buffers they were permuted from."""
+    tokens and parents: each step's logits within PATH_RTOL. bf16 caches
+    reshuffle through K4 (its plain version on the plain path) into spare
+    buffers, and the kernel path's permuted caches must equal, bit for bit,
+    `torch.index_select` of the buffers they were permuted from. An int8
+    self cache (`opts.self_quant`) reshuffles as `beam_search` does: inside
+    K5 with copy-on-write slots on the kernel path, through K4's plain
+    prefix copy on the plain path."""
     import whisper_tpu_torch.models.whisper as M
-    from whisper_tpu_torch.decode.beam import top_k_stable
+    from whisper_tpu_torch.decode.beam import _cow_assign, _spare, top_k_stable
     from whisper_tpu_torch.ops.kernels.permute import (
         permute_lanes_arrays, permute_lanes_arrays_plain)
+    from whisper_tpu_torch.quantize import QTensor
+
+    def flat(kv):
+        return [a for t in kv for a in (t if isinstance(t, QTensor) else (t,))]
 
     k = opts.beam_size
     v = cfg_k.text_decoder_config.n_vocab
+    fused = bool(opts.self_quant)
     with torch.inference_mode():
         cfg_p, enc = _window_encodings(params, cfg_k, window, opts)
         prompt = torch.tensor(tok.prompt_ids("en"), device="cuda")
@@ -613,46 +828,58 @@ def compare_beam_paths(params, cfg_k, tok, window, opts, steps: int = 8):
         out, caches, spares = {}, {}, {}
         for c in (cfg_k, cfg_p):
             cache = M.init_cache(params, enc[c.attention], c, batch=k,
-                                 cache_len=128)
+                                 cache_len=128, kv_quant=opts.kv_quant,
+                                 self_quant=opts.self_quant)
             logits, cache = M.decoder_step(params, tokens, 0, cache, c)
             out[c.attention], caches[c.attention] = [logits[:, -1]], cache
-            spares[c.attention] = (torch.zeros_like(cache.self_k),
-                                   torch.zeros_like(cache.self_v))
+            spares[c.attention] = (_spare(cache.self_k), _spare(cache.self_v))
         lane = torch.arange(k, device="cuda")
+        phys = lane.clone()
         cur_logp = torch.where(lane == 0, 0.0, float("-inf"))
-        pos, exact = prompt.shape[0], True
+        pos, exact = prompt.shape[0], not fused
         for _ in range(steps):
             logp = torch.log_softmax(out["flash"][-1].float(), -1)
-            cur_logp, flat = top_k_stable(
+            cur_logp, flat_idx = top_k_stable(
                 (cur_logp[:, None] + logp).reshape(-1), k)
-            parent, tok_ids = (flat // v).to(torch.int32), flat % v
+            parent, tok_ids = (flat_idx // v).to(torch.int32), flat_idx % v
             for c, permute in ((cfg_k, permute_lanes_arrays),
                                (cfg_p, permute_lanes_arrays_plain)):
                 a = c.attention
                 cache = caches[a]
-                new = permute((cache.self_k, cache.self_v), parent, spares[a])
+                if fused and a == "flash":
+                    src, dest = _cow_assign(parent[None].long(), phys[None])
+                    logits, caches[a] = M.decoder_step(
+                        params, tok_ids[:, None], pos, cache, c,
+                        parents=src[0], dests=dest[0])
+                    phys = dest[0]
+                    out[a].append(logits[:, -1])
+                    continue
+                sources = flat((cache.self_k, cache.self_v))
+                new = permute(sources, parent, flat(spares[a]),
+                              valid_len=pos if fused else None)
                 if a == "flash":
                     idx = parent.long()
-                    exact &= bool(torch.equal(
-                        new[0], torch.index_select(cache.self_k, 0, idx)))
-                    exact &= bool(torch.equal(
-                        new[1], torch.index_select(cache.self_v, 0, idx)))
+                    exact &= all(bool(torch.equal(n, torch.index_select(
+                        src_arr, 0, idx))) for n, src_arr in zip(new, sources))
                 spares[a] = (cache.self_k, cache.self_v)
+                if fused:
+                    new = (QTensor(new[0], new[1]), QTensor(new[2], new[3]))
                 cache = M.DecoderCache(*new, cache.cross_k, cache.cross_v)
                 logits, caches[a] = M.decoder_step(params, tok_ids[:, None],
                                                    pos, cache, c)
                 out[a].append(logits[:, -1])
             pos += 1
-    if not exact:
+    if not fused and not exact:
         raise AssertionError("K4's permuted self caches differ from "
                              "torch.index_select")
     res = {"encoder": rel_err(enc["flash"], enc["xla"]),
            "prefill_logits": rel_err(out["flash"][0], out["xla"][0]),
            "step_logits": max(rel_err(a, b) for a, b in
                               zip(out["flash"][1:], out["xla"][1:]))}
-    res = _check_paths("beam window", res, {
+    label = "quantized beam window" if fused else "beam window"
+    res = _check_paths(label, res, {
         "encoder": enc["flash"], "logits": torch.stack(out["flash"])})
-    return dict(res, permuted_caches_equal=exact)
+    return dict(res, permuted_caches_equal=None if fused else exact)
 
 
 if __name__ == "__main__":

@@ -177,11 +177,17 @@ def test_cache_gather_matches_jax():
 
 
 def test_quantized_and_fused_options_raise(setup):
+    """Cache flavours JAX refuses raise ValueError; the int4 self cache,
+    which JAX has and the port does not, raises NotImplementedError naming
+    its ROADMAP item."""
     params, cfg, tok = setup
     enc = torch.zeros(1, ENC_CTX // 2, 32)
-    for opt in (dict(kv_quant=True), dict(self_quant=True),
-                dict(fuse_reshuffle=True)):
-        with pytest.raises(NotImplementedError, match="item 9"):
+    for opt, err, match in ((dict(kv_quant="int2"), ValueError, "kv_quant"),
+                            (dict(self_quant="fp8"), ValueError,
+                             "self_quant"),
+                            (dict(self_quant="int4", fuse_reshuffle=True),
+                             NotImplementedError, "item 9")):
+        with pytest.raises(err, match=match):
             tbeam.beam_search(from_numpy_tree(params), enc,
                               torch.tensor(tok.prompt_ids("en")), cfg,
                               tok.eot, **opt)

@@ -20,6 +20,8 @@ from whisper_tpu_torch.ops.kernels import decode_attention as KC
 from whisper_tpu_torch.ops.kernels import encoder_block as KB
 from whisper_tpu_torch.ops.kernels import flash_attention as KA
 from whisper_tpu_torch.ops.kernels import permute as KP
+from whisper_tpu_torch.ops.kernels import permute_attention as KF
+from whisper_tpu_torch.quantize import pack_int4
 
 pytestmark = pytest.mark.cuda
 
@@ -110,6 +112,107 @@ def test_decode_attention_group_kernel(gen, dtype, batch_major, rep):
     _close(got, want, *KC.TOL[dtype])
 
 
+@pytest.mark.parametrize("storage", ["int8", "int4"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("rep", [1, 5, 10, 16])
+def test_decode_attention_integer_cache_kernel(gen, storage, dtype, rep):
+    """K3 (rep 1) and K3g over an int8 / packed-int4 layer-major cross
+    cache; rep 10 and 16 run two groups of lanes per kv row."""
+    bk, n_layer, c, d = 2, 3, 70, 128
+    lim = 7 if storage == "int4" else 127
+    kc, vc = (torch.randint(-lim, lim + 1, (n_layer, bk, c, d), generator=gen,
+                            device="cuda", dtype=torch.int8) for _ in "kv")
+    if storage == "int4":
+        kc, vc = pack_int4(kc), pack_int4(vc)
+    q = _randn((bk * rep, d), gen, 0.5 / lim, dtype=dtype)
+    pos = torch.tensor([c - 1, 33], dtype=torch.int32,
+                       device="cuda").repeat_interleave(rep)
+    counter = "launches" if rep == 1 else "group_launches"
+    before = getattr(KC.decode_attention_stacked, counter)
+    got = KC.decode_attention_stacked(q, kc, vc, pos, 1, 2, kv_rep=rep)
+    assert getattr(KC.decode_attention_stacked, counter) == before + 1
+    assert got.dtype == dtype
+    want = KC.decode_attention_stacked_plain(q, kc, vc, pos, 1, 2,
+                                             kv_rep=rep)
+    atol, rtol = KC.TOL[dtype]
+    _close(got, want, atol * (lim if dtype == torch.float32 else 1), rtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_decode_attention_scaled_kernel(gen, dtype):
+    """K3s: int8 batch-major self cache with row scales, mixed pos, and a
+    NaN scale on each lane's first masked row."""
+    b, n_layer, c, d = 4, 3, 64, 128
+    kc, vc = (torch.randint(-127, 128, (b, n_layer, c, d), generator=gen,
+                            device="cuda", dtype=torch.int8) for _ in "kv")
+    ks, vs = (0.01 + 0.04 * torch.rand((b, n_layer, c), generator=gen,
+                                       device="cuda") for _ in "kv")
+    pos = torch.tensor([0, 9, 40, 62], dtype=torch.int32, device="cuda")
+    rows = torch.arange(b, device="cuda")
+    ks[rows, 2, pos.long() + 1] = float("nan")
+    vs[rows, 2, pos.long() + 1] = float("nan")
+    q = _randn((b, d), gen, 0.125, dtype=dtype)
+    before = KC.decode_attention_stacked.scaled_launches
+    got = KC.decode_attention_stacked(q, kc, vc, pos, 2, 2, batch_major=True,
+                                      k_rowscale=ks, v_rowscale=vs)
+    assert KC.decode_attention_stacked.scaled_launches == before + 1
+    want = KC.decode_attention_stacked_plain(q, kc, vc, pos, 2, 2,
+                                             batch_major=True, k_rowscale=ks,
+                                             v_rowscale=vs)
+    assert bool(torch.isfinite(got).all())
+    _close(got, want, *KC.TOL[dtype])
+
+
+@pytest.mark.parametrize("kind", ["random", "collapse", "identity"])
+@pytest.mark.parametrize("cow", [True, False])
+@pytest.mark.parametrize("per_lane_pos", [False, True])
+def test_permute_attention_kernel_bit_equal(gen, kind, cow, per_lane_pos):
+    """K5 against its plain version on the same inputs: the attention
+    output within K3's tolerance, every cache and scale array bit-equal:
+    COW dests from `_cow_assign` with one int pos (the in-place path), and
+    dests=None or a pos per lane (both staged by the wrapper)."""
+    from whisper_tpu_torch.decode.beam import _cow_assign
+
+    k, nw, n_layer, c, d = 5, 2, 2, 64, 256
+    b = k * nw
+    caches = [torch.randint(-127, 128, (b, n_layer, c, d), generator=gen,
+                            device="cuda", dtype=torch.int8) for _ in "kv"]
+    caches += [0.01 + 0.04 * torch.rand((b, n_layer, c), generator=gen,
+                                        device="cuda") for _ in "kv"]
+    new = [torch.randint(-127, 128, (b, d), generator=gen, device="cuda",
+                         dtype=torch.int8) for _ in "kv"]
+    new += [0.01 + 0.04 * torch.rand(b, generator=gen, device="cuda")
+            for _ in "kv"]
+    q = _randn((b, d), gen)
+    pos = (torch.randint(0, 50, (b,), generator=gen, device="cuda",
+                         dtype=torch.int32) if per_lane_pos else 37)
+    if kind == "random":
+        parent = torch.randint(0, k, (nw, k), generator=gen, device="cuda")
+    elif kind == "collapse":
+        parent = torch.full((nw, k), 3, device="cuda")
+    else:
+        parent = torch.arange(k, device="cuda").repeat(nw, 1)
+    offs = (torch.arange(nw, device="cuda") * k)[:, None]
+    dests = None
+    if cow:
+        phys = torch.stack([torch.randperm(k, generator=gen, device="cuda")
+                            for _ in range(nw)])
+        parent, dests = _cow_assign(parent, phys)
+        dests = (dests + offs).reshape(b)
+    parents = (parent + offs).reshape(b)
+    mine = [x.clone() for x in caches]
+    before = KF.decode_attention_permute_fused.launches
+    got = KF.decode_attention_permute_fused(q, *mine, *new, parents, pos, 1,
+                                            4, k, dests=dests)
+    assert KF.decode_attention_permute_fused.launches == before + 1
+    plain = [x.clone() for x in caches]
+    want = KF.decode_attention_permute_fused_plain(q, *plain, *new, parents,
+                                                   pos, 1, 4, k, dests=dests)
+    _close(got[0], want[0], *KC.TOL[torch.bfloat16])
+    for g, w in zip(got[1:], want[1:]):
+        assert torch.equal(g, w)
+
+
 @pytest.mark.parametrize("valid_len", [None, 37, 64])
 def test_permute_kernel_bit_exact(gen, valid_len):
     """K4, whole slabs and the prefix mode (2 rank-4 caches + 2 rank-3
@@ -145,9 +248,9 @@ def test_cuda_wrappers_raise_instead_of_falling_back(gen):
                            _randn((384,), gen), _randn((384, 96), gen),
                            x[0, 0])
     kc = _randn((2, 1, 16, 128), gen)
-    with pytest.raises(ValueError, match="kv_rep"):
+    with pytest.raises(ValueError, match="kv_rep"):  # 18 q rows, 2 kv rows
         KC.decode_attention_stacked(_randn((18, 128), gen), kc, kc, 3, 0, 2,
-                                    kv_rep=9)
+                                    kv_rep=4)
     par = torch.zeros(2, dtype=torch.int32, device="cuda")
     with pytest.raises(ValueError, match="overlaps"):
         KP.permute_lanes_arrays((kc,), par, (kc,))
@@ -249,3 +352,23 @@ def test_cli_beam_search_goes_through_all_five_kernels(cli_dir, monkeypatch,
     assert "Transcription finished." in out and os.path.exists("beam.txt")
     grew = {k: f() - before[k] for k, f in counts.items()}
     assert all(n > 0 for n in grew.values()), grew
+
+
+def test_cli_quantized_caches_go_through_k5_and_k3s(cli_dir, monkeypatch,
+                                                   capsys):
+    """--kv-quant --self-quant on the card: beam search (the default) runs
+    K5 and K3g over the int8 caches, greedy runs K3s and K3."""
+    monkeypatch.chdir(cli_dir)
+    counts = {"K3": lambda: KC.decode_attention_stacked.launches,
+              "K3g": lambda: KC.decode_attention_stacked.group_launches,
+              "K3s": lambda: KC.decode_attention_stacked.scaled_launches,
+              "K5": lambda: KF.decode_attention_permute_fused.launches}
+    for extra, ran in (([], ("K3g", "K5")), (["--greedy"], ("K3", "K3s"))):
+        before = {k: f() for k, f in counts.items()}
+        rc = torch_cli.main(["transcribe", "dump", "audio.wav", "en", "q.txt",
+                             "--kv-quant", "--self-quant", "--max-depth", "8",
+                             *extra])
+        out, err = capsys.readouterr()
+        assert rc == 0, err
+        grew = {k: f() - before[k] for k, f in counts.items()}
+        assert all(grew[k] > 0 for k in ran), grew

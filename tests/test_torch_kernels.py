@@ -138,9 +138,10 @@ def test_decode_attention_scalar_pos_and_unported_variants():
     torch.testing.assert_close(a, b, rtol=0, atol=0)
     with pytest.raises(ValueError, match="kv_rep"):  # 2 q rows, 2 kv rows
         KC.decode_attention_stacked(q, kc, kc, 9, 0, 2, kv_rep=2)
-    with pytest.raises(NotImplementedError, match="K3s"):
-        KC.decode_attention_stacked(q, kc, kc, 9, 0, 2, batch_major=True,
-                                    k_rowscale=torch.ones(2, 2, 16))
+    scales = torch.ones(2, 2, 16)  # K3s takes row scales batch-major only
+    with pytest.raises(ValueError, match="batch_major"):
+        KC.decode_attention_stacked(q, kc, kc, 9, 0, 2, k_rowscale=scales,
+                                    v_rowscale=scales)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

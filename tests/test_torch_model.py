@@ -142,7 +142,7 @@ def test_unported_cache_options_raise(setup):
     _, tp, mel, _ = setup
     xa = torch.zeros(2, 15, 128)
     with pytest.raises(NotImplementedError, match="item 9"):
-        TM.init_cache(tp, xa, CFG, kv_quant=True)
+        TM.init_cache(tp, xa, CFG, kv_quant=True, self_quant="int4")
     with pytest.raises(ValueError, match="multiple"):
         TM.init_cache(tp, xa, CFG, batch=5)
 

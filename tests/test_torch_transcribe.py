@@ -335,8 +335,8 @@ def test_condition_on_previous_text_matches_jax(setup):
 
 
 @pytest.mark.parametrize("change", [
-    dict(strategy="sample"), dict(timestamps=True), dict(kv_quant=True),
-    dict(self_quant=True), dict(temperature=(0.0, 0.2)),
+    dict(strategy="sample"), dict(timestamps=True), dict(self_quant="int4"),
+    dict(kv_quant="int4", self_quant="int4"), dict(temperature=(0.0, 0.2)),
     dict(temperature=0.5), dict(no_speech_threshold=0.6),
     dict(clip_timestamps="0,1"),
 ])

@@ -5,7 +5,10 @@
 Large-v2 bf16 with random weights from a seed, one 14.9 s window of
 synthetic audio (the chip_smoke slice's first window): the encoder once,
 then greedy decoding and beam search (5 beams) of `--depth` steps each,
-after a warm-up run of each. Each decode runs once under the host clock
+after a warm-up run of each; then the same two over int8 weight-only
+`quantize_params` of those weights with quantized caches (greedy: int8
+cross and self caches; beam: the bench's int4 cross and int8 self
+caches, through the fused reshuffle). Each decode runs once under the host clock
 alone and once under `torch.profiler`; the profile gives the device time
 per kernel name, the number of kernel launches, and the device's busy
 share (summed kernel time over the host-clock wall time of the unprofiled
@@ -44,6 +47,7 @@ def main() -> int:
     from whisper_tpu_torch.models.whisper import encoder_forward
     from whisper_tpu_torch.ops.audio import max_waveform_samples, prep_audio
     from whisper_tpu_torch.params import init_params
+    from whisper_tpu_torch.quantize import quantize_params
     from whisper_tpu_torch.text.tokenizer import (
         WhisperTokenizer, build_full_scale_tokenizer_json)
 
@@ -70,10 +74,17 @@ def main() -> int:
     print(smi, flush=True)
     common = dict(eot_id=tok.eot, suppress_mask=suppress,
                   max_depth=args.depth)
+    qparams = quantize_params(params, bits=8)
     runs = {"greedy": lambda: greedy_decode(params, enc, prompt, cfg,
                                             **common),
             "beam5": lambda: beam_search(params, enc, prompt, cfg,
-                                         beam_size=5, **common)}
+                                         beam_size=5, **common),
+            "greedy_int8": lambda: greedy_decode(
+                qparams, enc, prompt, cfg, kv_quant=True, self_quant=True,
+                **common),
+            "beam5_int8_int4kv": lambda: beam_search(
+                qparams, enc, prompt, cfg, beam_size=5, kv_quant="int4",
+                self_quant=True, **common)}
     for name, fn in runs.items():
         with torch.inference_mode():
             fn()  # warm-up

@@ -10,6 +10,7 @@ the working directory), asserts 16 kHz audio unless `--resample`, writes
 the transcription file. It decodes with beam search (`--beam-size`,
 default 5) unless `--greedy`, on the CUDA card unless `--device cpu`:
 without a card it exits non-zero rather than fall back to the CPU.
+`--kv-quant` / `--self-quant` make the cross / self KV caches int8.
 """
 
 from __future__ import annotations
@@ -38,6 +39,12 @@ def cmd_transcribe(argv) -> int:
                    help="greedy decoding instead of beam search")
     p.add_argument("--beam-size", type=int, default=5)
     p.add_argument("--max-depth", type=int, default=100)
+    p.add_argument("--kv-quant", action="store_true",
+                   help="int8 cross-KV cache (faster decode, tiny accuracy "
+                        "cost)")
+    p.add_argument("--self-quant", action="store_true",
+                   help="int8 self-KV cache with per-row scales (the fused "
+                        "beam reshuffle)")
     p.add_argument("--resample", action="store_true",
                    help="resample input to 16 kHz instead of rejecting it")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
@@ -118,7 +125,8 @@ def cmd_transcribe(argv) -> int:
         return 1
     text, _ = t.transcribe(waveform, rate, DecodeOptions(
         lang=args.lang, strategy="greedy" if args.greedy else "beam",
-        beam_size=args.beam_size, max_depth=args.max_depth))
+        beam_size=args.beam_size, max_depth=args.max_depth,
+        kv_quant=args.kv_quant, self_quant=args.self_quant))
     dt = time.perf_counter() - t0
     with open(args.out, "w") as f:
         f.write(text)
@@ -135,8 +143,8 @@ def main(argv=None) -> int:
     if not argv or argv[0] != "transcribe":
         print("usage: python -m whisper_tpu_torch.cli transcribe <model> "
               "<audio> <lang> <out> [--greedy | --beam-size K] [--max-depth N]"
-              " [--resample] [--device cuda|cpu] [--dtype float32|bfloat16] "
-              "[--tokenizer PATH]", file=sys.stderr)
+              " [--kv-quant] [--self-quant] [--resample] [--device cuda|cpu] "
+              "[--dtype float32|bfloat16] [--tokenizer PATH]", file=sys.stderr)
         return 2
     return cmd_transcribe(argv[1:])
 

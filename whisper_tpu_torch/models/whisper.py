@@ -19,6 +19,11 @@ decode design does not arise.
 "flash" routes the encoder attention, the encoder MLP and the S = 1 decode
 step through the hand-written kernels in `ops/kernels/` on a CUDA device
 (on the CPU their wrappers run the kernels' plain versions).
+
+Quantization (`quantize.py`): weights may be QTensors (int8 or packed
+int4, dequantized inside the matmul), the cross cache int8/int4 with one
+scale per (layer, channel) (`kv_quant`), and the self cache int8 with one
+f32 scale per row (`self_quant`), appended through `_q8_rows`.
 """
 
 from __future__ import annotations
@@ -32,7 +37,9 @@ from ..config import WhisperConfig
 from ..ops.kernels.decode_attention import decode_attention_stacked
 from ..ops.kernels.encoder_block import fused_mlp_block
 from ..ops.kernels.flash_attention import attention_bhsd
+from ..ops.kernels.permute_attention import decode_attention_permute_fused
 from ..params import ParamTree
+from ..quantize import QTensor, int_values, pack_int4
 
 NEG_INF = float("-inf")
 Layer = Dict[str, torch.Tensor]
@@ -51,8 +58,18 @@ def layer_norm(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
     return F.layer_norm(x, (x.shape[-1],), g, b, eps)
 
 
-def _matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x (..., d) @ w (d, ...), f32 accumulation, result in x's dtype."""
+def _matmul(x: torch.Tensor, w) -> torch.Tensor:
+    """x (..., d) @ w (d, ...), f32 accumulation, result in x's dtype. A
+    QTensor w takes the JAX default `int8_impl="xla"` branch
+    (whisper.py:225-229): x @ q.to(x.dtype) (int4 unpacked first; the
+    integers are exact in bf16), times the per-channel scale in f32, cast
+    to x's dtype. A bf16 product is rounded once before the scale (the
+    JAX dot keeps it f32): one bf16 step, on the card only."""
+    if isinstance(w, QTensor):
+        q = int_values(w.q)
+        y = torch.matmul(x, q.to(x.dtype).reshape(q.shape[0], -1))
+        y = y.reshape(*x.shape[:-1], *q.shape[1:])
+        return (y * w.scale).to(x.dtype)  # f32 scale: the product is f32
     y = torch.matmul(x, w.reshape(w.shape[0], -1))
     return y.reshape(*x.shape[:-1], *w.shape[1:])
 
@@ -127,14 +144,14 @@ def _attention(q, k, v, n_head: int, impl: str, causal: bool = False,
     return qkv_attention(q, k, v, n_head, mask)
 
 
-def _use_fused_mlp(x: torch.Tensor, impl: str) -> bool:
+def _use_fused_mlp(x: torch.Tensor, w1, impl: str) -> bool:
     """True when the encoder MLP runs as the fused kernel: the flash config
-    on a CUDA tensor (the JAX gate, whisper.py:329, with "tensor on CUDA" in
-    place of "backend is tpu"; the port has neither quantized weights nor a
-    mesh yet). The kernel's wrapper launches or raises for the dtypes and
-    widths it does not take: the card never runs the plain MLP in its
-    place."""
-    return impl == "flash" and x.is_cuda
+    on a CUDA tensor with plain (not quantized) weights (the JAX gate,
+    whisper.py:329-341, with "tensor on CUDA" in place of "backend is tpu";
+    the port has no mesh yet). The kernel's wrapper launches or raises for
+    the dtypes and widths it does not take: the card never runs the plain
+    MLP in its place."""
+    return impl == "flash" and x.is_cuda and not isinstance(w1, QTensor)
 
 
 def _encoder_block(x, p: Layer, n_head: int, eps: float, impl: str = "xla"):
@@ -143,7 +160,7 @@ def _encoder_block(x, p: Layer, n_head: int, eps: float, impl: str = "xla"):
     q, k, v = _qkv_proj(h, p["qkv_w"], p["qkv_b"])
     x = x + _linear(_attention(q, k, v, n_head, impl), p["attn_o_w"],
                     p["attn_o_b"])
-    if _use_fused_mlp(x, impl):
+    if _use_fused_mlp(x, p["mlp1_w"], impl):
         return fused_mlp_block(x, p["mlp_ln_g"], p["mlp_ln_b"], p["mlp1_w"],
                                p["mlp1_b"], p["mlp2_w"], p["mlp2_b"], eps=eps)
     h = layer_norm(x, p["mlp_ln_g"], p["mlp_ln_b"], eps)
@@ -238,29 +255,69 @@ def whisper_forward(params: ParamTree, mel: torch.Tensor, tokens: torch.Tensor,
 class DecoderCache(NamedTuple):
     """Fixed-shape decoder state, updated IN PLACE by `decoder_step`.
 
-    self_k/self_v: (B, L, cache_len, d), batch-major;
+    self_k/self_v: (B, L, cache_len, d), batch-major; with `self_quant`,
+    QTensor(int8 (B, L, C, d), f32 row scales (B, L, C));
     cross_k/cross_v: (L, W, Sa, d), layer-major, computed once per window;
+    with `kv_quant`, QTensor(int8 or packed int4, f32 scales (L, d));
     W = B / R when R decode lanes share each window (beam search).
     """
 
-    self_k: torch.Tensor
-    self_v: torch.Tensor
-    cross_k: torch.Tensor
-    cross_v: torch.Tensor
+    self_k: object
+    self_v: object
+    cross_k: object
+    cross_v: object
+
+
+def _arr(t):
+    """The stored array of a cache tensor or QTensor."""
+    return t.q if isinstance(t, QTensor) else t
+
+
+def _q8_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-row symmetric int8 quantization: x (..., d) -> (q int8 (..., d),
+    scale f32 (...)), one scale per cache row with no trailing 1
+    (whisper.py:520): scale = max|x| / 127 (1 for an all-zero row), q =
+    round(x / scale) clipped to +-127."""
+    x32 = x.float()
+    a = x32.abs().amax(dim=-1, keepdim=True)
+    scale = torch.where(a > 0, a / 127.0, 1.0)
+    q = torch.clamp(torch.round(x32 / scale), -127, 127).to(torch.int8)
+    return q, scale[..., 0]
+
+
+def _quantize_cross(x: torch.Tensor, bits: int) -> QTensor:
+    """(L, W, Sa, d) cross K or V -> QTensor with one f32 scale per (layer,
+    channel) (whisper.py:613-620); int4 packed along d."""
+    lim = float(2 ** (bits - 1) - 1)
+    x32 = x.float()
+    absmax = x32.abs().amax(dim=(1, 2))  # (L, d)
+    scale = torch.where(absmax > 0, absmax / lim, torch.ones_like(absmax))
+    q = torch.clamp(torch.round(x32 / scale[:, None, None, :]), -lim,
+                    lim).to(torch.int8)
+    return QTensor(pack_int4(q) if bits == 4 else q, scale)
 
 
 def init_cache(params: ParamTree, enc_out: torch.Tensor, cfg: WhisperConfig,
                batch: Optional[int] = None, cache_len: Optional[int] = None,
-               kv_quant: bool = False, self_quant: bool = False
-               ) -> DecoderCache:
+               kv_quant=False, self_quant=False) -> DecoderCache:
     """Zeroed self cache (capped at `cache_len` rows) and the cross K/V of
     every layer from enc_out. A `batch` that is a multiple R of enc_out's
     gives each window R decode lanes that share ONE cross-KV copy (the
-    beam case, whisper.py:584-593): lane i reads window i // R. bf16/f32
-    caches only: quantized caches are ROADMAP queue 1 item 9."""
-    if kv_quant or self_quant:
+    beam case, whisper.py:584-593): lane i reads window i // R.
+
+    `kv_quant` (True / "int8" / "int4") quantizes the cross cache with one
+    scale per (layer, channel); `self_quant` (True / "int8") makes the self
+    cache int8 with f32 row scales initialised to 1 (whisper.py:595-647).
+    Other values raise ValueError, as in JAX; self_quant="int4" is not
+    ported (ROADMAP queue 1 item 9) and raises NotImplementedError."""
+    if kv_quant and kv_quant not in (True, "int8", "int4"):
+        raise ValueError(f"unsupported kv_quant: {kv_quant!r}")
+    if self_quant and self_quant not in (True, "int8", "int4"):
+        raise ValueError(f"unsupported self_quant: {self_quant!r}")
+    if self_quant == "int4":
         raise NotImplementedError(
-            "quantized KV caches are ROADMAP queue 1 item 9, not ported yet")
+            "the int4 self-KV cache (self_quant='int4') is ROADMAP queue 1 "
+            "item 9, not ported yet")
     dec = params["decoder"]
     dec_cfg = cfg.text_decoder_config
     n_layer, d = dec_cfg.n_text_layer, dec_cfg.n_text_state
@@ -271,14 +328,23 @@ def init_cache(params: ParamTree, enc_out: torch.Tensor, cfg: WhisperConfig,
             f"decode batch {b} must be a multiple of enc_out batch {b_enc}")
     dtype = dec["tok_emb"].dtype
     xa = enc_out.to(dtype)
-    blocks = dec["blocks"]
     ck = torch.empty((n_layer, b_enc, sa, d), dtype=dtype, device=xa.device)
     cv = torch.empty_like(ck)
-    for l in range(n_layer):
-        ck[l], cv[l] = _kv_proj(xa, blocks["cross_kv_w"][l],
-                                blocks["cross_kv_b"][l])
+    for l, p in enumerate(dec["blocks"].layers()):
+        ck[l], cv[l] = _kv_proj(xa, p["cross_kv_w"], p["cross_kv_b"])
+    if kv_quant:
+        bits = 4 if kv_quant == "int4" else 8
+        ck, cv = _quantize_cross(ck, bits), _quantize_cross(cv, bits)
     c = min(cache_len or dec_cfg.n_text_ctx, dec_cfg.n_text_ctx)
-    self_k = torch.zeros((b, n_layer, c, d), dtype=dtype, device=xa.device)
+    shape = (b, n_layer, c, d)
+    if self_quant:
+        def qcache():
+            return QTensor(torch.zeros(shape, dtype=torch.int8,
+                                       device=xa.device),
+                           torch.ones(shape[:3], dtype=torch.float32,
+                                      device=xa.device))
+        return DecoderCache(qcache(), qcache(), ck, cv)
+    self_k = torch.zeros(shape, dtype=dtype, device=xa.device)
     return DecoderCache(self_k, torch.zeros_like(self_k), ck, cv)
 
 
@@ -287,24 +353,55 @@ def _cached_attention(q, k_cache, v_cache, last_visible: torch.Tensor,
     """S new queries (B, S, d) against a (B/R, C, d) cache; key c is
     visible to query i iff c <= last_visible[i]. R = B / cache rows > 1:
     kv row w serves q rows [w*R, (w+1)*R), the beam lanes of one window
-    (whisper.py:692-742). The einsum path of the JAX `_cached_attention`:
-    q scaled by hd^-0.5 in f32 and cast back, f32 scores, -inf mask, f32
-    softmax cast to q's dtype, f32 value sum, output in the cache dtype."""
+    (whisper.py:650-745). The einsum path of the JAX `_cached_attention`:
+    q scaled by hd^-0.5 in f32 (and by K's per-channel scale) and cast
+    back, f32 scores (times K's per-row scales), -inf mask, f32 softmax
+    (times V's per-row scales, zeroed on masked rows so that a stale scale
+    cannot poison the sum), cast to q's dtype, f32 value sum (times V's
+    per-channel scale), output in the cache dtype, or q's for a quantized
+    cache. Caches may be QTensors: (d,) scales are per channel (cross),
+    (B, C) scales per row (self)."""
+    k_scale = v_scale = k_rows = v_rows = None
+    if isinstance(k_cache, QTensor):
+        if k_cache.scale.dim() >= 2:
+            k_rows = k_cache.scale
+        else:
+            k_scale = k_cache.scale
+        k_cache = int_values(k_cache.q)
+    if isinstance(v_cache, QTensor):
+        if v_cache.scale.dim() >= 2:
+            v_rows = v_cache.scale
+        else:
+            v_scale = v_cache.scale
+        v_cache = int_values(v_cache.q)
     b, s, d = q.shape
     bk, c = k_cache.shape[:2]
     rep = b // bk
     hd = d // n_head
-    qh = (q * float(hd) ** -0.5).reshape(bk, rep * s, n_head, hd)
-    qh = qh.transpose(1, 2)
-    kh = k_cache.to(q.dtype).reshape(bk, c, n_head, hd).transpose(1, 2)
-    vh = v_cache.to(q.dtype).reshape(bk, c, n_head, hd).transpose(1, 2)
+    q_dtype = q.dtype
+    q32 = q.float() * float(hd) ** -0.5
+    if k_scale is not None:
+        q32 = q32 * k_scale
+    out_dtype = (v_cache.dtype if v_scale is None and v_rows is None
+                 else q_dtype)
+    qh = q32.to(q_dtype).reshape(bk, rep * s, n_head, hd).transpose(1, 2)
+    kh = k_cache.to(q_dtype).reshape(bk, c, n_head, hd).transpose(1, 2)
+    vh = v_cache.to(q_dtype).reshape(bk, c, n_head, hd).transpose(1, 2)
     scores = torch.matmul(qh.float(), kh.float().transpose(-1, -2))
+    if k_rows is not None:
+        scores = scores * k_rows[:, None, None, :]
     vis = last_visible.reshape(-1, 1).repeat(rep, 1)  # (rep * S, 1)
     hidden = torch.arange(c, device=q.device)[None, :] > vis
     scores = scores.masked_fill(hidden, NEG_INF)
-    w = torch.softmax(scores, dim=-1).to(q.dtype)
+    w = torch.softmax(scores, dim=-1)
+    if v_rows is not None:
+        w = w * torch.where(hidden, 0.0, v_rows[:, None, None, :])
+    w = w.to(q_dtype)
     out = torch.matmul(w.float(), vh.float())
-    return out.transpose(1, 2).reshape(b, s, d).to(v_cache.dtype)
+    out = out.transpose(1, 2).reshape(b, s, d)
+    if v_scale is not None:
+        out = out * v_scale
+    return out.to(out_dtype)
 
 
 def _embed(dec, tokens, pos: int):
@@ -312,24 +409,42 @@ def _embed(dec, tokens, pos: int):
     return dec["tok_emb"][tokens.long()] + dec["pos_emb"][pos:pos + s]
 
 
+def _split(t):
+    """(stored array, per-channel scale or None) of a cross cache."""
+    return (t.q, t.scale) if isinstance(t, QTensor) else (t, None)
+
+
 def _decoder_step_fused(params, tokens, pos: int, cache: DecoderCache,
-                        cfg: WhisperConfig):
+                        cfg: WhisperConfig, parents=None, dests=None):
     """Steady-state (S = 1) step over the layer-STACKED caches: the decode
     attention kernel takes the whole cache and the layer index, for the
     self cache (batch-major, rows <= pos visible) and the cross cache
-    (layer-major, all rows visible). The bf16/f32 branch of the JAX
-    `_decoder_step_fused` (whisper.py:923-954); `c_used` is the full
-    cache length (the JAX prefix-rung ladder is a TPU A/B hook). With R
-    lanes per window the cross call passes kv_rep = R (the grouped
-    kernel)."""
+    (layer-major, all rows visible). The JAX `_decoder_step_fused`
+    (whisper.py:748-976); `c_used` is the full cache length (the JAX
+    prefix-rung ladder is a TPU A/B hook; the kernels read only rows
+    [0, pos] anyway). With R lanes per window the cross call passes
+    kv_rep = R (the grouped kernel). A quantized cross cache folds K's
+    per-channel scale into the query and V's into the output, so the
+    kernel stays scale-free.
+
+    The self cache, by type: bf16/f32, the new row is written in place
+    and K3 attends; int8 (QTensor), the new row is quantized per row
+    (`_q8_rows`) and written with its scale, and K3s attends with the row
+    scales; int8 with `parents` (the beam reshuffle), K5 reads each lane's
+    parent slab, appends the new row, attends and writes the slab to
+    `dests[i]` (copy-on-write slots), all in one pass."""
     dec = params["decoder"]
     dec_cfg = cfg.text_decoder_config
     n_head, eps = dec_cfg.n_text_head, cfg.ln_eps
     b = tokens.shape[0]
     scale = float(dec_cfg.n_text_state // n_head) ** -0.5
-    _, b_cross, sa, _ = cache.cross_k.shape
+    ck_arr, ck_scale = _split(cache.cross_k)
+    cv_arr, cv_scale = _split(cache.cross_v)
+    _, b_cross, sa, _ = ck_arr.shape
     kv_rep = b // b_cross
-    c_self = cache.self_k.shape[2]
+    quant_self = isinstance(cache.self_k, QTensor)
+    sk, sv = cache.self_k, cache.self_v
+    c_self = _arr(sk).shape[2]
     pos_self = torch.full((b,), pos, dtype=torch.int32, device=tokens.device)
     pos_cross = torch.full((b,), sa - 1, dtype=torch.int32, device=tokens.device)
 
@@ -337,56 +452,111 @@ def _decoder_step_fused(params, tokens, pos: int, cache: DecoderCache,
     for l, p in enumerate(dec["blocks"].layers()):
         hn = layer_norm(h, p["attn_ln_g"], p["attn_ln_b"], eps)
         q, k, v = _qkv_proj(hn, p["qkv_w"], p["qkv_b"])
-        cache.self_k[:, l, pos] = k[:, 0]  # in-place append
-        cache.self_v[:, l, pos] = v[:, 0]
         q1 = q[:, 0] * scale
-        attn = decode_attention_stacked(
-            q1, cache.self_k, cache.self_v, pos_self, l, n_head,
-            batch_major=True, c_used=c_self)
+        if quant_self:  # both new rows quantized in one pass
+            (kq, vq), (ks, vs) = _q8_rows(torch.stack((k[:, 0], v[:, 0])))
+        if quant_self and parents is not None:
+            attn = decode_attention_permute_fused(
+                q1, sk.q, sv.q, sk.scale, sv.scale, kq, vq, ks, vs, parents,
+                pos, l, n_head, beam_k=max(kv_rep, 1), c_used=c_self,
+                dests=dests)[0]
+        elif quant_self:
+            sk.q[:, l, pos], sk.scale[:, l, pos] = kq, ks  # in-place append
+            sv.q[:, l, pos], sv.scale[:, l, pos] = vq, vs
+            attn = decode_attention_stacked(
+                q1, sk.q, sv.q, pos_self, l, n_head, batch_major=True,
+                k_rowscale=sk.scale, v_rowscale=sv.scale, c_used=c_self)
+        else:
+            sk[:, l, pos] = k[:, 0]  # in-place append
+            sv[:, l, pos] = v[:, 0]
+            attn = decode_attention_stacked(
+                q1, sk, sv, pos_self, l, n_head, batch_major=True,
+                c_used=c_self)
         h = h + _linear(attn[:, None], p["attn_o_w"], p["attn_o_b"])
 
         hn = layer_norm(h, p["cross_ln_g"], p["cross_ln_b"], eps)
         q = _linear(hn, p["cross_q_w"], p["cross_q_b"])
-        q1 = q[:, 0] * scale
+        if ck_scale is None:
+            q1 = q[:, 0] * scale
+        else:
+            q1 = (q[:, 0].float() * scale * ck_scale[l]).to(q.dtype)
         cross = decode_attention_stacked(
-            q1, cache.cross_k, cache.cross_v, pos_cross, l, n_head,
-            kv_rep=kv_rep)
+            q1, ck_arr, cv_arr, pos_cross, l, n_head, kv_rep=kv_rep)
+        if cv_scale is not None:
+            cross = (cross.float() * cv_scale[l]).to(h.dtype)
         h = h + _linear(cross[:, None], p["cross_o_w"], p["cross_o_b"])
         h = _mlp(h, p, eps)
     return _logits(layer_norm(h, dec["ln_g"], dec["ln_b"], eps), dec), cache
 
 
 def decoder_step(params: ParamTree, tokens: torch.Tensor, pos: int,
-                 cache: DecoderCache, cfg: WhisperConfig
+                 cache: DecoderCache, cfg: WhisperConfig,
+                 parents: Optional[torch.Tensor] = None,
+                 dests: Optional[torch.Tensor] = None,
                  ) -> Tuple[torch.Tensor, DecoderCache]:
     """Run the decoder on S new tokens at absolute positions [pos, pos+S),
     appending their K/V to the cache IN PLACE; returns (f32 logits
     (B, S, V), the same cache). S = 1 with cfg.attention="flash" takes the
     fused step over the stacked caches; anything else (prefill, or the
-    "xla" config) takes the general path with einsum attention."""
+    "xla" config) takes the general path with einsum attention.
+
+    `parents` ((B,) int, window-local beam parents) folds the beam
+    reshuffle of the self cache into the step: only on the S = 1 flash
+    path over an int8 (QTensor) self cache, where K5 reads, appends,
+    attends and writes back in one pass. `dests` (copy-on-write slots,
+    decode/beam.py::_cow_assign) redirects lane i's write-back to slot
+    dests[i]; the cache is then in PHYSICAL slot order and the caller
+    keeps the logical-to-physical map. The guards and errors are JAX's
+    (whisper.py:1005-1024)."""
+    if dests is not None and parents is None:
+        raise ValueError(
+            "dests= requires parents= (the fused COW reshuffle path)")
     if tokens.shape[1] == 1 and cfg.attention == "flash":
-        return _decoder_step_fused(params, tokens, pos, cache, cfg)
+        if parents is not None and not isinstance(cache.self_k, QTensor):
+            raise ValueError(
+                "fused beam reshuffle (parents=...) requires a quantized "
+                "self-KV cache (self_quant)")
+        return _decoder_step_fused(params, tokens, pos, cache, cfg, parents,
+                                   dests)
+    if parents is not None:
+        raise ValueError(
+            "parents= is only supported on the S=1 flash decode path; "
+            "permute the cache explicitly before this call")
     dec = params["decoder"]
     dec_cfg = cfg.text_decoder_config
     n_head, eps = dec_cfg.n_text_head, cfg.ln_eps
     s = tokens.shape[1]
     device = tokens.device
     causal_vis = pos + torch.arange(s, device=device)
-    cross_vis = torch.full((s,), cache.cross_k.shape[2] - 1, device=device)
+    cross_vis = torch.full((s,), _arr(cache.cross_k).shape[2] - 1,
+                           device=device)
+    sk, sv = cache.self_k, cache.self_v
+    quant_self = isinstance(sk, QTensor)
+
+    def layer_of(t, l, batch_major):
+        if isinstance(t, QTensor):
+            return (QTensor(t.q[:, l], t.scale[:, l]) if batch_major
+                    else QTensor(t.q[l], t.scale[l]))
+        return t[:, l] if batch_major else t[l]
 
     h = _embed(dec, tokens, pos)
     for l, p in enumerate(dec["blocks"].layers()):
         hn = layer_norm(h, p["attn_ln_g"], p["attn_ln_b"], eps)
         q, k, v = _qkv_proj(hn, p["qkv_w"], p["qkv_b"])
-        cache.self_k[:, l, pos:pos + s] = k  # in-place append
-        cache.self_v[:, l, pos:pos + s] = v
-        attn = _cached_attention(q, cache.self_k[:, l], cache.self_v[:, l],
-                                 causal_vis, n_head)
+        if quant_self:  # in-place append of the quantized rows + scales
+            sk.q[:, l, pos:pos + s], sk.scale[:, l, pos:pos + s] = _q8_rows(k)
+            sv.q[:, l, pos:pos + s], sv.scale[:, l, pos:pos + s] = _q8_rows(v)
+        else:  # in-place append
+            sk[:, l, pos:pos + s] = k
+            sv[:, l, pos:pos + s] = v
+        attn = _cached_attention(q, layer_of(sk, l, True),
+                                 layer_of(sv, l, True), causal_vis, n_head)
         h = h + _linear(attn, p["attn_o_w"], p["attn_o_b"])
 
         hn = layer_norm(h, p["cross_ln_g"], p["cross_ln_b"], eps)
         q = _linear(hn, p["cross_q_w"], p["cross_q_b"])
-        cross = _cached_attention(q, cache.cross_k[l], cache.cross_v[l],
+        cross = _cached_attention(q, layer_of(cache.cross_k, l, False),
+                                  layer_of(cache.cross_v, l, False),
                                   cross_vis, n_head)
         h = h + _linear(cross, p["cross_o_w"], p["cross_o_b"])
         h = _mlp(h, p, eps)

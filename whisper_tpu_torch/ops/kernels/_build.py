@@ -44,8 +44,8 @@ SIGNATURES = {
                             _LL, _LL, _LL, _LL, _LL, _LL, _F, _P],
     "wtt_encoder_mlp": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                         _F, _P],
-    "wtt_decode_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                             _LL, _LL, _LL, _LL, _LL, _LL, _LL, _LL, _P],
+    "wtt_decode_attention": [_P] * 7 + [_I] * 7 + [_LL] * 10 + [_P],
+    "wtt_permute_attention": [_P] * 17 + [_I] * 4 + [_LL] * 9 + [_P],
     "wtt_permute_lanes": [_I, _I, _P, _P, _P, _P, _P],
 }
 

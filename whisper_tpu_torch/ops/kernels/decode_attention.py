@@ -2,28 +2,32 @@
 Hopper kernels, their plain PyTorch version, and the wrapper that picks
 between them by device.
 
-Replaces two TPU kernels of `whisper_tpu/ops/pallas/decode_attention.py`
+Replaces three TPU kernels of `whisper_tpu/ops/pallas/decode_attention.py`
 (entry `decode_attention_stacked`):
-  K3  `_decode_attn_stacked_kernel`, the bf16/f32 per-lane variant
-      (kv_rep = 1);
+  K3  `_decode_attn_stacked_kernel`, the per-lane variant (kv_rep = 1);
   K3g `_decode_attn_stacked_group_kernel`, where kv row j serves the q
       rows [j*kv_rep, (j+1)*kv_rep) -- the beam lanes of one window
-      against that window's one cross cache (kv_rep = 2 .. MAX_REP).
-The CUDA source, `csrc/decode_attention.cu`, runs one block per (head,
-lane) for K3 and one per (head, kv row) for K3g, and takes the base
-pointer, strides and layer index of the WHOLE stacked cache -- no
-per-layer copy is sliced out before the launch. Its notes reckon the
-bytes that bound each.
-
-The int8 per-row-scale variant (`_decode_attn_stacked_scaled_kernel`,
-`k_rowscale`, K3s) is not ported yet (ROADMAP queue 2) and raises
-NotImplementedError here.
+      against that window's one cross cache (any kv_rep >= 2);
+  K3s `_decode_attn_stacked_scaled_kernel`, the int8 self cache with one
+      f32 scale per row for K and for V (`k_rowscale`, `v_rowscale`;
+      batch-major, kv_rep = 1): scores times K's row scale before the mask,
+      softmax weights times V's row scale, zero on masked rows.
+The caches may be stored as bf16, f32, int8 or packed int4 (uint8, the
+layout of `quantize.py`). An integer cache takes a bf16 or f32 query and
+gives the output in the query's dtype, as the TPU kernels do; the
+per-channel scales of a quantized cross cache are folded into the query
+and the output by the caller (`models/whisper.py`), so K3/K3g stay
+scale-free. The CUDA source, `csrc/decode_attention.cu`, runs one block
+per (head, lane) for K3/K3s and one per (head, kv row, group of <= 8
+lanes) for K3g, and takes the base pointer, strides and layer index of the
+WHOLE stacked cache -- no per-layer copy is sliced out before the launch.
+Its notes reckon the bytes that bound each.
 
 Tolerance against the plain version: elementwise
-|kernel - plain| <= ATOL + RTOL * |plain| with (ATOL, RTOL) = TOL[dtype].
-The two compute the same f32 scores and the same once-rounded weights;
-only the f32 summation order differs, which can move the bf16 output by
-one rounding step.
+|kernel - plain| <= ATOL + RTOL * |plain| with (ATOL, RTOL) = TOL[dtype of
+the output]. The two compute the same f32 scores and the same once-rounded
+weights; only the f32 summation order differs, which can move a bf16
+output by one rounding step.
 """
 
 from __future__ import annotations
@@ -32,28 +36,32 @@ from typing import Optional, Union
 
 import torch
 
+from ...quantize import int_values
 from ._build import check, library, stream_ptr
 
 TOL = {torch.bfloat16: (1e-2, 1e-2), torch.float32: (1e-5, 1e-5)}
 NEG_INF = -1e30  # the TPU kernel's mask value
-MAX_REP = 8  # the largest kv_rep the grouped kernel is instantiated for
+# storage dtype -> the kernel's code; uint8 is packed int4
+STORAGE = {torch.bfloat16: 0, torch.float32: 1, torch.int8: 2, torch.uint8: 3}
+_EXACT = (torch.bfloat16, torch.int8, torch.uint8)
 _HD = 64
 
 
-def _unsupported(k_rowscale, v_rowscale):
-    if k_rowscale is not None or v_rowscale is not None:
-        raise NotImplementedError(
-            "int8 self-KV row scales are ROADMAP queue 2 K3s, not ported yet")
-
-
 def _layer_view(cache, layer, batch_major):
-    return cache[:, layer] if batch_major else cache[layer]  # (B, C, d) view
+    return cache[:, layer] if batch_major else cache[layer]  # (B, C, ...) view
 
 
 def _rows(pos, b, device):
     if isinstance(pos, torch.Tensor):
         return pos.to(device=device, dtype=torch.int32).reshape(-1).expand(b)
     return torch.full((b,), int(pos), dtype=torch.int32, device=device)
+
+
+def _check_scales(k_rowscale, v_rowscale, batch_major, kv_rep):
+    if (k_rowscale is None) != (v_rowscale is None):
+        raise ValueError("pass both k_rowscale and v_rowscale, or neither")
+    if k_rowscale is not None and (not batch_major or kv_rep != 1):
+        raise ValueError("row scales require batch_major and kv_rep=1")
 
 
 def decode_attention_stacked_plain(
@@ -72,14 +80,19 @@ def decode_attention_stacked_plain(
     """The TPU kernels' `_attend` / `_attend_group` arithmetic in plain
     PyTorch, lane by lane: exact f32 scores of the pre-scaled query
     against the stored keys of its kv row (q row i reads kv row
-    i // kv_rep), rows past pos[i] masked, f32 softmax, weights rounded
-    once to bf16 for a bf16 cache, f32 value sum, output in the cache
-    dtype."""
-    _unsupported(k_rowscale, v_rowscale)
+    i // kv_rep), times K's row scale (K3s), rows past pos[i] masked, f32
+    softmax, times V's row scale with masked rows zeroed (K3s), weights
+    rounded once to bf16 when every operand is bf16 or integer (the TPU's
+    exact path), f32 value sum, output in the cache dtype (the query's for
+    an integer cache)."""
+    _check_scales(k_rowscale, v_rowscale, batch_major, kv_rep)
     b, d = q.shape
     hd = d // n_head
-    k = _layer_view(k_cache, layer, batch_major)
-    v = _layer_view(v_cache, layer, batch_major)
+    exact = all(t.dtype in _EXACT for t in (q, k_cache, v_cache))
+    out_dtype = (q.dtype if k_cache.dtype in (torch.int8, torch.uint8)
+                 else v_cache.dtype)
+    k = int_values(_layer_view(k_cache, layer, batch_major))
+    v = int_values(_layer_view(v_cache, layer, batch_major))
     bk = k.shape[0]
     if b != bk * kv_rep:
         raise ValueError(f"q batch {b} != kv batch {bk} * kv_rep {kv_rep}")
@@ -88,15 +101,20 @@ def decode_attention_stacked_plain(
     s = torch.einsum("brhe,bche->brhc",
                      q.float().reshape(bk, kv_rep, n_head, hd),
                      k.float().reshape(bk, cu, n_head, hd))
+    if k_rowscale is not None:
+        s = s * k_rowscale[:, layer, :cu].float()[:, None, None, :]
     hidden = (torch.arange(cu, device=q.device)
               > _rows(pos, b, q.device).long().reshape(bk, kv_rep, 1, 1))
     s = s.masked_fill(hidden, NEG_INF)
     w = torch.softmax(s, dim=-1)
-    if v.dtype == torch.bfloat16:
+    if v_rowscale is not None:
+        vs = v_rowscale[:, layer, :cu].float()[:, None, None, :]
+        w = w * torch.where(hidden, 0.0, vs)
+    if exact:
         w = w.to(torch.bfloat16).float()
     o = torch.einsum("brhc,bche->brhe", w,
                      v.float().reshape(bk, cu, n_head, hd))
-    return o.reshape(b, d).to(v.dtype)
+    return o.reshape(b, d).to(out_dtype)
 
 
 def decode_attention_stacked(
@@ -108,58 +126,92 @@ def decode_attention_stacked(
     n_head: int,
     batch_major: bool = False,
     kv_rep: int = 1,
-    k_rowscale: Optional[torch.Tensor] = None,
+    k_rowscale: Optional[torch.Tensor] = None,  # (B, L, C) f32, int8 cache
     v_rowscale: Optional[torch.Tensor] = None,
     c_used: Optional[int] = None,  # read only rows [0, c_used)
 ) -> torch.Tensor:
-    """Returns (B, d) in the cache dtype. CPU tensors take the plain
-    version; CUDA tensors launch the Hopper kernel or raise (bf16 or f32
-    q/k/v of one dtype, head dim 64, unit channel stride, 16-byte aligned
-    rows, kv_rep <= MAX_REP). kv_rep = 1 is K3 (counted in `.launches`),
-    kv_rep > 1 K3g (counted in `.group_launches`). The caller guarantees
-    every pos < c_used."""
-    _unsupported(k_rowscale, v_rowscale)
+    """Returns (B, d) in the cache dtype (the query's for an integer
+    cache). CPU tensors take the plain version; CUDA tensors launch the
+    Hopper kernel or raise: q bf16 with a bf16/int8/int4 cache, or f32
+    with an f32/int8/int4 cache; head dim 64, unit channel stride, 16-byte
+    aligned rows; row scales only with an int8 batch-major cache and
+    kv_rep = 1. kv_rep = 1 is K3 (counted in `.launches`), kv_rep > 1 K3g
+    (`.group_launches`), row scales K3s (`.scaled_launches`). The caller
+    guarantees every pos < c_used."""
+    _check_scales(k_rowscale, v_rowscale, batch_major, kv_rep)
     if q.device.type == "cpu":
         return decode_attention_stacked_plain(
             q, k_cache, v_cache, pos, layer, n_head, batch_major, kv_rep,
-            c_used=c_used)
+            k_rowscale, v_rowscale, c_used)
     b, d = q.shape
-    if not 1 <= kv_rep <= MAX_REP:
-        raise ValueError(f"kv_rep {kv_rep} outside the kernel's 1..{MAX_REP}")
-    dt = k_cache.dtype
-    if dt not in TOL or q.dtype != dt or v_cache.dtype != dt:
-        raise TypeError(f"decode attention kernel takes bf16 or f32 of one "
-                        f"dtype, got q {q.dtype} k {dt} v {v_cache.dtype}")
+    if kv_rep < 1:
+        raise ValueError(f"kv_rep {kv_rep} must be >= 1")
+    sd = k_cache.dtype
+    integer = sd in (torch.int8, torch.uint8)
+    if (sd not in STORAGE or v_cache.dtype != sd
+            or q.dtype not in (torch.bfloat16, torch.float32)
+            or (not integer and q.dtype != sd)):
+        raise TypeError(f"decode attention kernel takes a bf16/f32 cache with "
+                        f"a query of its dtype, or an int8/int4 cache with a "
+                        f"bf16/f32 query; got q {q.dtype} k {sd} "
+                        f"v {v_cache.dtype}")
+    scaled = k_rowscale is not None
+    if scaled and sd != torch.int8:
+        raise TypeError(f"row scales (K3s) take an int8 cache, got {sd}")
     if d != n_head * _HD:
         raise ValueError(f"head dim {d // n_head} != {_HD}")
     if k_cache.shape != v_cache.shape:
         raise ValueError("k and v caches differ in shape")
+    per_elem = 2 if sd == torch.uint8 else 1  # channels per stored element
+    if k_cache.shape[3] * per_elem != d:
+        raise ValueError(f"cache rows hold {k_cache.shape[3] * per_elem} "
+                         f"channels, q has {d}")
     lane_dim, layer_dim = (0, 1) if batch_major else (1, 0)
     if k_cache.shape[lane_dim] * kv_rep != b:
         raise ValueError(f"q batch {b} != kv batch {k_cache.shape[lane_dim]}"
                          f" * kv_rep {kv_rep}")
     c = k_cache.shape[2]
     cu = c if not c_used else min(int(c_used), c)
-    # 16-byte vector loads: unit channel stride, 16-byte aligned rows
-    vec = 16 // k_cache.element_size()
+    # each thread loads 8 channels of a row (16, 8, 4 or 32 bytes): unit
+    # channel stride and 16-byte aligned rows for every storage type
+    es = k_cache.element_size()
     ks, vs, qs = k_cache.stride(), v_cache.stride(), q.stride()
     if (ks[3] != 1 or vs[3] != 1 or qs[1] != 1
-            or (ks[0] | ks[1] | ks[2] | vs[0] | vs[1] | vs[2] | qs[0]) % vec
+            or any(x * es % 16 for x in ks[:3] + vs[:3])
+            or qs[0] * q.element_size() % 16
             or (q.data_ptr() | k_cache.data_ptr() | v_cache.data_ptr()) % 16):
         raise ValueError(f"q/k/v need unit channel stride and 16-byte aligned "
                          f"rows, got strides {qs} {ks} {vs}")
+    sc_ptr = (0, 0)
+    sc_strides = (0, 0)
+    if scaled:
+        shape = k_cache.shape[:3]
+        if (k_rowscale.shape != shape or v_rowscale.shape != shape
+                or k_rowscale.dtype != torch.float32
+                or v_rowscale.dtype != torch.float32
+                or k_rowscale.stride() != v_rowscale.stride()
+                or k_rowscale.stride(2) != 1
+                or not k_rowscale.is_cuda or not v_rowscale.is_cuda):
+            raise ValueError(f"row scales must be f32 {tuple(shape)} with unit "
+                             f"row stride, got {tuple(k_rowscale.shape)} "
+                             f"{k_rowscale.dtype}")
+        sc_ptr = (k_rowscale.data_ptr(), v_rowscale.data_ptr())
+        sc_strides = k_rowscale.stride()[:2]
     pos_rows = pos if (isinstance(pos, torch.Tensor) and pos.shape == (b,)
                        and pos.dtype == torch.int32 and pos.is_cuda) \
         else _rows(pos, b, q.device).contiguous()
-    out = torch.empty((b, d), dtype=dt, device=q.device)
+    out = torch.empty((b, d), dtype=q.dtype, device=q.device)
     err = library().wtt_decode_attention(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        pos_rows.data_ptr(), out.data_ptr(), b, n_head, kv_rep, cu,
-        int(layer), int(dt == torch.float32), qs[0], ks[lane_dim],
-        ks[layer_dim], ks[2], vs[lane_dim], vs[layer_dim], vs[2],
-        out.stride(0), stream_ptr(q))
+        pos_rows.data_ptr(), out.data_ptr(), sc_ptr[0] or None,
+        sc_ptr[1] or None, b, n_head, kv_rep, cu, int(layer), STORAGE[sd],
+        int(q.dtype == torch.float32), qs[0], ks[lane_dim], ks[layer_dim],
+        ks[2], vs[lane_dim], vs[layer_dim], vs[2], sc_strides[0],
+        sc_strides[1], out.stride(0), stream_ptr(q))
     check(err, "wtt_decode_attention")
-    if kv_rep == 1:
+    if scaled:
+        decode_attention_stacked.scaled_launches += 1
+    elif kv_rep == 1:
         decode_attention_stacked.launches += 1
     else:
         decode_attention_stacked.group_launches += 1
@@ -168,3 +220,4 @@ def decode_attention_stacked(
 
 decode_attention_stacked.launches = 0
 decode_attention_stacked.group_launches = 0
+decode_attention_stacked.scaled_launches = 0

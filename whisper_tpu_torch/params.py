@@ -7,6 +7,12 @@ projections keep their projection axis (`qkv_w` (L, d, 3, d), `cross_kv_w`
 buffers (the port serves only; nothing needs gradients), so `.to(device)`
 and `.to(dtype)` move the whole tree. Index it like the JAX pytree:
 `params["decoder"]["blocks"]["qkv_w"]`.
+
+Quantized leaves (`quantize.QTensor`, from `quantize_params` or from the
+JAX package's quantized tree) are child modules holding `q` and `scale`;
+indexing gives the QTensor back. A dtype cast moves them but never casts
+them: `q` is integer, and the f32 `scale` rides `.to()` as its int32 bit
+pattern, so `.to(torch.bfloat16)` leaves it f32.
 """
 
 from __future__ import annotations
@@ -18,6 +24,26 @@ import torch
 from torch import nn
 
 from .config import WhisperConfig
+from .quantize import QTensor, pack_int4
+
+
+class _QLeaf(nn.Module):
+    """A QTensor leaf: its `q` and f32 `scale` as buffers."""
+
+    def __init__(self, t: QTensor):
+        super().__init__()
+        self.register_buffer("q", t.q)
+        self.register_buffer("scale", t.scale)
+
+    def qtensor(self) -> QTensor:
+        return QTensor(self.q, self.scale)
+
+    def _apply(self, fn, recurse=True):
+        # fn may cast floating tensors (.to(dtype), .half()); the scale
+        # goes through it as int32 bits, so only its device changes
+        self.q = fn(self.q)
+        self.scale = fn(self.scale.view(torch.int32)).view(torch.float32)
+        return self
 
 
 class ParamTree(nn.Module):
@@ -29,11 +55,14 @@ class ParamTree(nn.Module):
         for k, v in tree.items():
             if isinstance(v, dict):
                 self.add_module(k, ParamTree(v))
+            elif isinstance(v, QTensor):
+                self.add_module(k, _QLeaf(v))
             else:
                 self.register_buffer(k, v)
 
     def __getitem__(self, key: str):
-        return getattr(self, key)
+        v = getattr(self, key)
+        return v.qtensor() if isinstance(v, _QLeaf) else v
 
     def __contains__(self, key: str) -> bool:
         return key in self._buffers or key in self._modules
@@ -43,8 +72,12 @@ class ParamTree(nn.Module):
         tensors, built once and reused until the tree is moved or cast."""
         if self._layer_views is None:
             n = next(iter(self._buffers.values())).shape[0]
-            self._layer_views = [{k: t[l] for k, t in self._buffers.items()}
-                                 for l in range(n)]
+            quant = {k: m for k, m in self._modules.items()
+                     if isinstance(m, _QLeaf)}
+            self._layer_views = [
+                {**{k: t[l] for k, t in self._buffers.items()},
+                 **{k: QTensor(m.q[l], m.scale[l]) for k, m in quant.items()}}
+                for l in range(n)]
         return self._layer_views
 
     def _apply(self, fn, recurse=True):
@@ -52,9 +85,10 @@ class ParamTree(nn.Module):
         return super()._apply(fn, recurse)
 
     def tree(self) -> Dict[str, Any]:
-        """The same tree as plain nested dicts of tensors."""
+        """The same tree as plain nested dicts of tensors and QTensors."""
         out: Dict[str, Any] = dict(self._buffers)
-        out.update({k: m.tree() for k, m in self._modules.items()})
+        out.update({k: m.qtensor() if isinstance(m, _QLeaf) else m.tree()
+                    for k, m in self._modules.items()})
         return out
 
 
@@ -69,16 +103,32 @@ def _to_tensor(a, device, dtype) -> torch.Tensor:
     return t.to(device)
 
 
+def _to_qtensor(node, device) -> QTensor:
+    """A JAX QTensor with numpy leaves: int8 `q` as it is, `ml_dtypes.int4`
+    `q` packed (quantize.py's layout); the scale stays f32."""
+    q = np.asarray(node.q)
+    if q.dtype.name == "int4":
+        qt = pack_int4(torch.from_numpy(q.astype(np.int8)))
+    else:
+        qt = torch.from_numpy(np.array(q, np.int8))
+    scale = torch.from_numpy(np.array(node.scale, np.float32))
+    return QTensor(qt.to(device), scale.to(device))
+
+
 def from_numpy_tree(tree: Dict[str, Any], device="cpu",
                     dtype: Optional[torch.dtype] = None) -> ParamTree:
     """The JAX package's parameter pytree (numpy arrays, e.g. from
     `jax.tree.map(np.asarray, params)` or `whisper_tpu.io.checkpoint.
     load_params`) as a ParamTree on `device`, every layout kept; floating
-    tensors are cast to `dtype` when given."""
+    tensors are cast to `dtype` when given. Quantized leaves (the JAX
+    package's `QTensor(q, scale)` named tuples) become the port's QTensors:
+    int4 `q` is packed, `q` and the f32 scale are never cast."""
 
     def conv(node):
         if isinstance(node, dict):
             return {k: conv(v) for k, v in node.items()}
+        if getattr(node, "_fields", None) == ("q", "scale"):
+            return _to_qtensor(node, device)
         return _to_tensor(node, device, dtype)
 
     return ParamTree(conv(tree))

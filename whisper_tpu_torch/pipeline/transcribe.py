@@ -57,8 +57,8 @@ class DecodeOptions:
     suppress_until_len: int = 5
     timestamps: bool = False
     max_initial_timestamp: float = 1.0
-    kv_quant: bool = False
-    self_quant: bool = False
+    kv_quant: bool = False  # cross-KV cache quant: True/"int8", or "int4"
+    self_quant: bool = False  # int8 self-KV cache with per-row scales
     temperature: object = 0.0
     compression_ratio_threshold: Optional[float] = 2.4
     logprob_threshold: Optional[float] = -1.0
@@ -81,8 +81,8 @@ def _check_supported(opt: DecodeOptions) -> None:
         todo.append(f"strategy={opt.strategy!r} (ROADMAP queue 1 item 7)")
     if opt.timestamps:
         todo.append("timestamps (ROADMAP queue 1 item 8)")
-    if opt.kv_quant or opt.self_quant:
-        todo.append("kv_quant / self_quant (ROADMAP queue 1 item 9)")
+    if opt.self_quant == "int4":
+        todo.append("self_quant='int4' (ROADMAP queue 1 item 9)")
     if (isinstance(opt.temperature, (tuple, list))
             or float(opt.temperature) != 0.0
             or opt.no_speech_threshold is not None):
@@ -130,7 +130,9 @@ class Transcriber:
     another.
 
     `params`: a ParamTree (moved to `device`) or the JAX package's numpy
-    pytree (converted with `from_numpy_tree`). `device` is "cuda" unless
+    pytree (converted with `from_numpy_tree`), either of them possibly
+    quantized (`quantize.quantize_params`; QTensor weights keep their
+    integer `q` and f32 scales under `dtype`). `device` is "cuda" unless
     given: without a CUDA device the constructor raises, and the CPU runs
     only when asked for with device="cpu". `dtype` casts the floating
     parameters. `attention="auto"` is "flash" (the hand-written kernels)
@@ -223,7 +225,8 @@ class Transcriber:
         enc = encoder_forward(self.params, mel, cfg)
         common = dict(eot_id=self.tok.eot, suppress_mask=self._suppress,
                       max_depth=opt.max_depth,
-                      suppress_until_len=suppress_until_len)
+                      suppress_until_len=suppress_until_len,
+                      kv_quant=opt.kv_quant, self_quant=opt.self_quant)
         if opt.strategy == "beam":
             toks, length, _ = beam_search(self.params, enc, prompt, cfg,
                                           beam_size=opt.beam_size, **common)
