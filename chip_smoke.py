@@ -29,8 +29,19 @@ Phases, in order; any failure raises and the script exits non-zero:
   7. quantized beam -- the bench's default configuration: beam 5 over the
                 int8 weights, an int4 cross cache and an int8 self cache
                 (K3g over int4, K5 with copy-on-write slots), cold and warm,
-                then the two paths on one window.
-Every kernel must be launched by some slice. The line before the last is
+                then the two paths on one window;
+  8. batched greedy -- bf16 `BatchTranscriber.transcribe_many` greedy over
+                two 35 s streams (seeds 0 and 1): their 4 full windows as
+                one batch (K1, K2, K3 at B = 4), the 2 tails one at a time;
+                whether each text equals `Transcriber.transcribe`'s;
+  9. w8a8 batched beam -- W8A8 weights (`quantize_params(...,
+                quantize_encoder=True)`, `int8_impl="pallas"`), beam 5 over
+                an int4 cross and an int8 self cache on the same streams:
+                the batched encoder runs K7, the tails' encoder and every
+                decoder matmul K6; cold and warm, then the two paths on the
+                batch of 4 windows.
+Every phase prints its seconds. Every kernel must be launched by some
+slice. The line before the last is
 a JSON object with one entry per kernel (launches summed over the slices'
 cold runs); the last line is {"ok": true, "device": {...}}.
 """
@@ -84,7 +95,8 @@ def time_ms(fn, iters: int = 20) -> float:
 
 # The H100 SXM data sheet: HBM3 bandwidth and dense peak rates.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12,
+              torch.int8: 1979e12}
 
 
 def bound(n_bytes: float, flops: float, dtype=torch.bfloat16) -> tuple:
@@ -174,7 +186,7 @@ def phase_kernels() -> dict:
     rows = {name: [] for name, *_ in KERNELS}
 
     def record(name, shape, call, plain_call, atol, rtol, work,
-               library_call=None, dtype=torch.bfloat16):
+               library_call=None, dtype=torch.bfloat16, **extra):
         err, ratio = compare(f"{name} [{shape}]", call(), plain_call(), atol,
                              rtol)
         bound_ms, bound_by = bound(*work, dtype)
@@ -183,7 +195,8 @@ def phase_kernels() -> dict:
             err_over_tol=ratio, ms=time_ms(call),
             plain_ms=time_ms(plain_call), bound_ms=bound_ms,
             bound_by=bound_by,
-            library_ms=None if library_call is None else time_ms(library_call)))
+            library_ms=None if library_call is None else time_ms(library_call),
+            **{k: time_ms(f) for k, f in extra.items()}))
 
     def heads_view(x, n):  # (B, n, d) -> (B, H, n, hd), a view
         return x.view(x.shape[0], n, heads, hd).transpose(1, 2)
@@ -444,14 +457,70 @@ def phase_kernels() -> dict:
                    torch.index_select(a, 0, idx, out=o)
                    for a, o in zip(arrays, out_p)])
         del arrays, out_k, out_p
+    # G: K6 / K7 (W8A8) at the shapes of the w8a8 slice: decode steps of
+    # 1, 5 and 20 rows (greedy, one window's beam, 4 windows' beam), a
+    # tail window's encoder (750 rows: K6), the batched encoder (4 x 750
+    # rows: K7) at its three weight shapes, and a ragged M. Each x has a
+    # zero row and a row of exact half quantization steps. Tolerance 0:
+    # bit-equal. library: `torch._int_mm` of the pre-quantized int8 x (the
+    # integer GEMM alone, where its shape rules allow: M > 16); dequant:
+    # `_matmul` with int8_impl="xla" (the int8 -> bf16 weight conversion
+    # inside the matmul), the path K6/K7 replace.
+    import whisper_tpu_torch.models.whisper as M
+    from whisper_tpu_torch.ops.kernels import dequant_matmul as KQ
+    from whisper_tpu_torch.quantize import QTensor
+
+    def int_mm(xq, wq):
+        """The yardstick call, or None (logged) where this PyTorch build
+        refuses the shapes."""
+        try:
+            torch._int_mm(xq, wq)
+        except RuntimeError as e:
+            log(f"torch._int_mm refuses {tuple(xq.shape)} x "
+                f"{tuple(wq.shape)}: {e}")
+            return None
+        return lambda: torch._int_mm(xq, wq)
+
+    for name, m, k_in, n_out in (
+            ("quantized_matmul", 1, d, 3 * d), ("quantized_matmul", 5, d, hidden),
+            ("quantized_matmul", 20, hidden, d),
+            ("quantized_matmul", 750, d, 3 * d),
+            ("quantized_matmul_big", 3000, d, 3 * d),
+            ("quantized_matmul_big", 3000, d, hidden),
+            ("quantized_matmul_big", 3000, hidden, d),
+            ("quantized_matmul_big", 1537, d, 3 * d)):
+        x = _randn((m, k_in), gen)
+        x[0] = 0
+        if m > 1:
+            x[1] = 0
+            x[1, 0] = 127
+            x[1, 1:41] = torch.arange(40, device="cuda") + 0.5
+        wq = torch.randint(-127, 128, (k_in, n_out), generator=gen,
+                           device="cuda", dtype=torch.int8)
+        ws = 0.001 + 0.01 * torch.rand(n_out, generator=gen, device="cuda")
+        big = name == "quantized_matmul_big"
+        kern = KQ.quantized_matmul_big if big else KQ.quantized_matmul
+        plain = (KQ.quantized_matmul_big_plain if big
+                 else KQ.quantized_matmul_plain)
+        xq = KQ.quantize_rows_plain(x, big)[0]
+        qt = QTensor(wq, ws)
+        record(name, f"M={m} K={k_in} N={n_out}",
+               lambda: kern(x, wq, ws), lambda: plain(x, wq, ws), 0.0, 0.0,
+               (m * k_in * 2 + k_in * n_out + n_out * 4 + m * n_out * 2,
+                2 * m * k_in * n_out),
+               int_mm(xq, wq) if m > 16 else None,
+               dtype=torch.int8, dequant_ms=lambda: M._matmul(x, qt, "xla"))
+        del x, wq, xq, qt
     for name, rs in rows.items():
         for r in rs:
             lib = ("none" if r["library_ms"] is None
                    else f"{r['library_ms']:.4f} ms")
+            deq = (f" dequant path {r['dequant_ms']:.4f} ms"
+                   if "dequant_ms" in r else "")
             log(f"kernel {name} [{r['shape']}]: max_abs_err {r['max_abs_err']:.3g}"
                 f" (atol {r['atol']}, rtol {r['rtol']}; worst err/tol "
                 f"{r['err_over_tol']:.3f}) kernel {r['ms']:.4f} ms"
-                f" plain {r['plain_ms']:.4f} ms library {lib}"
+                f" plain {r['plain_ms']:.4f} ms library {lib}{deq}"
                 f" bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
     return rows
 
@@ -472,12 +541,17 @@ KERNELS = [
      "whisper_tpu/ops/pallas/decode_attention.py:445"),
     ("permute_attention", "whisper_tpu_torch/csrc/permute_attention.cu",
      "whisper_tpu/ops/pallas/permute_attention.py:48"),
+    ("quantized_matmul", "whisper_tpu_torch/csrc/dequant_matmul.cu",
+     "whisper_tpu/ops/pallas/dequant_matmul.py:36"),
+    ("quantized_matmul_big", "whisper_tpu_torch/csrc/dequant_matmul.cu",
+     "whisper_tpu/ops/pallas/dequant_matmul.py:160"),
 ]
 
 
 def _counters() -> dict:
     """KERNELS name -> (wrapper, attribute) of its launch counter."""
     from whisper_tpu_torch.ops.kernels import decode_attention as KC
+    from whisper_tpu_torch.ops.kernels import dequant_matmul as KQ
     from whisper_tpu_torch.ops.kernels import encoder_block as KB
     from whisper_tpu_torch.ops.kernels import flash_attention as KA
     from whisper_tpu_torch.ops.kernels import permute as KP
@@ -492,7 +566,9 @@ def _counters() -> dict:
             "decode_attention_scaled": (KC.decode_attention_stacked,
                                         "scaled_launches"),
             "permute_attention": (KF.decode_attention_permute_fused,
-                                  "launches")}
+                                  "launches"),
+            "quantized_matmul": (KQ.quantized_matmul, "launches"),
+            "quantized_matmul_big": (KQ.quantized_matmul_big, "launches")}
 
 
 def launch_counts() -> dict:
@@ -504,21 +580,39 @@ def reset_counts() -> None:
         setattr(fn, a, 0)
 
 
+def timed(label: str, fn, *args):
+    """fn(*args), with the phase's seconds printed."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    log(f"phase {label}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
-    device = phase_device()
-    phase_build()
-    rows = phase_kernels()
-    setup = slice_setup()
-    slices = {"greedy": phase_greedy(*setup), "beam": phase_beam(*setup)}
+    device = timed("device", phase_device)
+    timed("build", phase_build)
+    rows = timed("kernels", phase_kernels)
+    setup = timed("slice setup", slice_setup)
+    slices = {"greedy": timed("greedy", phase_greedy, *setup),
+              "beam": timed("beam", phase_beam, *setup)}
     text = {s: slices[s].pop("text") for s in slices}
     slices["beam"]["same_text_as_greedy"] = text["beam"] == text["greedy"]
     log(f"beam text == greedy text: {slices['beam']['same_text_as_greedy']}")
-    quant = quant_setup(*setup)
-    slices["quant_greedy"] = phase_quant_greedy(*quant)
-    slices["quant_beam"] = phase_quant_beam(*quant)
+    quant = timed("quantized setup", quant_setup, *setup)
+    slices["quant_greedy"] = timed("quantized greedy", phase_quant_greedy,
+                                   *quant)
+    slices["quant_beam"] = timed("quantized beam", phase_quant_beam, *quant)
+    del quant
     for s, bf16 in (("quant_greedy", "greedy"), ("quant_beam", "beam")):
         slices[s]["same_text_as_bf16"] = slices[s].pop("text") == text[bf16]
         log(f"{s} text == {bf16} text: {slices[s]['same_text_as_bf16']}")
+    params, tr, wave = setup
+    waves = [wave, synthetic_speech(35 * 16000, SEED + 1)]
+    slices["batched_greedy"] = timed(
+        "batched greedy", phase_batched_greedy, tr, waves, text["greedy"])
+    slices["w8a8_batched_beam"] = timed(
+        "w8a8 batched beam", phase_w8a8_batched_beam,
+        *w8a8_setup(params, tr), waves)
     # every kernel must run on some slice's main path
     launches = {n: sum(sl["launches"][n] for sl in slices.values())
                 for n, *_ in KERNELS}
@@ -539,6 +633,8 @@ def main() -> int:
             "library_ms": first["library_ms"],
             "shape": first["shape"], "all_shapes": rows[name],
         })
+        if "dequant_ms" in first:
+            entries[-1]["dequant_ms"] = first["dequant_ms"]
     log(json.dumps({"kernels": entries, **slices}))
     print(json.dumps({"ok": True, "device": device}), flush=True)
     return 0
@@ -682,7 +778,7 @@ def phase_beam(params, tr, wave) -> dict:
     info = run_slice(tr, wave, opts, "beam slice")
     start, end = info.pop("window")
     info["paths"] = compare_beam_paths(params, tr.cfg, tr.tok,
-                                       wave[start:end], opts)
+                                       [wave[start:end]], opts, "beam window")
     return info
 
 
@@ -734,21 +830,157 @@ def phase_quant_beam(params, tr, wave) -> dict:
             raise AssertionError(f"quantized beam slice never launched {name}")
     start, end = info.pop("window")
     info["paths"] = compare_beam_paths(params, tr.cfg, tr.tok,
-                                       wave[start:end], opts)
+                                       [wave[start:end]], opts,
+                                       "quantized beam window")
     return info
 
 
-def _window_encodings(params, cfg_k, window, opts):
-    """The window's log-mel through both encoders: {attention: enc}."""
+def run_many_slice(bt, waves, opts, label: str) -> dict:
+    """Cold and warm `BatchTranscriber.transcribe_many` runs over the
+    streams; the launch counts are set to 0 just before the cold run and
+    read just after it. The warm texts must equal the cold ones."""
+    sr = 16000
+    audio_s = sum(len(w) for w in waves) / sr
+    n_layer = bt.cfg.text_decoder_config.n_text_layer
+    runs = []
+    for run in ("cold", "warm"):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results = bt.transcribe_many(waves, sr, opts)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+        counts = launch_counts()
+        texts = [r[0] for r in results]
+        if run == "cold":
+            launches, cold_texts = counts, texts
+        elif texts != cold_texts:
+            raise AssertionError(f"{label}: the warm run's texts differ")
+        steps = sum(counts[n] for n in (
+            "decode_attention", "decode_attention_group",
+            "decode_attention_scaled", "permute_attention")) // (2 * n_layer)
+        runs.append(dict(run=run, seconds=total, xrt=audio_s / total,
+                         decoder_steps=steps,
+                         n_tokens=[len(r[1]) for r in results],
+                         text_chars=[len(t) for t in texts]))
+        log(f"{label} {run}: {len(waves)} streams, {audio_s:.1f} s audio, "
+            f"{runs[-1]['n_tokens']} tokens, {steps} S=1 decoder steps in "
+            f"{total:.3f} s = {audio_s / total:.2f}x real time (batch "
+            f"{bt.batch_size})")
+        if not all(r[1] for r in results):
+            raise AssertionError(f"{label}: a stream returned no tokens")
+    log(f"{label} launches: {launches}")
+    return dict(launches=launches, runs=runs, texts=cold_texts)
+
+
+def _full_windows(waves, cfg, opts) -> list:
+    """The full-length windows of the streams, in the pipeline's order."""
+    from whisper_tpu_torch.ops import audio
+    from whisper_tpu_torch.pipeline.transcribe import window_waveform
+
+    n = audio.max_waveform_samples(cfg.encoder_ctx_size - opts.padding)
+    return [w[a:b] for w in waves for a, b in window_waveform(
+        w, 16000, n, int(16000 * opts.chunk_overlap_seconds)) if b - a == n]
+
+
+def phase_batched_greedy(tr, waves, greedy_text) -> dict:
+    """bf16 greedy over the two streams, their 4 full windows as one
+    batch (K1, K2 at 4 x 750 rows, K3 at B = 4), the 2 tails one at a
+    time. Whether each stream's text equals `Transcriber.transcribe`'s is
+    reported, not asserted (the CPU tests assert it)."""
+    from whisper_tpu_torch.pipeline.batch import BatchTranscriber
+    from whisper_tpu_torch.pipeline.transcribe import DecodeOptions
+
+    opts = DecodeOptions(strategy="greedy", max_depth=100)
+    bt = BatchTranscriber(tr.params, tr.cfg, tr.tok, batch_size=4)
+    info = run_many_slice(bt, waves, opts, "batched greedy slice")
+    for name in ("flash_attention", "encoder_mlp", "decode_attention"):
+        if info["launches"][name] == 0:
+            raise AssertionError(f"batched greedy slice never launched {name}")
+    single = [greedy_text, tr.transcribe(waves[1], 16000, opts,
+                                         on_chunk=lambda i, t: None)[0]]
+    info["same_text_as_transcribe"] = [
+        a == b for a, b in zip(info.pop("texts"), single)]
+    log(f"batched greedy texts == transcribe texts: "
+        f"{info['same_text_as_transcribe']}")
+    return info
+
+
+def w8a8_setup(params, tr) -> tuple:
+    """W8A8: int8 `quantize_params` of the bf16 weights, the encoder's
+    too, with `int8_impl="pallas"`, and a BatchTranscriber of 4 windows."""
+    import dataclasses
+
+    from whisper_tpu_torch.config import KernelKnobs
+    from whisper_tpu_torch.pipeline.batch import BatchTranscriber
+    from whisper_tpu_torch.quantize import quantize_params
+
+    t0 = time.perf_counter()
+    qparams = quantize_params(params, quantize_encoder=True, bits=8)
+    torch.cuda.synchronize()
+    log(f"w8a8 slice: int8 encoder and decoder weights in "
+        f"{time.perf_counter() - t0:.1f} s")
+    cfg = dataclasses.replace(tr.cfg, knobs=KernelKnobs(int8_impl="pallas"))
+    return qparams, BatchTranscriber(qparams, cfg, tr.tok, batch_size=4)
+
+
+def phase_w8a8_batched_beam(qparams, bt, waves) -> dict:
+    """Beam 5 over W8A8 weights, an int4 cross cache and an int8 self
+    cache: the 4 full windows as one batch (encoder 3000 rows: K7; 20
+    lanes: K6, K3g, K5), the 2 tails one at a time (encoder 750 rows: K6).
+    Then the kernel path against the plain path on the 4 windows, and the
+    relative L2 between the W8A8 and the dequant ("xla") encoder outputs
+    (printed, not held to a limit)."""
     import dataclasses
 
     import whisper_tpu_torch.models.whisper as M
+    from whisper_tpu_torch.config import KernelKnobs
+    from whisper_tpu_torch.pipeline.transcribe import DecodeOptions
+
+    opts = DecodeOptions(kv_quant="int4", self_quant=True)
+    info = run_many_slice(bt, waves, opts, "w8a8 batched beam slice")
+    info.pop("texts")
+    for name in ("flash_attention", "decode_attention_group",
+                 "permute_attention", "quantized_matmul",
+                 "quantized_matmul_big"):
+        if info["launches"][name] == 0:
+            raise AssertionError(f"w8a8 batched beam slice never launched "
+                                 f"{name}")
+    windows = _full_windows(waves, bt.cfg, opts)
+    if len(windows) != 4:
+        raise AssertionError(f"expected 4 full windows, got {len(windows)}")
+    info["paths"] = compare_beam_paths(qparams, bt.cfg, bt.tok, windows, opts,
+                                       "w8a8 batched beam (4 windows)")
+    with torch.inference_mode():
+        mel = _window_mel(windows, bt.cfg, opts)
+        deq = dataclasses.replace(bt.cfg, knobs=KernelKnobs())
+        info["w8a8_vs_dequant_encoder"] = rel_err(
+            M.encoder_forward(qparams, mel, bt.cfg),
+            M.encoder_forward(qparams, mel, deq))
+    log(f"w8a8 vs dequant encoder output (relative L2, no limit): "
+        f"{info['w8a8_vs_dequant_encoder']:.4g}")
+    return info
+
+
+def _window_mel(windows, cfg, opts):
+    """The windows' log-mel, clipped and padded as the pipeline does (the
+    batch pipeline's per-sample clamp; one window's is the same)."""
     from whisper_tpu_torch.ops import audio
 
+    x = torch.from_numpy(np.stack(windows)).cuda()
+    mel = audio.prep_audio(x, per_sample_max=True)
+    keep = min(mel.shape[2], cfg.encoder_ctx_size - opts.padding)
+    return torch.nn.functional.pad(mel[:, :, :keep], (0, opts.padding))
+
+
+def _window_encodings(params, cfg_k, windows, opts):
+    """The windows' log-mel through both encoders: {attention: enc}."""
+    import dataclasses
+
+    import whisper_tpu_torch.models.whisper as M
+
     cfg_p = dataclasses.replace(cfg_k, attention="xla")
-    mel = audio.prep_audio(torch.from_numpy(window).cuda()[None])
-    keep = min(mel.shape[2], cfg_k.encoder_ctx_size - opts.padding)
-    mel = torch.nn.functional.pad(mel[:, :, :keep], (0, opts.padding))
+    mel = _window_mel(windows, cfg_k, opts)
     return cfg_p, {c.attention: M.encoder_forward(params, mel, c)
                    for c in (cfg_k, cfg_p)}
 
@@ -772,7 +1004,7 @@ def compare_kernel_and_plain_paths(params, cfg_k, tok, window, opts):
     import whisper_tpu_torch.models.whisper as M
 
     with torch.inference_mode():
-        cfg_p, enc = _window_encodings(params, cfg_k, window, opts)
+        cfg_p, enc = _window_encodings(params, cfg_k, [window], opts)
         prompt = torch.tensor([tok.prompt_ids("en")], device="cuda")
         out, caches = {}, {}
         for c in (cfg_k, cfg_p):
@@ -799,10 +1031,12 @@ def compare_kernel_and_plain_paths(params, cfg_k, tok, window, opts):
         "encoder": enc["flash"], "logits": torch.stack(out["flash"])})
 
 
-def compare_beam_paths(params, cfg_k, tok, window, opts, steps: int = 8):
-    """Prefill + `steps` beam steps (5 lanes, one window's cross cache)
-    through the kernel path and the plain path, both fed the kernel path's
-    tokens and parents: each step's logits within PATH_RTOL. bf16 caches
+def compare_beam_paths(params, cfg_k, tok, windows, opts, label: str,
+                       steps: int = 8):
+    """Prefill + `steps` beam steps (K lanes per window, one cross cache a
+    window) over the windows through the kernel path and the plain path,
+    both fed the kernel path's tokens and window-local parents: each
+    step's logits within PATH_RTOL. bf16 caches
     reshuffle through K4 (its plain version on the plain path) into spare
     buffers, and the kernel path's permuted caches must equal, bit for bit,
     `torch.index_select` of the buffers they were permuted from. An int8
@@ -819,46 +1053,51 @@ def compare_beam_paths(params, cfg_k, tok, window, opts, steps: int = 8):
         return [a for t in kv for a in (t if isinstance(t, QTensor) else (t,))]
 
     k = opts.beam_size
+    w = len(windows)
     v = cfg_k.text_decoder_config.n_vocab
     fused = bool(opts.self_quant)
     with torch.inference_mode():
-        cfg_p, enc = _window_encodings(params, cfg_k, window, opts)
+        cfg_p, enc = _window_encodings(params, cfg_k, windows, opts)
         prompt = torch.tensor(tok.prompt_ids("en"), device="cuda")
-        tokens = prompt[None].expand(k, -1).contiguous()
+        tokens = prompt[None].expand(w * k, -1).contiguous()
         out, caches, spares = {}, {}, {}
         for c in (cfg_k, cfg_p):
-            cache = M.init_cache(params, enc[c.attention], c, batch=k,
+            cache = M.init_cache(params, enc[c.attention], c, batch=w * k,
                                  cache_len=128, kv_quant=opts.kv_quant,
                                  self_quant=opts.self_quant)
             logits, cache = M.decoder_step(params, tokens, 0, cache, c)
             out[c.attention], caches[c.attention] = [logits[:, -1]], cache
             spares[c.attention] = (_spare(cache.self_k), _spare(cache.self_v))
         lane = torch.arange(k, device="cuda")
-        phys = lane.clone()
-        cur_logp = torch.where(lane == 0, 0.0, float("-inf"))
+        offs = (torch.arange(w, device="cuda") * k)[:, None]
+        phys = lane.repeat(w, 1)
+        cur_logp = torch.where(lane == 0, 0.0, float("-inf")).repeat(w, 1)
         pos, exact = prompt.shape[0], not fused
         for _ in range(steps):
             logp = torch.log_softmax(out["flash"][-1].float(), -1)
             cur_logp, flat_idx = top_k_stable(
-                (cur_logp[:, None] + logp).reshape(-1), k)
-            parent, tok_ids = (flat_idx // v).to(torch.int32), flat_idx % v
+                (cur_logp[:, :, None] + logp.view(w, k, v)).reshape(w, -1), k)
+            parent = flat_idx // v  # (W, K), window-local
+            tok_ids = (flat_idx % v).reshape(-1)
+            gparent = (parent + offs).reshape(-1).to(torch.int32)
             for c, permute in ((cfg_k, permute_lanes_arrays),
                                (cfg_p, permute_lanes_arrays_plain)):
                 a = c.attention
                 cache = caches[a]
                 if fused and a == "flash":
-                    src, dest = _cow_assign(parent[None].long(), phys[None])
+                    src, dest = _cow_assign(parent, phys)
                     logits, caches[a] = M.decoder_step(
                         params, tok_ids[:, None], pos, cache, c,
-                        parents=src[0], dests=dest[0])
-                    phys = dest[0]
+                        parents=(src + offs).reshape(-1),
+                        dests=(dest + offs).reshape(-1))
+                    phys = dest
                     out[a].append(logits[:, -1])
                     continue
                 sources = flat((cache.self_k, cache.self_v))
-                new = permute(sources, parent, flat(spares[a]),
+                new = permute(sources, gparent, flat(spares[a]),
                               valid_len=pos if fused else None)
                 if a == "flash":
-                    idx = parent.long()
+                    idx = gparent.long()
                     exact &= all(bool(torch.equal(n, torch.index_select(
                         src_arr, 0, idx))) for n, src_arr in zip(new, sources))
                 spares[a] = (cache.self_k, cache.self_v)
@@ -876,7 +1115,6 @@ def compare_beam_paths(params, cfg_k, tok, window, opts, steps: int = 8):
            "prefill_logits": rel_err(out["flash"][0], out["xla"][0]),
            "step_logits": max(rel_err(a, b) for a, b in
                               zip(out["flash"][1:], out["xla"][1:]))}
-    label = "quantized beam window" if fused else "beam window"
     res = _check_paths(label, res, {
         "encoder": enc["flash"], "logits": torch.stack(out["flash"])})
     return dict(res, permuted_caches_equal=None if fused else exact)

@@ -239,6 +239,72 @@ def test_permute_kernel_bit_exact(gen, valid_len):
             assert torch.equal(o, a[idx])
 
 
+def _w8a8_operands(gen, m, k, n, dtype):
+    """x with a zero row and a row of exact half quantization steps, int8
+    weights, f32 column scales."""
+    x = _randn((m, k), gen, dtype=torch.float32)
+    x[0] = 0
+    if m > 1:
+        x[1] = 0
+        x[1, 0] = 127.0
+        x[1, 1:41] = torch.arange(40, device="cuda") + 0.5
+    wq = torch.randint(-127, 128, (k, n), generator=gen, device="cuda",
+                       dtype=torch.int8)
+    scale = 0.001 + 0.01 * torch.rand(n, generator=gen, device="cuda")
+    return x.to(dtype), wq, scale
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,k,n", [(1, 256, 384), (5, 1280, 256),
+                                   (20, 512, 128), (70, 256, 256),
+                                   (300, 384, 640)])
+def test_w8a8_small_kernel_bit_equal(gen, dtype, m, k, n):
+    """K6 at decode rows (the 16-row tiles) and past 64 rows (the 128 x 128
+    tiles), bf16 and f32 x: bit-equal to its plain version."""
+    from whisper_tpu_torch.ops.kernels import dequant_matmul as KQ
+
+    x, wq, scale = _w8a8_operands(gen, m, k, n, dtype)
+    before = KQ.quantized_matmul.launches
+    got = KQ.quantized_matmul(x, wq, scale)
+    assert KQ.quantized_matmul.launches == before + 1
+    assert got.dtype == dtype and got.shape == (m, n)
+    torch.cuda.synchronize()
+    assert torch.equal(got, KQ.quantized_matmul_plain(x, wq, scale))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m", [10, 1025, 1537])
+def test_w8a8_big_kernel_bit_equal(gen, dtype, m):
+    """K7's rounding in the small-M kernel (10 rows) and with a ragged last
+    row tile: bit-equal to its plain version."""
+    from whisper_tpu_torch.ops.kernels import dequant_matmul as KQ
+
+    x, wq, scale = _w8a8_operands(gen, m, 640, 384, dtype)
+    before = KQ.quantized_matmul_big.launches
+    got = KQ.quantized_matmul_big(x, wq, scale)
+    assert KQ.quantized_matmul_big.launches == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, KQ.quantized_matmul_big_plain(x, wq, scale))
+    f32 = KQ.quantized_matmul_big(x, wq, scale, out_dtype=torch.float32)
+    assert torch.equal(f32, KQ.quantized_matmul_big_plain(
+        x, wq, scale, out_dtype=torch.float32))
+
+
+def test_w8a8_wrappers_raise_on_what_they_do_not_take(gen):
+    from whisper_tpu_torch.ops.kernels import dequant_matmul as KQ
+    from whisper_tpu_torch.quantize import pack_int4
+
+    x, wq, scale = _w8a8_operands(gen, 4, 256, 256, torch.bfloat16)
+    with pytest.raises(TypeError, match="int8 weights"):
+        KQ.quantized_matmul(x, pack_int4(wq.clamp(-7, 7)), scale)
+    with pytest.raises(ValueError, match="multiples of 128"):
+        KQ.quantized_matmul(x[:, :200], wq[:200], scale)
+    with pytest.raises(ValueError, match="contiguous"):
+        KQ.quantized_matmul_big(x.t().contiguous().t(), wq, scale)
+    with pytest.raises(TypeError, match="bf16/f32"):
+        KQ.quantized_matmul(x.half(), wq, scale)
+
+
 def test_cuda_wrappers_raise_instead_of_falling_back(gen):
     x = _randn((1, 8, 96), gen)  # head dim 48: no kernel for it
     with pytest.raises(ValueError, match="head dim"):
@@ -372,3 +438,58 @@ def test_cli_quantized_caches_go_through_k5_and_k3s(cli_dir, monkeypatch,
         assert rc == 0, err
         grew = {k: f() - before[k] for k, f in counts.items()}
         assert all(grew[k] > 0 for k in ran), grew
+
+
+def test_cli_transcribe_many_on_the_card(cli_dir, monkeypatch, capsys):
+    """`transcribe-many` on the card (bf16 by default): two files' full
+    windows decode as one batch through K1, K2 and K3/K3g; greedy and the
+    default beam 5 each write one text per input."""
+    monkeypatch.chdir(cli_dir)
+    counts = {"K1": lambda: KA.attention_bhsd.launches,
+              "K2": lambda: KB.fused_mlp_block.launches,
+              "K3": lambda: KC.decode_attention_stacked.launches,
+              "K3g": lambda: KC.decode_attention_stacked.group_launches}
+    for extra, ran in ((["--greedy"], ("K1", "K2", "K3")),
+                       ([], ("K1", "K2", "K3g"))):
+        before = {k: f() for k, f in counts.items()}
+        rc = torch_cli.main(["transcribe-many", "dump", "en", "many",
+                             "audio.wav", "audio.wav", "--batch-size", "4",
+                             *extra])
+        out, err = capsys.readouterr()
+        assert rc == 0, err
+        assert "Transcribed 2 files" in out
+        assert os.path.exists(os.path.join("many", "audio.txt"))
+        grew = {k: f() - before[k] for k, f in counts.items()}
+        assert all(grew[k] > 0 for k in ran), grew
+
+
+def test_w8a8_model_runs_k6_and_k7_on_the_card(gen):
+    """The encoder over W8A8 weights on the card: 4 windows of 48 rows
+    (192 rows: K6) and 24 windows (1152 rows: K7), within the plain
+    path's reach: the kernel path's output is finite and close to the
+    dequant path's (W8A8 quantizes the activations: ~1e-2 relative)."""
+    import dataclasses
+
+    from whisper_tpu_torch.config import KernelKnobs, tiny_test_config
+    from whisper_tpu_torch.ops.kernels import dequant_matmul as KQ
+    from whisper_tpu_torch.params import init_params
+    from whisper_tpu_torch.quantize import quantize_params
+
+    cfg = tiny_test_config(n_state=256, n_head=4, n_layer=2, n_vocab=128,
+                           n_audio_ctx=96, n_text_ctx=48)
+    w8a8 = dataclasses.replace(cfg, attention="flash",
+                               knobs=KernelKnobs(int8_impl="pallas"))
+    params = quantize_params(init_params(cfg, gen, dtype=torch.bfloat16),
+                             quantize_encoder=True, bits=8)
+    for windows, counter in ((4, KQ.quantized_matmul),
+                             (24, KQ.quantized_matmul_big)):
+        mel = torch.randn((windows, 80, 96), generator=gen, device="cuda")
+        before = counter.launches
+        got = M.encoder_forward(params, mel, w8a8)
+        assert counter.launches == before + 2 * 4  # 4 matmuls a layer
+        want = M.encoder_forward(params, mel, dataclasses.replace(
+            w8a8, knobs=KernelKnobs()))
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(got).all())
+        rel = float((got.float() - want.float()).norm() / want.float().norm())
+        assert rel < 5e-2, rel

@@ -8,7 +8,11 @@ then greedy decoding and beam search (5 beams) of `--depth` steps each,
 after a warm-up run of each; then the same two over int8 weight-only
 `quantize_params` of those weights with quantized caches (greedy: int8
 cross and self caches; beam: the bench's int4 cross and int8 self
-caches, through the fused reshuffle). Each decode runs once under the host clock
+caches, through the fused reshuffle), first with the dequant-in-matmul
+products (int8_impl="xla"), then with the W8A8 kernels K6/K7
+(int8_impl="pallas", encoder weights int8 too); last the W8A8 beam over
+4 windows at once (`beam_search_batched`, 20 lanes: the full windows of
+chip_smoke's two 35 s streams). Each decode runs once under the host clock
 alone and once under `torch.profiler`; the profile gives the device time
 per kernel name, the number of kernel launches, and the device's busy
 share (summed kernel time over the host-clock wall time of the unprofiled
@@ -40,9 +44,9 @@ def main() -> int:
 
     from torch.profiler import ProfilerActivity, profile
 
-    from chip_smoke import SEED, synthetic_speech
-    from whisper_tpu_torch.config import preset
-    from whisper_tpu_torch.decode.beam import beam_search
+    from chip_smoke import SEED, _full_windows, _window_mel, synthetic_speech
+    from whisper_tpu_torch.config import KernelKnobs, preset
+    from whisper_tpu_torch.decode.beam import beam_search, beam_search_batched
     from whisper_tpu_torch.decode.greedy import greedy_decode
     from whisper_tpu_torch.models.whisper import encoder_forward
     from whisper_tpu_torch.ops.audio import max_waveform_samples, prep_audio
@@ -52,6 +56,7 @@ def main() -> int:
         WhisperTokenizer, build_full_scale_tokenizer_json)
 
     from whisper_tpu_torch.ops.kernels._build import BUILD_DIR
+    from whisper_tpu_torch.pipeline.transcribe import DecodeOptions
 
     cfg = dataclasses.replace(preset("large-v2"), attention="flash")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -75,6 +80,13 @@ def main() -> int:
     common = dict(eot_id=tok.eot, suppress_mask=suppress,
                   max_depth=args.depth)
     qparams = quantize_params(params, bits=8)
+    wparams = quantize_params(params, quantize_encoder=True, bits=8)
+    w8a8 = dataclasses.replace(cfg, knobs=KernelKnobs(int8_impl="pallas"))
+    waves = [synthetic_speech(35 * 16000, SEED + s) for s in (0, 1)]
+    with torch.inference_mode():
+        enc4 = encoder_forward(wparams, _window_mel(
+            _full_windows(waves, cfg, DecodeOptions()), cfg,
+            DecodeOptions()), w8a8)
     runs = {"greedy": lambda: greedy_decode(params, enc, prompt, cfg,
                                             **common),
             "beam5": lambda: beam_search(params, enc, prompt, cfg,
@@ -84,6 +96,15 @@ def main() -> int:
                 **common),
             "beam5_int8_int4kv": lambda: beam_search(
                 qparams, enc, prompt, cfg, beam_size=5, kv_quant="int4",
+                self_quant=True, **common),
+            "greedy_w8a8": lambda: greedy_decode(
+                wparams, enc, prompt, w8a8, kv_quant=True, self_quant=True,
+                **common),
+            "beam5_w8a8_int4kv": lambda: beam_search(
+                wparams, enc, prompt, w8a8, beam_size=5, kv_quant="int4",
+                self_quant=True, **common),
+            "beam5_w8a8_int4kv_4windows": lambda: beam_search_batched(
+                wparams, enc4, prompt, w8a8, beam_size=5, kv_quant="int4",
                 self_quant=True, **common)}
     for name, fn in runs.items():
         with torch.inference_mode():

@@ -4,9 +4,10 @@ The port's own copy of `whisper_tpu/config.py` (reference: whisper-burn
 `src/model/mod.rs:16-20,73-80,164-171`, and the `.cfg` JSON schema its
 convert CLI writes, `src/bin/convert/main.rs:51`): the same frozen
 dataclasses, presets and `.cfg` reader/writer, so a checkpoint and its
-`.cfg` load identically in both packages. The TPU kernel knobs
-(`KernelKnobs` and their WHISPER_TPU_* env overrides) are not carried
-over: they select Pallas kernels the port does not have.
+`.cfg` load identically in both packages. `KernelKnobs` keeps the one
+knob the port has kernels for, `int8_impl`; the JAX package's other knobs
+are TPU A/B switches, and the port reads no WHISPER_TPU_* environment
+variable: a knob is set in the config, nowhere else.
 """
 
 from __future__ import annotations
@@ -44,6 +45,33 @@ class TextDecoderConfig:
     n_text_layer: int = 4
 
 
+INT8_IMPLS = ("xla", "pallas")
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelKnobs:
+    """Kernel selection (the JAX package's `config.KernelKnobs`, :46-60).
+
+    `int8_impl` picks the product of an int8 weight: "xla" (the default)
+    dequantizes the weight inside the matmul, "pallas" runs the W8A8
+    kernels (per-row int8 activations: K6 for M <= 1024 rows, K7 above;
+    `models/whisper.py::_matmul`). The JAX package's "w8a8" and "auto" are
+    XLA-only A/B variants and are not ported.
+    """
+
+    int8_impl: str = "xla"
+
+    def __post_init__(self) -> None:
+        if self.int8_impl in ("w8a8", "auto"):
+            raise NotImplementedError(
+                f"int8_impl={self.int8_impl!r} (an XLA A/B variant of the "
+                "JAX package) is ROADMAP queue 1 item 9, not ported; "
+                "use 'xla' or 'pallas'")
+        if self.int8_impl not in INT8_IMPLS:
+            raise ValueError(f"int8_impl must be one of {INT8_IMPLS}, got "
+                             f"{self.int8_impl!r}")
+
+
 @dataclasses.dataclass(frozen=True)
 class WhisperConfig:
     """Reference: `WhisperConfig` (src/model/mod.rs:16-20).
@@ -52,7 +80,8 @@ class WhisperConfig:
     value. `attention` picks the path: "flash" runs the port's hand-written
     kernels (ops/kernels/), "xla" the plain PyTorch version of everything
     (the name is the JAX package's). `alignment_heads` round-trips through
-    the `.cfg` JSON as an extra key, absent when None.
+    the `.cfg` JSON as an extra key, absent when None. `knobs` is not
+    written to the `.cfg` JSON.
     """
 
     audio_encoder_config: AudioEncoderConfig = AudioEncoderConfig()
@@ -60,6 +89,7 @@ class WhisperConfig:
     ln_eps: float = 1e-5
     attention: str = "xla"
     alignment_heads: Optional[Tuple[Tuple[int, int], ...]] = None
+    knobs: KernelKnobs = KernelKnobs()
 
     def __post_init__(self) -> None:
         # Reference asserts encoder/decoder state sizes equal (src/model/mod.rs:27-32).

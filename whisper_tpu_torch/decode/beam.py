@@ -1,4 +1,5 @@
-"""Beam search over one window, with a KV cache, in PyTorch.
+"""Beam search with a KV cache, in PyTorch: over one window
+(`beam_search`) and over W windows at once (`beam_search_batched`).
 
 Counterpart of `whisper_tpu/decode/beam.py::beam_search` (reference:
 whisper-burn `src/beam.rs` as driven by `src/transcribe.rs:148-383`), with
@@ -41,12 +42,13 @@ from __future__ import annotations
 from typing import Callable, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from ..config import WhisperConfig
 from ..models import whisper as M
 from ..ops.kernels.permute import permute_lanes_arrays
 from ..quantize import QTensor
-from .greedy import make_logp_fn
+from .greedy import apply_timestamp_rules, make_logp_fn
 
 NEG_INF = float("-inf")
 
@@ -57,6 +59,71 @@ def top_k_stable(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     is -inf (`torch.topk` leaves the order of ties unspecified)."""
     vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
     return vals[..., :k], idx[..., :k]
+
+
+def _top_k_iter(x: torch.Tensor, k: int):
+    """Top-k over the last axis by k argmax passes (beam.py:42): ties to
+    the lowest index; a row with fewer than k finite entries repeats index
+    0 for its -inf tail (JAX's duplicate-0 quirk, kept for parity)."""
+    vals, idxs = [], []
+    iota = torch.arange(x.shape[-1], device=x.device)
+    for _ in range(k):
+        i = torch.argmax(x, dim=-1)  # the first maximum, as jnp.argmax
+        vals.append(torch.gather(x, -1, i[..., None])[..., 0])
+        idxs.append(i)
+        x = torch.where(iota == i[..., None], NEG_INF, x)
+    return torch.stack(vals, -1), torch.stack(idxs, -1)
+
+
+def _segments(x: torch.Tensor, seg: int):
+    """x (..., n) padded with -inf to whole segments -> (..., nseg, seg)."""
+    pad = (-x.shape[-1]) % seg
+    if pad:
+        x = F.pad(x, (0, pad), value=NEG_INF)
+    return x.reshape(*x.shape[:-1], -1, seg)
+
+
+def _top_k_segments(xs: torch.Tensor, seg_max: torch.Tensor, k: int):
+    """The second level of `_top_k` (beam.py:94-108): the top-k segments by
+    their maxima (distinct indices, `lax.top_k`'s order), re-sorted
+    ascending so that gathered position order is global index order, then
+    `_top_k_iter` over their k * seg candidates."""
+    seg = xs.shape[-1]
+    seg_idx = torch.sort(top_k_stable(seg_max, k)[1], dim=-1).values
+    gathered = torch.gather(
+        xs, -2, seg_idx[..., None].expand(*seg_idx.shape, seg))
+    vals, local = _top_k_iter(gathered.reshape(*xs.shape[:-2], k * seg), k)
+    gi = torch.gather(seg_idx, -1, local // seg) * seg + local % seg
+    return vals, torch.where(torch.isneginf(vals), 0, gi)
+
+
+def _top_k(x: torch.Tensor, k: int, seg: int = 128):
+    """Exact top-k, two-level (beam.py:68): segment maxima, the top-k
+    segments, then the top-k of their candidates; element-identical to
+    `_top_k_iter`, ties and the -inf duplicate-0 quirk included."""
+    if x.shape[-1] <= 4 * seg:
+        return _top_k_iter(x, k)
+    xs = _segments(x, seg)
+    return _top_k_segments(xs, xs.amax(dim=-1), k)
+
+
+def _topk_lse(x: torch.Tensor, k: int, seg: int = 128):
+    """Per-row top-k (as `_top_k`) and logsumexp from the same per-segment
+    maxima (beam.py:111): lse = log(sum_j exp(m_j - M) * sum_seg_j exp(x -
+    m_j)) + M; -inf segments add 0 and an all--inf row gives -inf."""
+    if x.shape[-1] <= 4 * seg:
+        vals, idx = _top_k_iter(x, k)
+        return vals, idx, torch.logsumexp(x, dim=-1)
+    xs = _segments(x, seg)
+    seg_max = xs.amax(dim=-1)
+    safe = torch.where(torch.isneginf(seg_max), 0.0, seg_max)
+    seg_sum = torch.exp(xs - safe[..., None]).sum(dim=-1)
+    m = seg_max.amax(dim=-1)
+    m_safe = torch.where(torch.isneginf(m), 0.0, m)
+    total = (seg_sum * torch.exp(seg_max - m_safe[..., None])).sum(dim=-1)
+    lse = torch.where(torch.isneginf(m), NEG_INF, torch.log(total) + m)
+    vals, gi = _top_k_segments(xs, seg_max, k)
+    return vals, gi, lse
 
 
 def _fuse_reshuffle(self_k, cfg: WhisperConfig, allow=None) -> bool:
@@ -247,6 +314,197 @@ def beam_search(
     tokens = torch.where(take_fin, best_fin_tokens, cur_tokens[best_active])
     length = torch.where(take_fin, best_fin_len, cur_len)
     logp = torch.where(take_fin, best_fin_logp, active_logp[best_active])
+    if ns_prob is not None:
+        return tokens, length, logp, ns_prob
+    return tokens, length, logp
+
+
+def _window_stopped(logp, valid, eot, fin_logp) -> torch.Tensor:
+    """(W,) per-window stop rule (beam.py:767): best finished >= best
+    active, ties to the finished beam."""
+    fin_like = torch.where(valid & eot, logp, NEG_INF)
+    best_fin = torch.maximum(fin_like.amax(1), fin_logp.amax(1))
+    return best_fin >= torch.where(valid & ~eot, logp, NEG_INF).amax(1)
+
+
+def _pick(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """t (W, K, ...) at lane idx[w] of each window -> (W, ...)."""
+    i = idx.reshape(-1, 1, *([1] * (t.dim() - 2)))
+    return torch.gather(t, 1, i.expand(-1, 1, *t.shape[2:]))[:, 0]
+
+
+def beam_search_batched(
+    params,
+    enc_out: torch.Tensor,  # (W, Sa, d): W independent windows
+    prompt: torch.Tensor,  # (P,) prompt ids, shared by the windows
+    cfg: WhisperConfig,
+    eot_id: int,
+    suppress_mask: Optional[torch.Tensor] = None,  # (V,) f32, 0 or -inf
+    beam_size: int = 5,
+    max_depth: int = 100,
+    suppress_until_len: int = 5,
+    kv_quant: bool = False,
+    self_quant: bool = False,
+    nospeech_id: Optional[int] = None,  # also return p(<|nospeech|>) (W,)
+    sot_pos: int = 0,
+    fuse_reshuffle: Optional[bool] = None,
+    ts_begin: Optional[int] = None,
+    max_initial_ts_idx: int = 50,
+    logits_hook: Optional[Callable] = None,
+) -> Tuple[torch.Tensor, ...]:
+    """Beam search over W windows as ONE loop over W x K flat lanes
+    (beam.py:654), with the single-window semantics per window.
+
+    Each step streams the (W*K, V) logits once (`_topk_lse`) into every
+    lane's top-K proposals and their normalized log-probs; the per-window
+    top-K over the (K x K) proposals is exact-equivalent to the top-K over
+    the (K x V) candidates. A window whose stop rule has fired is frozen by
+    masking its result-bearing state; the batch runs until every window
+    has stopped, `max_depth` steps, or the context length. The cross cache
+    holds one copy per window (lane i reads window i // K); the self cache
+    reshuffles as in `beam_search` (K5 with copy-on-write slots over an
+    int8 self cache on the flash config, else K4 into a spare pair). One
+    host sync per step reads the stop rule; the decoder step whose output
+    JAX computes and never reads after the last expansion is skipped.
+
+    Returns (tokens (W, n_text_ctx) int64, lengths (W,), log_probs (W,)),
+    plus p(<|nospeech|>) per window when `nospeech_id` is given."""
+    k = beam_size
+    dec_cfg = cfg.text_decoder_config
+    ctx = dec_cfg.n_text_ctx
+    device = enc_out.device
+    prompt = prompt.to(device=device, dtype=torch.long)
+    p = prompt.shape[0]
+    w = enc_out.shape[0]
+    b = w * k
+
+    def proposals(logits, tokens_flat, seq_len: int):
+        """Masked (B, V) logits -> each lane's top-K (normalized log-prob,
+        token id), (W, K, K) each (beam.py:704)."""
+        x = logits.float()
+        if suppress_mask is not None and seq_len <= suppress_until_len:
+            x = x + suppress_mask
+        if ts_begin is not None:
+            x = apply_timestamp_rules(x, tokens_flat, seq_len, p, ts_begin,
+                                      eot_id, max_initial_ts_idx)
+        if logits_hook is not None:
+            x = logits_hook(x, tokens_flat, seq_len)
+        vals, idx, lse = _topk_lse(x, k)
+        return (vals - lse[:, None]).reshape(w, k, k), idx.reshape(w, k, k)
+
+    tokens0 = torch.zeros((b, ctx), dtype=torch.long, device=device)
+    tokens0[:, :p] = prompt
+    cache_len = min(ctx, -(-(p + max_depth) // 128) * 128)
+    cache = M.init_cache(params, enc_out, cfg, batch=b, cache_len=cache_len,
+                         kv_quant=kv_quant, self_quant=self_quant)
+    fused = _fuse_reshuffle(cache.self_k, cfg, fuse_reshuffle)
+    if not fused:
+        spare_k, spare_v = _spare(cache.self_k), _spare(cache.self_v)
+    logits, cache = M.decoder_step(params, tokens0[:, :p], 0, cache, cfg)
+    ns_prob = None
+    if nospeech_id is not None:  # lanes share the prompt: lane 0
+        ns_prob = torch.softmax(logits[::k, sot_pos].float(),
+                                -1)[:, nospeech_id]
+    next_vals, next_idx = proposals(logits[:, -1], tokens0, p)
+
+    lane = torch.arange(k, device=device)
+    offs = (torch.arange(w, device=device) * k)[:, None]
+    phys = lane.repeat(w, 1)  # (W, K) slot of each logical lane (COW)
+    cur_tokens = tokens0.reshape(w, k, ctx)
+    cur_len = p
+    cur_len_w = torch.full((w,), p, dtype=torch.long, device=device)
+    cur_logp = torch.where(lane == 0, 0.0, NEG_INF).repeat(w, 1)
+    cur_valid = (lane == 0).repeat(w, 1)
+    cur_eot = torch.zeros((w, k), dtype=torch.bool, device=device)
+    fin_tokens = torch.zeros((w, k, ctx), dtype=torch.long, device=device)
+    fin_len = torch.zeros((w, k), dtype=torch.long, device=device)
+    fin_logp = torch.full((w, k), NEG_INF, device=device)
+
+    def stop_rule():  # the JAX loop's cond; the one host sync of a step
+        stopped = _window_stopped(cur_logp, cur_valid, cur_eot, fin_logp)
+        go = (depth < max_depth and cur_len < ctx
+              and not bool(stopped.all()))
+        return go, stopped
+
+    depth = 0
+    go, stopped = stop_rule()
+    while go:
+        f1, f2 = stopped[:, None], stopped[:, None, None]
+        # (a) fold EOT-ended beams into each window's finished pool
+        cand_fin = torch.cat([fin_logp, torch.where(cur_valid & cur_eot,
+                                                    cur_logp, NEG_INF)], 1)
+        new_fin_logp, fin_idx = _top_k(cand_fin, k)
+        all_tokens = torch.cat([fin_tokens, cur_tokens], 1)
+        new_fin_tokens = torch.gather(
+            all_tokens, 1, fin_idx[:, :, None].expand(-1, -1, ctx))
+        all_len = torch.cat([fin_len, torch.full_like(fin_len, cur_len)], 1)
+        new_fin_len = torch.gather(all_len, 1, fin_idx)
+        # (b) expand: per-window top-K over the (K x K) proposals
+        active = cur_valid & ~cur_eot
+        cand = torch.where(active[:, :, None], cur_logp[:, :, None]
+                           + next_vals, NEG_INF)
+        new_logp, flat_idx = _top_k(cand.reshape(w, k * k), k)
+        parent = flat_idx // k  # in-window parent lane
+        tok = torch.gather(next_idx.reshape(w, k * k), 1, flat_idx)
+        new_tokens = torch.gather(cur_tokens, 1,
+                                  parent[:, :, None].expand(-1, -1, ctx))
+        new_tokens[:, :, cur_len] = tok
+        new_valid = new_logp > NEG_INF
+        new_eot = (tok == eot_id) & new_valid
+        # freeze the result-bearing state of stopped windows
+        cur_tokens = torch.where(f2, cur_tokens, new_tokens)
+        cur_len_w = torch.where(stopped, cur_len_w, cur_len + 1)
+        cur_logp = torch.where(f1, cur_logp, new_logp)
+        cur_valid = torch.where(f1, cur_valid, new_valid)
+        cur_eot = torch.where(f1, cur_eot, new_eot)
+        fin_tokens = torch.where(f2, fin_tokens, new_fin_tokens)
+        fin_len = torch.where(f1, fin_len, new_fin_len)
+        fin_logp = torch.where(f1, fin_logp, new_fin_logp)
+        pos, cur_len, depth = cur_len, cur_len + 1, depth + 1
+        go, stopped = stop_rule()
+        if not go:
+            break
+        # (c) reshuffle + append + logits (stopped windows ride along on
+        # their stale proposals; their results are frozen above)
+        if fused:  # K5, copy-on-write slots
+            src, dest = _cow_assign(parent, phys)
+            logits, cache = M.decoder_step(
+                params, tok.reshape(b, 1), pos, cache, cfg,
+                parents=(src + offs).reshape(b),
+                dests=(dest + offs).reshape(b))
+            phys = dest
+        else:  # K4 into the spare pair, swap
+            gparent = (parent + offs).reshape(b).to(torch.int32)
+            new_k, new_v = _cache_gather(cache.self_k, cache.self_v, gparent,
+                                         spare_k, spare_v, valid_len=pos)
+            spare_k, spare_v = cache.self_k, cache.self_v
+            cache = M.DecoderCache(new_k, new_v, cache.cross_k, cache.cross_v)
+            logits, cache = M.decoder_step(params, tok.reshape(b, 1), pos,
+                                           cache, cfg)
+        next_vals, next_idx = proposals(logits[:, -1],
+                                        new_tokens.reshape(b, ctx), cur_len)
+
+    # per-window result: the best beam overall, ties to a finished one
+    fin_like = torch.where(cur_valid & cur_eot, cur_logp, NEG_INF)
+    best_fin_cur = torch.argmax(fin_like, 1)
+    best_fin_pool = torch.argmax(fin_logp, 1)
+    pool_logp = _pick(fin_logp, best_fin_pool)
+    cur_fin_logp = _pick(fin_like, best_fin_cur)
+    use_pool = pool_logp >= cur_fin_logp
+    best_fin_logp = torch.where(use_pool, pool_logp, cur_fin_logp)
+    best_fin_tokens = torch.where(use_pool[:, None],
+                                  _pick(fin_tokens, best_fin_pool),
+                                  _pick(cur_tokens, best_fin_cur))
+    best_fin_len = torch.where(use_pool, _pick(fin_len, best_fin_pool),
+                               cur_len_w)
+    active_logp = torch.where(cur_valid & ~cur_eot, cur_logp, NEG_INF)
+    best_active = torch.argmax(active_logp, 1)
+    act_logp = _pick(active_logp, best_active)
+    take_fin = best_fin_logp >= act_logp
+    tokens = torch.where(take_fin[:, None], best_fin_tokens,
+                         _pick(cur_tokens, best_active))
+    length = torch.where(take_fin, best_fin_len, cur_len_w)
+    logp = torch.where(take_fin, best_fin_logp, act_logp)
     if ns_prob is not None:
         return tokens, length, logp, ns_prob
     return tokens, length, logp

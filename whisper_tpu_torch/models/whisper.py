@@ -21,7 +21,8 @@ step through the hand-written kernels in `ops/kernels/` on a CUDA device
 (on the CPU their wrappers run the kernels' plain versions).
 
 Quantization (`quantize.py`): weights may be QTensors (int8 or packed
-int4, dequantized inside the matmul), the cross cache int8/int4 with one
+int4, dequantized inside the matmul; int8 through the W8A8 kernels with
+`cfg.knobs.int8_impl="pallas"`, see `_matmul`), the cross cache int8/int4 with one
 scale per (layer, channel) (`kv_quant`), and the self cache int8 with one
 f32 scale per row (`self_quant`), appended through `_q8_rows`.
 """
@@ -35,6 +36,7 @@ import torch.nn.functional as F
 
 from ..config import WhisperConfig
 from ..ops.kernels.decode_attention import decode_attention_stacked
+from ..ops.kernels.dequant_matmul import quantized_matmul, quantized_matmul_big
 from ..ops.kernels.encoder_block import fused_mlp_block
 from ..ops.kernels.flash_attention import attention_bhsd
 from ..ops.kernels.permute_attention import decode_attention_permute_fused
@@ -58,14 +60,40 @@ def layer_norm(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
     return F.layer_norm(x, (x.shape[-1],), g, b, eps)
 
 
-def _matmul(x: torch.Tensor, w) -> torch.Tensor:
-    """x (..., d) @ w (d, ...), f32 accumulation, result in x's dtype. A
-    QTensor w takes the JAX default `int8_impl="xla"` branch
-    (whisper.py:225-229): x @ q.to(x.dtype) (int4 unpacked first; the
-    integers are exact in bf16), times the per-channel scale in f32, cast
-    to x's dtype. A bf16 product is rounded once before the scale (the
-    JAX dot keeps it f32): one bf16 step, on the card only."""
+def _matmul(x: torch.Tensor, w, int8_impl: str = "xla") -> torch.Tensor:
+    """x (..., d) @ w (d, ...), f32 accumulation, result in x's dtype.
+
+    A QTensor w follows the JAX dispatch (whisper.py:176-229), with
+    m = prod(x.shape[:-1]) rows and k, n the weight's in and out widths:
+      * int8_impl="pallas", k and n multiples of 128: the W8A8 kernels,
+        K6 (`quantized_matmul`) for m <= 1024 and K7
+        (`quantized_matmul_big`) above. The thresholds decide the numerics
+        (the two round the activations differently). JAX takes this branch
+        only on a TPU backend; the port on any device: on CPU tensors the
+        wrappers run their plain versions, so the port on the CPU computes
+        what JAX computes on a TPU. Packed int4 weights have no W8A8
+        kernel and raise;
+      * otherwise (int8_impl="xla", the default, or widths not multiples of
+        128, JAX's own rule): x @ q.to(x.dtype) (int4 unpacked first; the
+        integers are exact in bf16), times the per-channel scale in f32,
+        cast to x's dtype. A bf16 product is rounded once before the scale
+        (the JAX dot keeps it f32): one bf16 step, on the card only."""
     if isinstance(w, QTensor):
+        k = w.q.shape[0]
+        n = w.scale.numel()  # out channels (int4 q packs two per byte)
+        if int8_impl == "pallas":
+            if w.q.dtype == torch.uint8:
+                raise NotImplementedError(
+                    "int4 weights under int8_impl='pallas' (K6/K7 over "
+                    "packed int4) are ROADMAP queue 2, not ported; use "
+                    "int8_impl='xla' or bits=8")
+            lead = x.shape[:-1]
+            m = x[..., 0].numel()
+            if k % 128 == 0 and n % 128 == 0:
+                mm = quantized_matmul if m <= 1024 else quantized_matmul_big
+                y = mm(x.reshape(m, k).contiguous(), w.q.reshape(k, n),
+                       w.scale.reshape(n), out_dtype=x.dtype)
+                return y.reshape(*lead, *w.scale.shape)
         q = int_values(w.q)
         y = torch.matmul(x, q.to(x.dtype).reshape(q.shape[0], -1))
         y = y.reshape(*x.shape[:-1], *q.shape[1:])
@@ -74,22 +102,22 @@ def _matmul(x: torch.Tensor, w) -> torch.Tensor:
     return y.reshape(*x.shape[:-1], *w.shape[1:])
 
 
-def _linear(x: torch.Tensor, w: torch.Tensor,
-            b: Optional[torch.Tensor] = None) -> torch.Tensor:
-    y = _matmul(x, w)
+def _linear(x: torch.Tensor, w, b: Optional[torch.Tensor] = None,
+            int8_impl: str = "xla") -> torch.Tensor:
+    y = _matmul(x, w, int8_impl)
     return y if b is None else y + b
 
 
-def _qkv_proj(x, w, b):
+def _qkv_proj(x, w, b, int8_impl: str = "xla"):
     """Fused QKV projection: x (..., d) @ w (d, 3, d) + b (3, d) -> q, k, v
     (strided views of one GEMM output)."""
-    y = _matmul(x, w) + b
+    y = _matmul(x, w, int8_impl) + b
     return y[..., 0, :], y[..., 1, :], y[..., 2, :]
 
 
-def _kv_proj(x, w, b):
+def _kv_proj(x, w, b, int8_impl: str = "xla"):
     """Fused KV projection: x (..., d) @ w (d, 2, d) + b (2, d) -> k, v."""
-    y = _matmul(x, w) + b
+    y = _matmul(x, w, int8_impl) + b
     return y[..., 0, :], y[..., 1, :]
 
 
@@ -154,18 +182,21 @@ def _use_fused_mlp(x: torch.Tensor, w1, impl: str) -> bool:
     return impl == "flash" and x.is_cuda and not isinstance(w1, QTensor)
 
 
-def _encoder_block(x, p: Layer, n_head: int, eps: float, impl: str = "xla"):
-    """Pre-LN residual encoder block (src/model/mod.rs:298-303)."""
+def _encoder_block(x, p: Layer, n_head: int, eps: float, impl: str = "xla",
+                   int8_impl: str = "xla"):
+    """Pre-LN residual encoder block (src/model/mod.rs:298-303). QTensor
+    weights skip the fused MLP; under int8_impl="pallas" its two matmuls
+    take K6/K7."""
     h = layer_norm(x, p["attn_ln_g"], p["attn_ln_b"], eps)
-    q, k, v = _qkv_proj(h, p["qkv_w"], p["qkv_b"])
+    q, k, v = _qkv_proj(h, p["qkv_w"], p["qkv_b"], int8_impl)
     x = x + _linear(_attention(q, k, v, n_head, impl), p["attn_o_w"],
-                    p["attn_o_b"])
+                    p["attn_o_b"], int8_impl)
     if _use_fused_mlp(x, p["mlp1_w"], impl):
         return fused_mlp_block(x, p["mlp_ln_g"], p["mlp_ln_b"], p["mlp1_w"],
                                p["mlp1_b"], p["mlp2_w"], p["mlp2_b"], eps=eps)
     h = layer_norm(x, p["mlp_ln_g"], p["mlp_ln_b"], eps)
-    h = _linear(F.gelu(_linear(h, p["mlp1_w"], p["mlp1_b"])), p["mlp2_w"],
-                p["mlp2_b"])
+    h = _linear(F.gelu(_linear(h, p["mlp1_w"], p["mlp1_b"], int8_impl)),
+                p["mlp2_w"], p["mlp2_b"], int8_impl)
     return x + h
 
 
@@ -187,7 +218,8 @@ def encoder_forward(params: ParamTree, mel: torch.Tensor,
     x = x + enc["pos_emb"][: x.shape[1]]
     n_head, eps = enc_cfg.n_audio_head, cfg.ln_eps
     for p in enc["blocks"].layers():
-        x = _encoder_block(x, p, n_head, eps, cfg.attention)
+        x = _encoder_block(x, p, n_head, eps, cfg.attention,
+                           cfg.knobs.int8_impl)
     return layer_norm(x, enc["ln_post_g"], enc["ln_post_b"], eps)
 
 
@@ -196,25 +228,26 @@ def encoder_forward(params: ParamTree, mel: torch.Tensor,
 # ----------------------------------------------------------------------------
 
 
-def _mlp(h, p: Layer, eps: float):
+def _mlp(h, p: Layer, eps: float, int8_impl: str = "xla"):
     hn = layer_norm(h, p["mlp_ln_g"], p["mlp_ln_b"], eps)
-    return h + _linear(F.gelu(_linear(hn, p["mlp1_w"], p["mlp1_b"])),
-                       p["mlp2_w"], p["mlp2_b"])
+    return h + _linear(F.gelu(_linear(hn, p["mlp1_w"], p["mlp1_b"],
+                                      int8_impl)),
+                       p["mlp2_w"], p["mlp2_b"], int8_impl)
 
 
 def _decoder_block(x, p: Layer, xa, mask, n_head: int, eps: float,
-                   impl: str = "xla"):
+                   impl: str = "xla", int8_impl: str = "xla"):
     """Pre-LN residual decoder block (src/model/mod.rs:344-350)."""
     h = layer_norm(x, p["attn_ln_g"], p["attn_ln_b"], eps)
-    q, k, v = _qkv_proj(h, p["qkv_w"], p["qkv_b"])
+    q, k, v = _qkv_proj(h, p["qkv_w"], p["qkv_b"], int8_impl)
     x = x + _linear(_attention(q, k, v, n_head, impl, causal=True, mask=mask),
-                    p["attn_o_w"], p["attn_o_b"])
+                    p["attn_o_w"], p["attn_o_b"], int8_impl)
     h = layer_norm(x, p["cross_ln_g"], p["cross_ln_b"], eps)
-    q = _linear(h, p["cross_q_w"], p["cross_q_b"])
-    ck, cv = _kv_proj(xa, p["cross_kv_w"], p["cross_kv_b"])
+    q = _linear(h, p["cross_q_w"], p["cross_q_b"], int8_impl)
+    ck, cv = _kv_proj(xa, p["cross_kv_w"], p["cross_kv_b"], int8_impl)
     x = x + _linear(_attention(q, ck, cv, n_head, impl), p["cross_o_w"],
-                    p["cross_o_b"])
-    return _mlp(x, p, eps)
+                    p["cross_o_b"], int8_impl)
+    return _mlp(x, p, eps, int8_impl)
 
 
 def _logits(x, dec) -> torch.Tensor:
@@ -236,7 +269,8 @@ def decoder_forward(params: ParamTree, tokens: torch.Tensor,
     mask = causal_mask(seq_len, seq_len, device=x.device)
     n_head, eps = dec_cfg.n_text_head, cfg.ln_eps
     for p in dec["blocks"].layers():
-        x = _decoder_block(x, p, enc_out, mask, n_head, eps, cfg.attention)
+        x = _decoder_block(x, p, enc_out, mask, n_head, eps, cfg.attention,
+                           cfg.knobs.int8_impl)
     return _logits(layer_norm(x, dec["ln_g"], dec["ln_b"], eps), dec)
 
 
@@ -297,6 +331,21 @@ def _quantize_cross(x: torch.Tensor, bits: int) -> QTensor:
     return QTensor(pack_int4(q) if bits == 4 else q, scale)
 
 
+def _cross_kv_vmap_fallback(x, w: QTensor, b):
+    """The cross-KV projection of `init_cache` under int8_impl="pallas".
+    JAX runs it under `jax.vmap` over the stacked layer weights, and the
+    W8A8 kernels' `custom_vmap` rule sends batched weights to its fallback
+    (dequant_matmul.py:113-130): x cast to bf16 (even in an f32 model)
+    times the weight cast to bf16, accumulated in f32, times the scale,
+    cast to x's dtype; then the bias. Here the bf16 values are multiplied
+    in f32 (exact products, f32 sums), so no K6/K7 launch."""
+    q = int_values(w.q)
+    k = q.shape[0]
+    y = torch.matmul(x.to(torch.bfloat16).float(), q.float().reshape(k, -1))
+    y = (y.reshape(*x.shape[:-1], *q.shape[1:]) * w.scale).to(x.dtype) + b
+    return y[..., 0, :], y[..., 1, :]
+
+
 def init_cache(params: ParamTree, enc_out: torch.Tensor, cfg: WhisperConfig,
                batch: Optional[int] = None, cache_len: Optional[int] = None,
                kv_quant=False, self_quant=False) -> DecoderCache:
@@ -330,8 +379,13 @@ def init_cache(params: ParamTree, enc_out: torch.Tensor, cfg: WhisperConfig,
     xa = enc_out.to(dtype)
     ck = torch.empty((n_layer, b_enc, sa, d), dtype=dtype, device=xa.device)
     cv = torch.empty_like(ck)
+    int8_impl = cfg.knobs.int8_impl
     for l, p in enumerate(dec["blocks"].layers()):
-        ck[l], cv[l] = _kv_proj(xa, p["cross_kv_w"], p["cross_kv_b"])
+        w = p["cross_kv_w"]
+        if int8_impl == "pallas" and isinstance(w, QTensor):
+            ck[l], cv[l] = _cross_kv_vmap_fallback(xa, w, p["cross_kv_b"])
+        else:
+            ck[l], cv[l] = _kv_proj(xa, w, p["cross_kv_b"], int8_impl)
     if kv_quant:
         bits = 4 if kv_quant == "int4" else 8
         ck, cv = _quantize_cross(ck, bits), _quantize_cross(cv, bits)
@@ -448,10 +502,11 @@ def _decoder_step_fused(params, tokens, pos: int, cache: DecoderCache,
     pos_self = torch.full((b,), pos, dtype=torch.int32, device=tokens.device)
     pos_cross = torch.full((b,), sa - 1, dtype=torch.int32, device=tokens.device)
 
+    ii = cfg.knobs.int8_impl
     h = _embed(dec, tokens, pos)  # (B, 1, d)
     for l, p in enumerate(dec["blocks"].layers()):
         hn = layer_norm(h, p["attn_ln_g"], p["attn_ln_b"], eps)
-        q, k, v = _qkv_proj(hn, p["qkv_w"], p["qkv_b"])
+        q, k, v = _qkv_proj(hn, p["qkv_w"], p["qkv_b"], ii)
         q1 = q[:, 0] * scale
         if quant_self:  # both new rows quantized in one pass
             (kq, vq), (ks, vs) = _q8_rows(torch.stack((k[:, 0], v[:, 0])))
@@ -472,10 +527,10 @@ def _decoder_step_fused(params, tokens, pos: int, cache: DecoderCache,
             attn = decode_attention_stacked(
                 q1, sk, sv, pos_self, l, n_head, batch_major=True,
                 c_used=c_self)
-        h = h + _linear(attn[:, None], p["attn_o_w"], p["attn_o_b"])
+        h = h + _linear(attn[:, None], p["attn_o_w"], p["attn_o_b"], ii)
 
         hn = layer_norm(h, p["cross_ln_g"], p["cross_ln_b"], eps)
-        q = _linear(hn, p["cross_q_w"], p["cross_q_b"])
+        q = _linear(hn, p["cross_q_w"], p["cross_q_b"], ii)
         if ck_scale is None:
             q1 = q[:, 0] * scale
         else:
@@ -484,8 +539,8 @@ def _decoder_step_fused(params, tokens, pos: int, cache: DecoderCache,
             q1, ck_arr, cv_arr, pos_cross, l, n_head, kv_rep=kv_rep)
         if cv_scale is not None:
             cross = (cross.float() * cv_scale[l]).to(h.dtype)
-        h = h + _linear(cross[:, None], p["cross_o_w"], p["cross_o_b"])
-        h = _mlp(h, p, eps)
+        h = h + _linear(cross[:, None], p["cross_o_w"], p["cross_o_b"], ii)
+        h = _mlp(h, p, eps, ii)
     return _logits(layer_norm(h, dec["ln_g"], dec["ln_b"], eps), dec), cache
 
 
@@ -539,10 +594,11 @@ def decoder_step(params: ParamTree, tokens: torch.Tensor, pos: int,
                     else QTensor(t.q[l], t.scale[l]))
         return t[:, l] if batch_major else t[l]
 
+    ii = cfg.knobs.int8_impl
     h = _embed(dec, tokens, pos)
     for l, p in enumerate(dec["blocks"].layers()):
         hn = layer_norm(h, p["attn_ln_g"], p["attn_ln_b"], eps)
-        q, k, v = _qkv_proj(hn, p["qkv_w"], p["qkv_b"])
+        q, k, v = _qkv_proj(hn, p["qkv_w"], p["qkv_b"], ii)
         if quant_self:  # in-place append of the quantized rows + scales
             sk.q[:, l, pos:pos + s], sk.scale[:, l, pos:pos + s] = _q8_rows(k)
             sv.q[:, l, pos:pos + s], sv.scale[:, l, pos:pos + s] = _q8_rows(v)
@@ -551,13 +607,13 @@ def decoder_step(params: ParamTree, tokens: torch.Tensor, pos: int,
             sv[:, l, pos:pos + s] = v
         attn = _cached_attention(q, layer_of(sk, l, True),
                                  layer_of(sv, l, True), causal_vis, n_head)
-        h = h + _linear(attn, p["attn_o_w"], p["attn_o_b"])
+        h = h + _linear(attn, p["attn_o_w"], p["attn_o_b"], ii)
 
         hn = layer_norm(h, p["cross_ln_g"], p["cross_ln_b"], eps)
-        q = _linear(hn, p["cross_q_w"], p["cross_q_b"])
+        q = _linear(hn, p["cross_q_w"], p["cross_q_b"], ii)
         cross = _cached_attention(q, layer_of(cache.cross_k, l, False),
                                   layer_of(cache.cross_v, l, False),
                                   cross_vis, n_head)
-        h = h + _linear(cross, p["cross_o_w"], p["cross_o_b"])
-        h = _mlp(h, p, eps)
+        h = h + _linear(cross, p["cross_o_w"], p["cross_o_b"], ii)
+        h = _mlp(h, p, eps, ii)
     return _logits(layer_norm(h, dec["ln_g"], dec["ln_b"], eps), dec), cache

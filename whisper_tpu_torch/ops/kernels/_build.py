@@ -47,6 +47,7 @@ SIGNATURES = {
     "wtt_decode_attention": [_P] * 7 + [_I] * 7 + [_LL] * 10 + [_P],
     "wtt_permute_attention": [_P] * 17 + [_I] * 4 + [_LL] * 9 + [_P],
     "wtt_permute_lanes": [_I, _I, _P, _P, _P, _P, _P],
+    "wtt_w8a8_matmul": [_P] * 6 + [_I] * 6 + [_P],
 }
 
 _lock = threading.Lock()
