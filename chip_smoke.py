@@ -39,11 +39,25 @@ Phases, in order; any failure raises and the script exits non-zero:
                 an int4 cross and an int8 self cache on the same streams:
                 the batched encoder runs K7, the tails' encoder and every
                 decoder matmul K6; cold and warm, then the two paths on the
-                batch of 4 windows.
-Every phase prints its seconds. Every kernel must be launched by some
-slice. The line before the last is
+                batch of 4 windows;
+ 10. sites      -- the two kernels no default path of the JAX package runs,
+                at the call sites where JAX dispatches them: K9 through one
+                window's encoder under `KernelKnobs(flash_impl="legacy")`
+                (against the default K1 encoder and the plain encoder), K8
+                through `_cached_attention(..., impl="flash")` at S = 1 on a
+                greedy window's self cache and its bf16, int8 and int4
+                cross caches (against impl="xla");
+ 11. timestamps + ladder -- bf16 `detect_language`, then
+                `transcribe_with_timestamps` with beam 5, the temperature
+                ladder (0, 0.2, 0.4) and no_speech_threshold 0.6 over the
+                35 s audio, cold and warm: equal segments (the sampling
+                rungs' seeded generators), the accepted temperature per
+                window, 3 windows, monotone segment times in [0, 35] s.
+Every phase prints its seconds. Every kernel but K8 and K9 must be launched
+by some slice; K8 and K9 by their site checks. The line before the last is
 a JSON object with one entry per kernel (launches summed over the slices'
-cold runs); the last line is {"ok": true, "device": {...}}.
+cold runs, or the site check's); the last line is {"ok": true,
+"device": {...}}.
 """
 
 from __future__ import annotations
@@ -228,6 +242,26 @@ def phase_kernels() -> dict:
                    heads_view(q, sq), heads_view(k, sk), heads_view(v, sk),
                    is_causal=causal))
 
+    # A.legacy: K9 on (B, H, S, hd) views of the (B, S, H, hd) projections,
+    # q pre-scaled, as `attention_bhsd(impl="legacy")` hands them over: a
+    # window's encoder shape, the 4-window batch, and a causal square.
+    for b, s_len, causal in ((1, 750, False), (4, 1500, False),
+                             (1, 224, True)):
+        qkv = _randn((b, s_len, 3, d), gen)
+        qkv[:, :, 2] += 1
+        q = heads_view(qkv[:, :, 0] * hd ** -0.5, s_len)
+        k, v = heads_view(qkv[:, :, 1], s_len), heads_view(qkv[:, :, 2], s_len)
+        pairs = s_len * (s_len + 1) / 2 if causal else s_len * s_len
+        record("flash_attention_legacy",
+               f"B={b} H={heads} S={s_len}{' causal' if causal else ''}",
+               lambda: KA.flash_attention(q, k, v, causal),
+               lambda: KA.flash_attention_plain(q, k, v, causal),
+               KA.ATOL, KA.RTOL,
+               (4 * b * s_len * d * 2, 4 * b * heads * pairs * hd),
+               lambda: F.scaled_dot_product_attention(q, k, v,
+                                                      is_causal=causal,
+                                                      scale=1.0))
+
     # B: weights at the init scale, LN affine away from identity. No single
     # PyTorch call computes LN + MLP + GELU + residual.
     ln_g = (1 + 0.1 * torch.randn(d, generator=gen, device="cuda")).bfloat16()
@@ -334,6 +368,54 @@ def phase_kernels() -> dict:
                    kv_rep=rep, c_used=cu),
                *KC.TOL[dt], work, library, dtype=dt)
         del kc, vc, library
+
+    # C.flat: K8, one layer's flat (B, C, d) cache sliced out of a stacked
+    # buffer: a self cache of C = 448 rows at pos 60 (one lane, then 5 lanes
+    # with per-row pos), then cross caches of Sa = 750 rows, every row
+    # visible, bf16, int8 and int4. Library (bf16 rows): SDPA with a
+    # (B, H, 1, hd) query and a boolean mask.
+    for kind, b, c, st, pos in (("self", 1, 448, "bf16", [60]),
+                                ("self", 5, 448, "bf16", [60, 3, 200, 447, 0]),
+                                ("cross", 1, 750, "bf16", None),
+                                ("cross", 1, 750, "int8", None),
+                                ("cross", 1, 750, "int4", None)):
+        lim = {"int8": 127, "int4": 7}.get(st)
+        shape = (b, 4, c, d)
+        if lim is None:
+            kc, vc = _randn(shape, gen), _randn(shape, gen) + 1
+            q = _randn((b, d), gen, 0.125)
+        else:
+            kc = torch.randint(-lim, lim + 1, shape, generator=gen,
+                               device="cuda", dtype=torch.int8)
+            vc = torch.randint(0, lim + 1, shape, generator=gen,
+                               device="cuda", dtype=torch.int8)
+            q = _randn((b, d), gen, 0.5 / lim)
+            if st == "int4":
+                kc, vc = pack_int4(kc), pack_int4(vc)
+        kl, vl = kc[:, 2], vc[:, 2]  # layer 2 of the stacked buffer
+        pos_t = torch.tensor([c - 1] * b if pos is None else pos,
+                             dtype=torch.int32, device="cuda")
+        n_vis = [p + 1 for p in pos_t.tolist()]
+        row_bytes = kl.shape[2] * kl.element_size()
+        work = (sum(2 * n * row_bytes for n in n_vis) + 2 * b * d * 2 + 4 * b,
+                sum(4 * n * d for n in n_vis))
+        library = None
+        if lim is None:
+            mask = (torch.arange(c, device="cuda")[None, None, None, :]
+                    <= pos_t[:, None, None, None])
+
+            def library(qh=heads_view(q[:, None], 1), kh=heads_view(kl, c),
+                        vh=heads_view(vl, c), mask=mask):
+                return F.scaled_dot_product_attention(qh, kh, vh,
+                                                      attn_mask=mask,
+                                                      scale=1.0)
+        record("decode_attention_flat",
+               f"{kind} {st} B={b} C={c}"
+               + (f" pos={pos}" if pos else " all rows"),
+               lambda: KC.decode_attention(q, kl, vl, pos_t, heads),
+               lambda: KC.decode_attention_plain(q, kl, vl, pos_t, heads),
+               *KC.TOL[bf16], work, library)
+        del kc, vc, kl, vl, library
 
     # E: K3s, the int8 self cache with row scales: the greedy slice's shape
     # (1 lane, C = 128), then 8 lanes with mixed pos and a NaN scale on
@@ -545,7 +627,21 @@ KERNELS = [
      "whisper_tpu/ops/pallas/dequant_matmul.py:36"),
     ("quantized_matmul_big", "whisper_tpu_torch/csrc/dequant_matmul.cu",
      "whisper_tpu/ops/pallas/dequant_matmul.py:160"),
+    ("decode_attention_flat", "whisper_tpu_torch/csrc/decode_attention.cu",
+     "whisper_tpu/ops/pallas/decode_attention.py:239"),
+    ("flash_attention_legacy", "whisper_tpu_torch/csrc/flash_attention.cu",
+     "whisper_tpu/ops/pallas/flash_attention.py:39"),
 ]
+# The kernels no default path of the JAX package runs, with the line that
+# says why: they are driven at their call sites (phase_sites), not by a
+# slice.
+SITE_KERNELS = {
+    "decode_attention_flat": "whisper_tpu/models/whisper.py:1012-1019 "
+                             "(decoder_step sends every S=1 flash step to "
+                             "the fused path before _cached_attention:696)",
+    "flash_attention_legacy": "whisper_tpu/ops/pallas/flash_attention.py:353 "
+                              "(only under WHISPER_TPU_FLASH_IMPL=legacy)",
+}
 
 
 def _counters() -> dict:
@@ -568,7 +664,9 @@ def _counters() -> dict:
             "permute_attention": (KF.decode_attention_permute_fused,
                                   "launches"),
             "quantized_matmul": (KQ.quantized_matmul, "launches"),
-            "quantized_matmul_big": (KQ.quantized_matmul_big, "launches")}
+            "quantized_matmul_big": (KQ.quantized_matmul_big, "launches"),
+            "decode_attention_flat": (KC.decode_attention, "flat_launches"),
+            "flash_attention_legacy": (KA.flash_attention, "launches")}
 
 
 def launch_counts() -> dict:
@@ -613,18 +711,31 @@ def main() -> int:
     slices["w8a8_batched_beam"] = timed(
         "w8a8 batched beam", phase_w8a8_batched_beam,
         *w8a8_setup(params, tr), waves)
-    # every kernel must run on some slice's main path
+    sites = timed("sites", phase_sites, params, tr, wave)
+    slices["timestamps_ladder"] = timed("timestamps + ladder",
+                                        phase_timestamps_ladder, tr, wave)
+    # every kernel must run on some slice's main path, K8 and K9 at their
+    # call sites
     launches = {n: sum(sl["launches"][n] for sl in slices.values())
                 for n, *_ in KERNELS}
+    for n in SITE_KERNELS:
+        if launches[n]:
+            raise AssertionError(f"a slice launched {n} ({launches[n]}), "
+                                 "which no default path runs")
+        launches[n] = sites["launches"][n]
     missing = [n for n, count in launches.items() if count == 0]
     if missing:
-        raise AssertionError(f"kernels no slice launched: {missing}")
+        raise AssertionError(f"kernels no slice or site check launched: "
+                             f"{missing}")
     entries = []
     for name, source, replaces in KERNELS:
         first = rows[name][0]
+        site = name in SITE_KERNELS
         entries.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
+            "path": "site" if site else "slice",
+            **({"why_site": SITE_KERNELS[name]} if site else {}),
             "launches_by_slice": {s: sl["launches"][name]
                                   for s, sl in slices.items()},
             "max_abs_err": max(r["max_abs_err"] for r in rows[name]),
@@ -635,9 +746,185 @@ def main() -> int:
         })
         if "dequant_ms" in first:
             entries[-1]["dequant_ms"] = first["dequant_ms"]
-    log(json.dumps({"kernels": entries, **slices}))
+    log(json.dumps({"kernels": entries, **slices, "sites": sites}))
     print(json.dumps({"ok": True, "device": device}), flush=True)
     return 0
+
+
+def phase_sites(params, tr, wave) -> dict:
+    """K9 and K8 where the JAX package dispatches them, with the launch
+    counts set to 0 just before and read just after.
+
+    K9: one window's encoder with KernelKnobs(flash_impl="legacy") (one K9
+    launch a layer) against the default K1 encoder and the plain encoder,
+    relative L2 within PATH_RTOL. K8: a greedy prefill of the first window
+    plus 16 greedy steps, then for layers 0, 15 and 31 the next token's
+    query through `_cached_attention(..., impl="flash")` at S = 1 against
+    impl="xla", on the self cache (a layer sliced out of the stacked
+    buffer) and on the window's bf16, int8 and int4 cross caches, within
+    K3's tolerance."""
+    import dataclasses
+
+    import whisper_tpu_torch.models.whisper as M
+    from whisper_tpu_torch.config import KernelKnobs
+    from whisper_tpu_torch.ops.kernels import decode_attention as KC
+    from whisper_tpu_torch.pipeline.transcribe import DecodeOptions
+
+    cfg, dev = tr.cfg, tr.device
+    opts = DecodeOptions(strategy="greedy")
+    window = _full_windows([wave], cfg, opts)[:1]
+    legacy = dataclasses.replace(cfg, knobs=KernelKnobs(flash_impl="legacy"))
+    dec_cfg = cfg.text_decoder_config
+    n_head, eps = dec_cfg.n_text_head, cfg.ln_eps
+    res = {}
+    with torch.inference_mode():
+        mel = _window_mel(window, cfg, opts, dev)
+        reset_counts()
+        enc = {c: M.encoder_forward(params, mel, cc) for c, cc in (
+            ("legacy", legacy), ("bsd", cfg),
+            ("plain", dataclasses.replace(cfg, attention="xla")))}
+        torch.cuda.synchronize()
+        k9 = launch_counts()["flash_attention_legacy"]
+        for c in ("legacy", "bsd"):
+            if not bool(torch.isfinite(enc[c]).all()):
+                raise AssertionError(f"{c} encoder output is not finite")
+        res["legacy_vs_bsd_encoder"] = rel_err(enc["legacy"], enc["bsd"])
+        res["legacy_vs_plain_encoder"] = rel_err(enc["legacy"], enc["plain"])
+        if k9 != cfg.audio_encoder_config.n_audio_layer:
+            raise AssertionError(f"legacy encoder: {k9} K9 launches, "
+                                 f"expected one a layer")
+
+        prompt = torch.tensor([tr.tok.prompt_ids("en")], device=dev)
+        cache = M.init_cache(params, enc["bsd"], cfg, cache_len=128)
+        logits, _ = M.decoder_step(params, prompt, 0, cache, cfg)
+        pos = prompt.shape[1]
+        for _ in range(16):
+            nxt = logits[:, -1].argmax(-1)[:, None]
+            logits, _ = M.decoder_step(params, nxt, pos, cache, cfg)
+            pos += 1
+        nxt = logits[:, -1].argmax(-1)[:, None]
+        crosses = {"bf16": (cache.cross_k, cache.cross_v)}
+        for kv in ("int8", "int4"):
+            qc = M.init_cache(params, enc["bsd"], cfg, cache_len=8,
+                              kv_quant=kv)
+            crosses[kv] = (qc.cross_k, qc.cross_v)
+        dec = params["decoder"]
+        blocks = list(dec["blocks"].layers())
+        sa = enc["bsd"].shape[1]
+        errs = {}
+        reset_counts()
+        for l in (0, len(blocks) // 2 - 1, len(blocks) - 1):
+            p = blocks[l]
+            h = M._embed(dec, nxt, pos)
+            q = M._qkv_proj(M.layer_norm(h, p["attn_ln_g"], p["attn_ln_b"],
+                                         eps), p["qkv_w"], p["qkv_b"])[0]
+            cases = {"self": (q, cache.self_k[:, l], cache.self_v[:, l],
+                              pos - 1)}
+            qx = M._linear(M.layer_norm(h, p["cross_ln_g"], p["cross_ln_b"],
+                                        eps), p["cross_q_w"], p["cross_q_b"])
+            for kv, (ck, cv) in crosses.items():
+                layer = (lambda t: M.QTensor(t.q[l], t.scale[l])
+                         if isinstance(t, M.QTensor) else t[l])
+                cases[f"cross {kv}"] = (qx, layer(ck), layer(cv), sa - 1)
+            for name, (qq, kc, vc, last) in cases.items():
+                vis = torch.tensor([last], device=dev)
+                got = M._cached_attention(qq, kc, vc, vis, n_head, "flash")
+                want = M._cached_attention(qq, kc, vc, vis, n_head, "xla")
+                err, _ = compare(f"K8 at its site [{name} layer {l}]", got,
+                                 want, *KC.TOL[torch.bfloat16])
+                errs[name] = max(errs.get(name, 0.0), err)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+    k8 = counts["decode_attention_flat"]
+    if k8 != 3 * 4 or any(counts[n] for n in counts
+                          if n != "decode_attention_flat"):
+        raise AssertionError(f"K8 site check launched {counts}, expected 12 "
+                             "K8 launches and nothing else")
+    res["k8_max_abs_err"] = errs
+    log(f"sites: K9 legacy encoder ({k9} launches) vs K1 encoder "
+        f"{res['legacy_vs_bsd_encoder']:.4g}, vs plain encoder "
+        f"{res['legacy_vs_plain_encoder']:.4g} (relative L2, limit "
+        f"{PATH_RTOL}); K8 at _cached_attention ({k8} launches) max abs err "
+        + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
+    bad = {k: v for k, v in res.items()
+           if k.endswith("encoder") and not v <= PATH_RTOL}
+    if bad:
+        raise AssertionError(f"legacy encoder disagrees: {bad}")
+    return dict(res, launches={"flash_attention_legacy": k9,
+                               "decode_attention_flat": k8})
+
+
+def phase_timestamps_ladder(tr, wave) -> dict:
+    """Language detection, then timestamped beam 5 with the temperature
+    ladder and the no-speech gate over 3 windows, cold and warm."""
+    from whisper_tpu_torch.pipeline.transcribe import DecodeOptions
+
+    sr = 16000
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    code, dist = tr.detect_language(wave, sr)
+    torch.cuda.synchronize()
+    detect_s = time.perf_counter() - t0
+    log(f"timestamps slice: detect_language -> {code} (p={dist[code]:.4f}) "
+        f"in {detect_s:.3f} s")
+    opts = DecodeOptions(temperature=(0.0, 0.2, 0.4), no_speech_threshold=0.6)
+    if opts.strategy != "beam" or opts.beam_size != 5:
+        raise AssertionError(f"default options are not beam 5: {opts}")
+    ladder = tr._decode_window_ladder
+    runs = []
+    for run in ("cold", "warm"):
+        accepted = []
+
+        def spy(*a, accepted=accepted, **kw):
+            out = ladder(*a, **kw)
+            accepted.append(out[1])
+            return out
+
+        tr._decode_window_ladder = spy
+        try:
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            text, segs = tr.transcribe_with_timestamps(wave, sr, opts)
+            torch.cuda.synchronize()
+            total = time.perf_counter() - t0
+            counts = launch_counts()
+        finally:
+            del tr._decode_window_ladder
+        seg_list = [(s.start, s.end, s.text) for s in segs]
+        if run == "cold":
+            launches, cold = counts, seg_list
+        elif seg_list != cold:
+            raise AssertionError("timestamps slice: the warm run's segments "
+                                 "differ from the cold run's")
+        runs.append(dict(run=run, seconds=total, xrt=len(wave) / sr / total,
+                         accepted_temperature=accepted,
+                         n_segments=len(segs)))
+        log(f"timestamps slice {run}: {len(wave) / sr:.1f} s audio, "
+            f"{len(accepted)} windows accepted at temperatures {accepted}, "
+            f"{len(segs)} segments"
+            + (f" from {segs[0].start:.2f}-{segs[0].end:.2f} s to "
+               f"{segs[-1].start:.2f}-{segs[-1].end:.2f} s" if segs else "")
+            + f" in {total:.3f} s = {len(wave) / sr / total:.2f}x real time")
+    log(f"timestamps slice launches: {launches}")
+    if len(runs[0]["accepted_temperature"]) != 3:
+        raise AssertionError(f"timestamps slice: expected 3 windows, got "
+                             f"{runs[0]['accepted_temperature']}")
+    if not cold:
+        raise AssertionError("timestamps slice: no segment")
+    starts = [s for s, _, _ in cold]
+    if (starts != sorted(starts)
+            or not all(0.0 <= s <= e <= 35.0 for s, e, _ in cold)):
+        raise AssertionError(f"timestamps slice: segment times not monotone "
+                             f"in [0, 35] s: {[(s, e) for s, e, _ in cold]}")
+    for name in ("flash_attention", "encoder_mlp", "decode_attention",
+                 "decode_attention_group", "permute"):
+        if launches[name] == 0:
+            raise AssertionError(f"timestamps slice never launched {name}")
+    return dict(launches=launches, runs=runs, language=code,
+                language_p=dist[code], detect_seconds=detect_s,
+                segments=[dict(start=s, end=e, chars=len(t))
+                          for s, e, t in cold])
 
 
 def synthetic_speech(n_samples: int, seed: int) -> np.ndarray:
@@ -962,12 +1249,12 @@ def phase_w8a8_batched_beam(qparams, bt, waves) -> dict:
     return info
 
 
-def _window_mel(windows, cfg, opts):
+def _window_mel(windows, cfg, opts, device="cuda"):
     """The windows' log-mel, clipped and padded as the pipeline does (the
     batch pipeline's per-sample clamp; one window's is the same)."""
     from whisper_tpu_torch.ops import audio
 
-    x = torch.from_numpy(np.stack(windows)).cuda()
+    x = torch.from_numpy(np.stack(windows)).to(device)
     mel = audio.prep_audio(x, per_sample_max=True)
     keep = min(mel.shape[2], cfg.encoder_ctx_size - opts.padding)
     return torch.nn.functional.pad(mel[:, :, :keep], (0, opts.padding))

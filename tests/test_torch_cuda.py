@@ -56,6 +56,67 @@ def test_flash_attention_kernel(gen, sq, sk, causal):
            KA.ATOL, KA.RTOL)
 
 
+@pytest.mark.parametrize("sq,sk,causal", [(100, 100, False), (130, 130, True),
+                                          (3, 77, False)])
+def test_legacy_flash_attention_kernel(gen, sq, sk, causal):
+    """K9 on (B, H, S, hd) views of (B, S, H, hd) projections (q
+    pre-scaled), and through attention_bhsd(impl="legacy")."""
+    q = _randn((2, sq, 4, 64), gen, 0.125).transpose(1, 2)
+    k = _randn((2, sk, 4, 64), gen).transpose(1, 2)
+    v = (_randn((2, sk, 4, 64), gen) + 1).transpose(1, 2)
+    before = KA.flash_attention.launches
+    got = KA.flash_attention(q, k, v, causal)
+    assert KA.flash_attention.launches == before + 1
+    assert got.shape == (2, 4, sq, 64) and got.dtype == torch.bfloat16
+    _close(got, KA.flash_attention_plain(q, k, v, causal), KA.ATOL, KA.RTOL)
+    x = _randn((2, sq, 256), gen)
+    kv = _randn((2, sk, 256), gen)
+    before_k1 = KA.attention_bhsd.launches
+    got = KA.attention_bhsd(x, kv, kv + 1, 4, causal=causal, impl="legacy")
+    assert KA.flash_attention.launches == before + 2
+    assert KA.attention_bhsd.launches == before_k1
+    _close(got, KA.attention_bhsd_plain(x, kv, kv + 1, 4, causal=causal),
+           KA.ATOL, KA.RTOL)
+    with pytest.raises(TypeError, match="bfloat16"):
+        KA.flash_attention(q.float(), k.float(), v.float())
+
+
+@pytest.mark.parametrize("storage", ["bf16", "f32", "int8", "int4"])
+def test_flat_decode_attention_kernel(gen, storage):
+    """K8 on one layer sliced out of a stacked (B, L, C, d) buffer, per-row
+    pos; counted apart from K3. A view without 16-byte aligned rows
+    raises ValueError instead of falling back."""
+    b, c, d = 3, 50, 128
+    lim = {"int8": 127, "int4": 7}.get(storage)
+    if lim is None:
+        dt = torch.float32 if storage == "f32" else torch.bfloat16
+        kc, vc = _randn((b, 4, c, d), gen, dtype=dt), _randn((b, 4, c, d), gen,
+                                                             dtype=dt)
+        q = _randn((b, d), gen, 0.125, dtype=dt)
+    else:
+        kc, vc = (torch.randint(-lim, lim + 1, (b, 4, c, d), generator=gen,
+                                device="cuda", dtype=torch.int8)
+                  for _ in "kv")
+        q = _randn((b, d), gen, 0.5 / lim)
+        if storage == "int4":
+            kc, vc = pack_int4(kc), pack_int4(vc)
+        dt = torch.bfloat16
+    pos = torch.tensor([0, 17, 49], dtype=torch.int32, device="cuda")
+    before = (KC.decode_attention.flat_launches,
+              KC.decode_attention_stacked.launches)
+    got = KC.decode_attention(q, kc[:, 2], vc[:, 2], pos, 2)
+    assert (KC.decode_attention.flat_launches,
+            KC.decode_attention_stacked.launches) == (before[0] + 1,
+                                                      before[1])
+    assert got.dtype == q.dtype
+    want = KC.decode_attention_plain(q, kc[:, 2], vc[:, 2], pos, 2)
+    _close(got, want, *KC.TOL[dt])
+    flat = kc.reshape(-1)
+    odd = flat[1:1 + b * c * kc.shape[3]].view(b, c, kc.shape[3])
+    with pytest.raises(ValueError, match="16-byte"):
+        KC.decode_attention(q, odd, odd, pos, 2)
+
+
 @pytest.mark.parametrize("m", [1, 37, 300])
 def test_encoder_mlp_kernel(gen, m):
     d, h = 384, 1536
@@ -461,6 +522,31 @@ def test_cli_transcribe_many_on_the_card(cli_dir, monkeypatch, capsys):
         assert os.path.exists(os.path.join("many", "audio.txt"))
         grew = {k: f() - before[k] for k, f in counts.items()}
         assert all(grew[k] > 0 for k in ran), grew
+
+
+def test_cli_timestamps_ladder_and_detect_lang_on_the_card(cli_dir,
+                                                          monkeypatch, capsys):
+    """`transcribe ... auto out.srt --timestamps --format srt --temperature
+    0,0.2` and `detect-lang` on the card (bf16): language detection, the
+    timestamped beam search with the ladder, an SRT file."""
+    import json
+
+    monkeypatch.chdir(cli_dir)
+    before = KA.attention_bhsd.launches
+    rc = torch_cli.main(["transcribe", "dump", "audio.wav", "auto", "out.srt",
+                         "--timestamps", "--format", "srt", "--temperature",
+                         "0,0.2", "--max-depth", "8"])
+    out, err = capsys.readouterr()
+    assert rc == 0, err
+    assert "Detected language:" in out and "Transcription finished." in out
+    srt = (cli_dir / "out.srt").read_text()
+    assert srt == "" or (srt.startswith("1\n") and " --> " in srt)
+    assert KA.attention_bhsd.launches > before
+    rc = torch_cli.main(["detect-lang", "dump", "audio.wav", "--top", "3"])
+    out, err = capsys.readouterr()
+    assert rc == 0, err
+    doc = json.loads(out.splitlines()[-1])
+    assert len(doc["probs"]) == 3 and doc["language"] in doc["probs"]
 
 
 def test_w8a8_model_runs_k6_and_k7_on_the_card(gen):

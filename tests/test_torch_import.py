@@ -133,8 +133,10 @@ def test_port_preset_matches_the_jax_package(name):
     got, want = tcfg.preset(name), jcfg.preset(name)
     for field, value in _fields(got).items():
         other = getattr(want, field)
-        if field == "knobs":  # the port keeps the one knob it has kernels for
-            assert _fields(value) == {"int8_impl": other.int8_impl}
+        if field == "knobs":  # the port keeps the knobs it has kernels for;
+            # flash_impl is the JAX env override's default, "bsd"
+            assert _fields(value) == {"int8_impl": other.int8_impl,
+                                      "flash_impl": "bsd"}
         elif dataclasses.is_dataclass(value):
             assert _fields(value) == _fields(other), (name, field)
         else:

@@ -2,6 +2,7 @@
 
     python -m whisper_tpu_torch.cli transcribe <model> <audio.wav> <lang> <out.txt>
     python -m whisper_tpu_torch.cli transcribe-many <model> <lang> <out dir> <wav...>
+    python -m whisper_tpu_torch.cli detect-lang <model> <audio.wav>
 
 Keeps the reference's positional contract (whisper-burn
 src/bin/transcribe/main.rs:85-94) and its progress lines, as
@@ -11,7 +12,14 @@ the working directory), asserts 16 kHz audio unless `--resample`, writes
 the transcription file. It decodes with beam search (`--beam-size`,
 default 5) unless `--greedy`, on the CUDA card unless `--device cpu`:
 without a card it exits non-zero rather than fall back to the CPU.
-`--kv-quant` / `--self-quant` make the cross / self KV caches int8.
+`--kv-quant` / `--self-quant` make the cross / self KV caches int8. The
+JAX CLI's other `transcribe` flags are kept with its error exits and
+messages: `lang auto`, `--task`, `--temperature` (a comma list is the
+fallback ladder), `--no-speech-threshold`, `--vad`, `--timestamps` with
+`--json` / `--format {txt,json,srt,vtt,tsv}`, `--condition-on-previous-text`,
+`--clip`, `--initial-prompt` and `--parallel-windows`; `--words` and
+`--draft` exit 1 naming their ROADMAP items (14 and 11). `detect-lang`
+prints the JSON line of `whisper_tpu.cli detect-lang`.
 `transcribe-many` (as `whisper_tpu.cli transcribe-many`) decodes several
 files' full windows together in batches of `--batch-size` and writes
 `<stem>.txt` per input into the output directory.
@@ -20,10 +28,101 @@ files' full windows together in batches of `--batch-size` and writes
 from __future__ import annotations
 
 import argparse
+import json
 import logging
 import os
 import sys
 import time
+
+
+def _load_tokenizer(path, model: str):
+    """The tokenizer at `path`, else tokenizer.json next to the model, then
+    in the working directory; (tokenizer, None) or (None, error message)."""
+    from .text.tokenizer import WhisperTokenizer
+
+    if path is None:
+        model_dir = os.path.dirname(os.path.abspath(model))
+        cands = (os.path.join(model_dir, "tokenizer.json"), "tokenizer.json")
+        path = next((c for c in cands if os.path.exists(c)), None)
+        if path is None:
+            return None, "Failed to load tokenizer: tokenizer.json not found"
+    try:
+        return WhisperTokenizer(path), None
+    except Exception as e:  # the CLI boundary: report, exit non-zero
+        return None, f"Failed to load tokenizer: {e}"
+
+
+def _load_audio(path: str, resample: bool):
+    """(waveform, 16000, None) or (None, None, error message)."""
+    from .config import SAMPLE_RATE
+    from .io import native as wav_native, wav
+
+    try:
+        waveform, rate = wav_native.load_audio(path)
+    except Exception as e:  # the CLI boundary: report, exit non-zero
+        return None, None, f"Failed to load audio file: {e}"
+    if rate != SAMPLE_RATE:
+        if not resample:
+            return None, None, (f"The audio sample rate must be 16k (got "
+                                f"{rate}); pass --resample to convert.")
+        waveform = wav.resample(waveform, rate, SAMPLE_RATE)
+    return waveform, SAMPLE_RATE, None
+
+
+def _configure_logging(verbose: int) -> None:
+    logging.basicConfig(
+        stream=sys.stderr, format="[%(asctime)s %(name)s %(levelname)s] "
+        "%(message)s", datefmt="%H:%M:%S",
+        level=[logging.WARNING, logging.INFO, logging.DEBUG][min(verbose, 2)])
+
+
+def _no_card(device: str) -> bool:
+    import torch
+
+    if device == "cuda" and not torch.cuda.is_available():
+        print("No CUDA device: whisper_tpu_torch runs on the card by "
+              "default; pass --device cpu to run on the CPU.", file=sys.stderr)
+        return True
+    return False
+
+
+def _add_device_args(p, what: str = "weight dtype") -> None:
+    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                   help="where the model runs (default: the CUDA card; the "
+                        "CPU only when asked for)")
+    p.add_argument("--dtype", choices=["float32", "bfloat16"], default=None,
+                   help=f"{what} (default: bfloat16 on the card, whose "
+                        "kernels take only bfloat16; float32 on the CPU)")
+
+
+def _dtype(args):
+    import torch
+
+    return getattr(torch, args.dtype or ("bfloat16" if args.device == "cuda"
+                                         else "float32"))
+
+
+def _segments_output(text, segments, out_format: str) -> str:
+    """The --timestamps output file (cli.py:279-317 of the JAX package)."""
+    if out_format == "json":
+        def seg_doc(seg):
+            d = {"start": round(seg.start, 3), "end": round(seg.end, 3),
+                 "text": seg.text}
+            for key in ("avg_logprob", "compression_ratio", "no_speech_prob"):
+                if getattr(seg, key) is not None:
+                    d[key] = round(getattr(seg, key), 4)
+            return d
+
+        return json.dumps({"text": text,
+                           "segments": [seg_doc(s) for s in segments]},
+                          ensure_ascii=False, indent=1)
+    if out_format in ("srt", "vtt", "tsv"):
+        from .pipeline import formats
+
+        return {"srt": formats.to_srt, "vtt": formats.to_vtt,
+                "tsv": formats.to_tsv}[out_format](segments)
+    return "\n".join(f"[{seg.start:.2f} -> {seg.end:.2f}] {seg.text}"
+                     for seg in segments)
 
 
 def cmd_transcribe(argv) -> int:
@@ -34,7 +133,9 @@ def cmd_transcribe(argv) -> int:
     p.add_argument("model", help="model name: <name>.cfg + <name>.safetensors/"
                                  ".mpk.gz, or a npy dump directory")
     p.add_argument("audio", help="16 kHz mono WAV file")
-    p.add_argument("lang", help="language code, e.g. en")
+    p.add_argument("lang", help="language code, e.g. en, or 'auto' to "
+                                "detect the spoken language (multilingual "
+                                "models)")
     p.add_argument("out", help="output transcription text file")
     p.add_argument("--tokenizer", default=None,
                    help="path to tokenizer.json (default: next to model, "
@@ -49,64 +150,83 @@ def cmd_transcribe(argv) -> int:
     p.add_argument("--self-quant", action="store_true",
                    help="int8 self-KV cache with per-row scales (the fused "
                         "beam reshuffle)")
+    p.add_argument("--task", choices=["transcribe", "translate"],
+                   default="transcribe",
+                   help="translate: X->English translation (multilingual "
+                        "models; the <|translate|> task token)")
+    p.add_argument("--temperature", default="0",
+                   help="decode temperature; a comma list (e.g. "
+                        "'0,0.2,0.4,0.6,0.8,1.0') enables the quality "
+                        "fallback ladder (compression-ratio + logprob "
+                        "checks; sampling at temps > 0)")
+    p.add_argument("--no-speech-threshold", type=float, default=None,
+                   help="skip windows whose p(<|nospeech|>) exceeds this "
+                        "and whose logprob check failed")
+    p.add_argument("--vad", action="store_true",
+                   help="energy VAD pre-filter: skip windows with < 100 ms "
+                        "of audio above the threshold before any device work")
+    p.add_argument("--vad-threshold-db", type=float, default=-40.0,
+                   help="VAD energy threshold in dBFS (default -40)")
+    p.add_argument("--timestamps", action="store_true",
+                   help="write '[start -> end] text' segment lines instead "
+                        "of plain text (timestamped decoding)")
+    p.add_argument("--words", action="store_true",
+                   help="per-word timings (not ported: ROADMAP queue 1 "
+                        "item 14)")
+    p.add_argument("--json", action="store_true",
+                   help="with --timestamps: a JSON document {text, "
+                        "segments} (alias for --format json)")
+    p.add_argument("--format", choices=["txt", "json", "srt", "vtt", "tsv"],
+                   default=None, dest="out_format",
+                   help="output format; srt/vtt/tsv/json require "
+                        "--timestamps")
+    p.add_argument("--condition-on-previous-text", action="store_true",
+                   help="feed each window the previously decoded text as "
+                        "<|startofprev|> context")
+    p.add_argument("--clip", default=None, metavar="S0,E0[,S1,E1...]",
+                   help="transcribe only these time ranges (seconds); an "
+                        "odd count leaves the last clip open-ended")
+    p.add_argument("--initial-prompt", default=None,
+                   help="condition the decoder on this text via "
+                        "<|startofprev|>; applied to every window, stripped "
+                        "from the output")
+    p.add_argument("--parallel-windows", action="store_true",
+                   help="decode all windows of the file as one batch "
+                        "(BatchTranscriber; identical output)")
+    p.add_argument("--draft", default=None, metavar="MODEL",
+                   help="speculative decoding (not ported: ROADMAP queue 1 "
+                        "item 11)")
     p.add_argument("--resample", action="store_true",
                    help="resample input to 16 kHz instead of rejecting it")
-    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
-                   help="where the model runs (default: the CUDA card; the "
-                        "CPU only when asked for)")
-    p.add_argument("--dtype", choices=["float32", "bfloat16"], default=None,
-                   help="weight dtype (default: bfloat16 on the card, whose "
-                        "kernels take only bfloat16; float32 on the CPU)")
+    _add_device_args(p)
     p.add_argument("-v", "--verbose", action="count", default=0)
     args = p.parse_args(argv)
 
-    import torch
-
-    if args.device == "cuda" and not torch.cuda.is_available():
-        print("No CUDA device: whisper_tpu_torch runs on the card by "
-              "default; pass --device cpu to run on the CPU.", file=sys.stderr)
+    if _no_card(args.device):
+        return 1
+    if args.words:
+        print("--words (word timestamps, cross-attention DTW alignment) is "
+              "ROADMAP queue 1 item 14, not ported to whisper_tpu_torch yet",
+              file=sys.stderr)
+        return 1
+    if args.draft is not None:
+        print("--draft (speculative decoding) is ROADMAP queue 1 item 11, "
+              "not ported to whisper_tpu_torch yet", file=sys.stderr)
         return 1
 
-    from .config import SAMPLE_RATE, WhisperConfig
-    from .io import checkpoint, native as wav_native, wav
-    from .pipeline.transcribe import DecodeOptions, Transcriber
-    from .text.tokenizer import LANGUAGES_V3, WhisperTokenizer
+    from .config import WhisperConfig
+    from .io import checkpoint
+    from .pipeline.transcribe import (DecodeOptions, Transcriber,
+                                      parse_clip_timestamps)
+    from .text.tokenizer import LANGUAGES_V3
 
-    logging.basicConfig(
-        stream=sys.stderr, format="[%(asctime)s %(name)s %(levelname)s] "
-        "%(message)s", datefmt="%H:%M:%S",
-        level=[logging.WARNING, logging.INFO, logging.DEBUG][
-            min(args.verbose, 2)])
+    _configure_logging(args.verbose)
     print("Loading waveform...")  # main.rs:109 contract
-    try:
-        waveform, rate = wav_native.load_audio(args.audio)
-    except Exception as e:  # the CLI boundary: report, exit non-zero
-        print(f"Failed to load audio file: {e}", file=sys.stderr)
-        return 1
-    if rate != SAMPLE_RATE:
-        if not args.resample:
-            print(f"The audio sample rate must be 16k (got {rate}); pass "
-                  "--resample to convert.", file=sys.stderr)
-            return 1
-        waveform = wav.resample(waveform, rate, SAMPLE_RATE)
-        rate = SAMPLE_RATE
-
-    tok_path = args.tokenizer
-    if tok_path is None:
-        model_dir = os.path.dirname(os.path.abspath(args.model))
-        cands = (os.path.join(model_dir, "tokenizer.json"), "tokenizer.json")
-        tok_path = next((c for c in cands if os.path.exists(c)), None)
-        if tok_path is None:
-            print("Failed to load tokenizer: tokenizer.json not found",
-                  file=sys.stderr)
-            return 1
-    try:
-        tokenizer = WhisperTokenizer(tok_path)
-    except Exception as e:
-        print(f"Failed to load tokenizer: {e}", file=sys.stderr)
-        return 1
-    if args.lang not in LANGUAGES_V3:
-        print(f"Invalid language abbreviation: {args.lang}", file=sys.stderr)
+    waveform, rate, err = _load_audio(args.audio, args.resample)
+    if err is None:
+        tokenizer, err = _load_tokenizer(args.tokenizer, args.model)
+    if err is not None:
+        print(err, file=sys.stderr)
         return 1
 
     cfg_path = f"{args.model}.cfg"
@@ -117,28 +237,127 @@ def cmd_transcribe(argv) -> int:
     except Exception as e:
         print(f"Failed to load whisper model file: {e}", file=sys.stderr)
         return 1
+    if args.lang != "auto" and args.lang not in LANGUAGES_V3:
+        print(f"Invalid language abbreviation: {args.lang}", file=sys.stderr)
+        return 1
 
-    device = args.device
-    dtype_name = args.dtype or ("bfloat16" if device == "cuda" else "float32")
-    dtype = getattr(torch, dtype_name)
-    t0 = time.perf_counter()
     try:
-        t = Transcriber(params, cfg, tokenizer, dtype=dtype, device=device)
+        t = Transcriber(params, cfg, tokenizer, dtype=_dtype(args),
+                        device=args.device)
     except ValueError as e:
         print(f"Failed to set up the model: {e}", file=sys.stderr)
         return 1
-    text, _ = t.transcribe(waveform, rate, DecodeOptions(
-        lang=args.lang, strategy="greedy" if args.greedy else "beam",
+    if args.lang == "auto":
+        try:
+            code, dist = t.detect_language(waveform, rate)
+        except ValueError as e:
+            print(f"Language detection failed: {e}", file=sys.stderr)
+            return 1
+        print(f"Detected language: {code} (p={dist[code]:.2f})")
+        args.lang = code
+    opts = DecodeOptions(
+        lang=args.lang, task=args.task,
+        strategy="greedy" if args.greedy else "beam",
         beam_size=args.beam_size, max_depth=args.max_depth,
-        kv_quant=args.kv_quant, self_quant=args.self_quant))
+        kv_quant=args.kv_quant, self_quant=args.self_quant,
+        initial_prompt=args.initial_prompt,
+        condition_on_previous_text=args.condition_on_previous_text,
+        temperature=(tuple(float(x) for x in args.temperature.split(","))
+                     if "," in args.temperature
+                     else float(args.temperature)),
+        no_speech_threshold=args.no_speech_threshold,
+        clip_timestamps=args.clip, vad=args.vad,
+        vad_threshold_db=args.vad_threshold_db)
+    if args.clip:
+        try:
+            parse_clip_timestamps(args.clip, len(waveform) / rate)
+        except ValueError as e:
+            print(f"Bad --clip: {e}", file=sys.stderr)
+            return 1
+    for flag, on, why in (
+            ("--clip", args.clip, ""),
+            ("--condition-on-previous-text", args.condition_on_previous_text,
+             " (windows must decode sequentially)"),
+            ("--timestamps", args.timestamps, "")):
+        if on and args.parallel_windows:
+            print(f"{flag} is incompatible with --parallel-windows{why}",
+                  file=sys.stderr)
+            return 1
+    out_format = args.out_format or ("json" if args.json else "txt")
+    if out_format != "txt" and not args.timestamps:
+        print(f"--format {out_format} requires --timestamps", file=sys.stderr)
+        return 1
+    t0 = time.perf_counter()
+    try:
+        if args.timestamps:
+            text, segments = t.transcribe_with_timestamps(waveform, rate, opts)
+            text = _segments_output(text, segments, out_format)
+        elif args.parallel_windows:
+            from .pipeline.batch import BatchTranscriber
+
+            bt = BatchTranscriber(t.params, cfg, tokenizer, device=args.device)
+            (text, _), = bt.transcribe_many([waveform], rate, opts)
+        else:
+            text, _ = t.transcribe(waveform, rate, opts)
+    except NotImplementedError as e:
+        print(str(e), file=sys.stderr)
+        return 1
     dt = time.perf_counter() - t0
     with open(args.out, "w") as f:
         f.write(text)
     if args.verbose:
         audio_sec = len(waveform) / rate
-        print(f"[{audio_sec:.1f}s audio in {dt:.1f}s on {device}]",
+        print(f"[{audio_sec:.1f}s audio in {dt:.1f}s on {args.device}]",
               file=sys.stderr)
     print("Transcription finished.")  # main.rs:159 contract
+    return 0
+
+
+def cmd_detect_lang(argv) -> int:
+    p = argparse.ArgumentParser(
+        prog="whisper_tpu_torch detect-lang",
+        description="Identify the spoken language of an audio file "
+                    "(multilingual models); scans for speech-bearing "
+                    "windows (energy VAD). Prints a JSON line "
+                    "{language, probs: {code: p, ...top-k}}.")
+    p.add_argument("model", help="checkpoint (.safetensors/.cfg, npy dir, "
+                                 "or .mpk.gz)")
+    p.add_argument("audio", help="16 kHz mono WAV/FLAC file")
+    p.add_argument("--tokenizer", default=None)
+    p.add_argument("--resample", action="store_true")
+    p.add_argument("--top", type=int, default=5,
+                   help="number of candidate languages to report")
+    p.add_argument("--vote-windows", type=int, default=1,
+                   help="average the distribution over up to this many "
+                        "speech-bearing windows")
+    _add_device_args(p)
+    p.add_argument("-v", "--verbose", action="count", default=0)
+    args = p.parse_args(argv)
+
+    if _no_card(args.device):
+        return 1
+    from .io import checkpoint
+    from .pipeline.transcribe import Transcriber
+
+    _configure_logging(args.verbose)
+    waveform, rate, err = _load_audio(args.audio, args.resample)
+    if err is None:
+        tok, err = _load_tokenizer(args.tokenizer, args.model)
+    if err is not None:
+        print(err, file=sys.stderr)
+        return 1
+    params, cfg = checkpoint.load_params(args.model)
+    try:
+        t = Transcriber(params, cfg, tok, dtype=_dtype(args),
+                        device=args.device)
+        code, dist = t.detect_language(waveform, rate,
+                                       vote_windows=args.vote_windows)
+    except ValueError as e:
+        print(f"Language detection failed: {e}", file=sys.stderr)
+        return 1
+    top = sorted(dist.items(), key=lambda kv: -kv[1])[:max(1, args.top)]
+    print(json.dumps({"language": code,
+                      "probs": {c: round(p, 4) for c, p in top}}))
     return 0
 
 
@@ -161,43 +380,26 @@ def cmd_transcribe_many(argv) -> int:
                         "the batch queue")
     p.add_argument("--vad-threshold-db", type=float, default=-40.0,
                    help="VAD silence threshold in dBFS (with --vad)")
-    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
-                   help="where the model runs (default: the CUDA card; the "
-                        "CPU only when asked for)")
-    p.add_argument("--dtype", choices=["float32", "bfloat16"], default=None,
-                   help="weight dtype (default: bfloat16 on the card, "
-                        "float32 on the CPU)")
+    _add_device_args(p)
     p.add_argument("-v", "--verbose", action="count", default=0)
     args = p.parse_args(argv)
 
-    import torch
-
-    if args.device == "cuda" and not torch.cuda.is_available():
-        print("No CUDA device: whisper_tpu_torch runs on the card by "
-              "default; pass --device cpu to run on the CPU.", file=sys.stderr)
+    if _no_card(args.device):
         return 1
-
     from .config import SAMPLE_RATE
     from .io import checkpoint, native as wav_native, wav
     from .pipeline.batch import BatchTranscriber
     from .pipeline.transcribe import DecodeOptions
     from .text.tokenizer import WhisperTokenizer
 
-    logging.basicConfig(
-        stream=sys.stderr, format="[%(asctime)s %(name)s %(levelname)s] "
-        "%(message)s", datefmt="%H:%M:%S",
-        level=[logging.WARNING, logging.INFO, logging.DEBUG][
-            min(args.verbose, 2)])
+    _configure_logging(args.verbose)
     tok_path = args.tokenizer or os.path.join(
         os.path.dirname(os.path.abspath(args.model)), "tokenizer.json")
     tokenizer = WhisperTokenizer(tok_path)
     params, cfg = checkpoint.load_params(args.model)
-    dtype_name = args.dtype or ("bfloat16" if args.device == "cuda"
-                                else "float32")
     try:
         bt = BatchTranscriber(params, cfg, tokenizer,
-                              batch_size=args.batch_size,
-                              dtype=getattr(torch, dtype_name),
+                              batch_size=args.batch_size, dtype=_dtype(args),
                               device=args.device)
     except ValueError as e:
         print(f"Failed to set up the model: {e}", file=sys.stderr)
@@ -235,19 +437,30 @@ def cmd_transcribe_many(argv) -> int:
 
 
 COMMANDS = {"transcribe": cmd_transcribe,
-            "transcribe-many": cmd_transcribe_many}
+            "transcribe-many": cmd_transcribe_many,
+            "detect-lang": cmd_detect_lang}
 
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
     if not argv or argv[0] not in COMMANDS:
         print("usage: python -m whisper_tpu_torch.cli transcribe <model> "
-              "<audio> <lang> <out> [--greedy | --beam-size K] [--max-depth N]"
-              " [--kv-quant] [--self-quant] [--resample] [--device cuda|cpu] "
-              "[--dtype float32|bfloat16] [--tokenizer PATH]\n"
+              "<audio> <lang|auto> <out> [--greedy | --beam-size K] "
+              "[--max-depth N] [--task transcribe|translate] [--temperature "
+              "T[,T...]] [--no-speech-threshold P] [--vad] "
+              "[--vad-threshold-db DB] [--timestamps [--json | --format "
+              "txt|json|srt|vtt|tsv]] [--condition-on-previous-text] "
+              "[--clip S0,E0,...] [--initial-prompt TEXT] "
+              "[--parallel-windows] [--kv-quant] [--self-quant] [--resample] "
+              "[--device cuda|cpu] [--dtype float32|bfloat16] "
+              "[--tokenizer PATH]\n"
               "       python -m whisper_tpu_torch.cli transcribe-many <model> "
               "<lang> <out_dir> <wav...> [--greedy | --beam-size K] "
               "[--batch-size B] [--resample] [--vad] [--vad-threshold-db DB] "
+              "[--device cuda|cpu] [--dtype float32|bfloat16] "
+              "[--tokenizer PATH]\n"
+              "       python -m whisper_tpu_torch.cli detect-lang <model> "
+              "<audio> [--top N] [--vote-windows N] [--resample] "
               "[--device cuda|cpu] [--dtype float32|bfloat16] "
               "[--tokenizer PATH]", file=sys.stderr)
         return 2

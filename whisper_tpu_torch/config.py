@@ -46,6 +46,7 @@ class TextDecoderConfig:
 
 
 INT8_IMPLS = ("xla", "pallas")
+FLASH_IMPLS = ("bsd", "legacy")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,9 +58,17 @@ class KernelKnobs:
     kernels (per-row int8 activations: K6 for M <= 1024 rows, K7 above;
     `models/whisper.py::_matmul`). The JAX package's "w8a8" and "auto" are
     XLA-only A/B variants and are not ported.
+
+    `flash_impl` picks the encoder's (and the full decoder forward's)
+    attention kernel on the flash path: "bsd" (the default) is K1 on the
+    (B, S, d) layout, "legacy" is K9 on (B, H, S, hd) views
+    (`ops/kernels/flash_attention.py::attention_bhsd`). It is the config
+    form of the JAX package's WHISPER_TPU_FLASH_IMPL environment override
+    (flash_attention.py:353); the port reads no environment variable.
     """
 
     int8_impl: str = "xla"
+    flash_impl: str = "bsd"
 
     def __post_init__(self) -> None:
         if self.int8_impl in ("w8a8", "auto"):
@@ -70,6 +79,9 @@ class KernelKnobs:
         if self.int8_impl not in INT8_IMPLS:
             raise ValueError(f"int8_impl must be one of {INT8_IMPLS}, got "
                              f"{self.int8_impl!r}")
+        if self.flash_impl not in FLASH_IMPLS:
+            raise ValueError(f"flash_impl must be one of {FLASH_IMPLS}, got "
+                             f"{self.flash_impl!r}")
 
 
 @dataclasses.dataclass(frozen=True)

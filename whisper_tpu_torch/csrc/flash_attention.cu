@@ -19,9 +19,24 @@
 // Queries and keys may differ in length (Sq, Sk); `causal` masks key j
 // for query i when j > i (every row sees key 0, so no row is empty).
 //
-// Heads are column slices [h*64, h*64+64) of each row, read through the
-// row strides, so q/k/v may be the strided slices of the fused QKV
-// projection (no HBM transpose, no copy).
+// Each tensor comes with a batch, a head and a row stride. On the (B, S, d)
+// layout (K1) the head stride is 64: heads are column slices
+// [h*64, h*64+64) of each row, so q/k/v may be the strided slices of the
+// fused QKV projection (no HBM transpose, no copy).
+//
+// Also replaces: whisper_tpu/ops/pallas/flash_attention.py::_attn_kernel
+// (K9, entry flash_attention, the legacy (B, H, S, hd) path of
+// attention_bhsd). The same kernel serves it with the head strides of the
+// (B, H, S, hd) views and scale 1 (its q comes pre-scaled): the (B, S, H, hd)
+// views of the projections are handed over as they are. K9 computes its
+// scores as f32 products of the f32-cast q and k; for bf16 inputs a
+// bf16 x bf16 product is exact in f32, so these WMMA scores with f32
+// accumulation are K9's scores up to the order of the f32 sums. K9 pads the
+// keys to a multiple of 128 and masks keys >= Sk with -1e30, normalises p
+// before casting it to bf16 and masks j > i for causal; here the keys past
+// Sk are zero-filled and masked with -inf, p is cast before the division
+// (once at the end), and the causal mask is the same compare on the
+// absolute query row.
 #include <mma.h>
 
 #include "common.cuh"
@@ -65,9 +80,10 @@ flash_attention_kernel(const __nv_bfloat16* __restrict__ q,
                        const __nv_bfloat16* __restrict__ k,
                        const __nv_bfloat16* __restrict__ v,
                        __nv_bfloat16* __restrict__ out, int Sq, int Sk,
-                       int causal, long long q_sb, long long q_ss, long long k_sb,
-                       long long k_ss, long long v_sb, long long v_ss,
-                       long long o_sb, long long o_ss, float scale) {
+                       int causal, long long q_sb, long long q_sh, long long q_ss,
+                       long long k_sb, long long k_sh, long long k_ss, long long v_sb,
+                       long long v_sh, long long v_ss, long long o_sb, long long o_sh,
+                       long long o_ss, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
   __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem + SQ_BYTES);
@@ -86,9 +102,9 @@ flash_attention_kernel(const __nv_bfloat16* __restrict__ q,
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
 
-  const __nv_bfloat16* qb = q + b * q_sb + (long long)q0 * q_ss + h * HD;
-  const __nv_bfloat16* kb = k + b * k_sb + h * HD;
-  const __nv_bfloat16* vb = v + b * v_sb + h * HD;
+  const __nv_bfloat16* qb = q + b * q_sb + h * q_sh + (long long)q0 * q_ss;
+  const __nv_bfloat16* kb = k + b * k_sb + h * k_sh;
+  const __nv_bfloat16* vb = v + b * v_sb + h * v_sh;
 
   load_tile(sQ, qb, q_ss, BQ, Sq - q0);
   for (int i = threadIdx.x; i < WARPS * 16 * HD; i += THREADS) sO[i] = 0.f;
@@ -187,7 +203,7 @@ flash_attention_kernel(const __nv_bfloat16* __restrict__ q,
 
   if (qi < Sq) {
     const float inv = 1.f / sL[warp * 16 + row];
-    __nv_bfloat16* orow = out + b * o_sb + (long long)qi * o_ss + h * HD + col0;
+    __nv_bfloat16* orow = out + b * o_sb + h * o_sh + (long long)qi * o_ss + col0;
 #pragma unroll
     for (int c = 0; c < 32; c += 8) {
       __align__(16) __nv_bfloat16 pack[8];
@@ -202,9 +218,10 @@ flash_attention_kernel(const __nv_bfloat16* __restrict__ q,
 
 extern "C" int wtt_flash_attention(const void* q, const void* k, const void* v, void* out,
                                    int B, int Sq, int Sk, int H, int causal,
-                                   long long q_sb, long long q_ss,
-                                   long long k_sb, long long k_ss, long long v_sb,
-                                   long long v_ss, long long o_sb, long long o_ss,
+                                   long long q_sb, long long q_sh, long long q_ss,
+                                   long long k_sb, long long k_sh, long long k_ss,
+                                   long long v_sb, long long v_sh, long long v_ss,
+                                   long long o_sb, long long o_sh, long long o_ss,
                                    float scale, void* stream) {
   static bool configured = false;
   if (!configured) {
@@ -216,6 +233,7 @@ extern "C" int wtt_flash_attention(const void* q, const void* k, const void* v, 
   dim3 grid((Sq + BQ - 1) / BQ, H, B);
   flash_attention_kernel<<<grid, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
-      (__nv_bfloat16*)out, Sq, Sk, causal, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, o_sb, o_ss, scale);
+      (__nv_bfloat16*)out, Sq, Sk, causal, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
+      o_sb, o_sh, o_ss, scale);
   return (int)cudaGetLastError();
 }

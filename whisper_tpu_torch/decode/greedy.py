@@ -7,8 +7,9 @@ timestamp rules, a custom logits hook, and per-row EOT stops -- finished
 rows keep emitting EOT and the loop ends when every row is done or at
 `max_len`. The JAX loop is an on-device `lax.while_loop`; here it is a
 Python loop over eager steps that reads the `done` flags back each step.
-Temperature sampling (and the fallback ladder that uses it) is not ported
-yet: temperature > 0 raises.
+With temperature > 0 each token is drawn from softmax(logp / T) through an
+explicit `torch.Generator` (`sample_tokens`), the sampling rung of the
+fallback ladder (pipeline/transcribe.py).
 """
 
 from __future__ import annotations
@@ -32,6 +33,18 @@ def _masked_log_softmax(logits: torch.Tensor, seq_len: int,
     if suppress_mask is not None and seq_len <= suppress_until_len:
         x = x + suppress_mask
     return torch.log_softmax(x, dim=-1)
+
+
+def sample_tokens(logp: torch.Tensor, temperature: float,
+                  generator: torch.Generator) -> torch.Tensor:
+    """One token per row drawn from softmax(logp / temperature), (B, V) ->
+    (B,) int64, with `generator` (on logp's device). Suppressed (-inf)
+    tokens have probability 0 and are never drawn. JAX draws with
+    `jax.random.categorical` from a PRNG key; the two generators give
+    different numbers, so the draws never equal JAX's: only their
+    distribution does."""
+    probs = torch.softmax(logp / temperature, dim=-1)
+    return torch.multinomial(probs, 1, generator=generator)[:, 0]
 
 
 def apply_timestamp_rules(logits: torch.Tensor, tokens: torch.Tensor,
@@ -115,7 +128,8 @@ def greedy_decode(
     self_quant: bool = False,
     ts_begin: Optional[int] = None,
     max_initial_ts_idx: int = 50,
-    temperature: float = 0.0,
+    temperature: float = 0.0,  # 0 = argmax, > 0 = sampling
+    generator: Optional[torch.Generator] = None,  # needed when T > 0
     nospeech_id: Optional[int] = None,  # also return p(<|nospeech|>) at SOT
     sot_pos: int = 0,
     logits_hook: Optional[Callable] = None,
@@ -123,11 +137,15 @@ def greedy_decode(
     """Greedy decode; returns (tokens (B, n_text_ctx) int64, lengths (B,),
     sum_logp (B,)), plus p(<|nospeech|>) at the SOT position when
     `nospeech_id` is given. Sequences end with EOT; rows that finish early
-    keep emitting EOT until the last one finishes."""
-    if temperature > 0.0:
-        raise NotImplementedError(
-            "temperature sampling is ROADMAP queue 1 item 5 (with the "
-            "fallback ladder, item 8), not ported yet")
+    keep emitting EOT until the last one finishes.
+
+    `temperature > 0` draws each token from softmax(logp / T) with
+    `generator` (`sample_tokens`; ValueError without one, as JAX raises
+    without `rng`); `sum_logp` still adds the UNSCALED log-probs, the
+    quality signal the fallback ladder thresholds (greedy.py:111-133)."""
+    if temperature > 0.0 and generator is None:
+        raise ValueError("temperature > 0 requires a torch.Generator "
+                         "(generator=...)")
     dec_cfg = cfg.text_decoder_config
     ctx = dec_cfg.n_text_ctx
     device = enc_out.device
@@ -156,7 +174,10 @@ def greedy_decode(
     seq_len = n_prompt
     max_len = min(ctx, n_prompt + max_depth)
     while seq_len < max_len:
-        tok = torch.argmax(logp_next, dim=-1)  # first index on ties, as jnp
+        if temperature > 0.0:
+            tok = sample_tokens(logp_next, temperature, generator)
+        else:  # first index on ties, as jnp
+            tok = torch.argmax(logp_next, dim=-1)
         tok_logp = logp_next.gather(1, tok[:, None])[:, 0]
         tok = torch.where(done, torch.full_like(tok, eot_id), tok)
         tokens[:, seq_len] = tok

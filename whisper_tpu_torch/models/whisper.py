@@ -35,7 +35,8 @@ import torch
 import torch.nn.functional as F
 
 from ..config import WhisperConfig
-from ..ops.kernels.decode_attention import decode_attention_stacked
+from ..ops.kernels.decode_attention import (decode_attention,
+                                            decode_attention_stacked)
 from ..ops.kernels.dequant_matmul import quantized_matmul, quantized_matmul_big
 from ..ops.kernels.encoder_block import fused_mlp_block
 from ..ops.kernels.flash_attention import attention_bhsd
@@ -165,11 +166,19 @@ def _conv1d_nhc(x, w, b, stride: int):
 
 
 def _attention(q, k, v, n_head: int, impl: str, causal: bool = False,
-               mask=None):
-    """The flash kernel for impl="flash", else the plain einsum path."""
+               mask=None, flash_impl: str = "bsd"):
+    """The flash kernel for impl="flash" (K1, or K9 for
+    flash_impl="legacy"), else the plain einsum path."""
     if impl == "flash":
-        return attention_bhsd(q, k, v, n_head, causal=causal)
+        return attention_bhsd(q, k, v, n_head, causal=causal, impl=flash_impl)
     return qkv_attention(q, k, v, n_head, mask)
+
+
+def _flash_impl(cfg: WhisperConfig) -> str:
+    """cfg.knobs.flash_impl, or "bsd" for a config whose knobs lack it
+    (the JAX package's own config, which the tests hand to both packages:
+    there the choice is an environment variable)."""
+    return getattr(cfg.knobs, "flash_impl", "bsd")
 
 
 def _use_fused_mlp(x: torch.Tensor, w1, impl: str) -> bool:
@@ -183,14 +192,14 @@ def _use_fused_mlp(x: torch.Tensor, w1, impl: str) -> bool:
 
 
 def _encoder_block(x, p: Layer, n_head: int, eps: float, impl: str = "xla",
-                   int8_impl: str = "xla"):
+                   int8_impl: str = "xla", flash_impl: str = "bsd"):
     """Pre-LN residual encoder block (src/model/mod.rs:298-303). QTensor
     weights skip the fused MLP; under int8_impl="pallas" its two matmuls
     take K6/K7."""
     h = layer_norm(x, p["attn_ln_g"], p["attn_ln_b"], eps)
     q, k, v = _qkv_proj(h, p["qkv_w"], p["qkv_b"], int8_impl)
-    x = x + _linear(_attention(q, k, v, n_head, impl), p["attn_o_w"],
-                    p["attn_o_b"], int8_impl)
+    x = x + _linear(_attention(q, k, v, n_head, impl, flash_impl=flash_impl),
+                    p["attn_o_w"], p["attn_o_b"], int8_impl)
     if _use_fused_mlp(x, p["mlp1_w"], impl):
         return fused_mlp_block(x, p["mlp_ln_g"], p["mlp_ln_b"], p["mlp1_w"],
                                p["mlp1_b"], p["mlp2_w"], p["mlp2_b"], eps=eps)
@@ -219,7 +228,7 @@ def encoder_forward(params: ParamTree, mel: torch.Tensor,
     n_head, eps = enc_cfg.n_audio_head, cfg.ln_eps
     for p in enc["blocks"].layers():
         x = _encoder_block(x, p, n_head, eps, cfg.attention,
-                           cfg.knobs.int8_impl)
+                           cfg.knobs.int8_impl, _flash_impl(cfg))
     return layer_norm(x, enc["ln_post_g"], enc["ln_post_b"], eps)
 
 
@@ -236,17 +245,20 @@ def _mlp(h, p: Layer, eps: float, int8_impl: str = "xla"):
 
 
 def _decoder_block(x, p: Layer, xa, mask, n_head: int, eps: float,
-                   impl: str = "xla", int8_impl: str = "xla"):
+                   impl: str = "xla", int8_impl: str = "xla",
+                   flash_impl: str = "bsd"):
     """Pre-LN residual decoder block (src/model/mod.rs:344-350)."""
     h = layer_norm(x, p["attn_ln_g"], p["attn_ln_b"], eps)
     q, k, v = _qkv_proj(h, p["qkv_w"], p["qkv_b"], int8_impl)
-    x = x + _linear(_attention(q, k, v, n_head, impl, causal=True, mask=mask),
+    x = x + _linear(_attention(q, k, v, n_head, impl, causal=True, mask=mask,
+                               flash_impl=flash_impl),
                     p["attn_o_w"], p["attn_o_b"], int8_impl)
     h = layer_norm(x, p["cross_ln_g"], p["cross_ln_b"], eps)
     q = _linear(h, p["cross_q_w"], p["cross_q_b"], int8_impl)
     ck, cv = _kv_proj(xa, p["cross_kv_w"], p["cross_kv_b"], int8_impl)
-    x = x + _linear(_attention(q, ck, cv, n_head, impl), p["cross_o_w"],
-                    p["cross_o_b"], int8_impl)
+    x = x + _linear(_attention(q, ck, cv, n_head, impl,
+                               flash_impl=flash_impl),
+                    p["cross_o_w"], p["cross_o_b"], int8_impl)
     return _mlp(x, p, eps, int8_impl)
 
 
@@ -270,7 +282,7 @@ def decoder_forward(params: ParamTree, tokens: torch.Tensor,
     n_head, eps = dec_cfg.n_text_head, cfg.ln_eps
     for p in dec["blocks"].layers():
         x = _decoder_block(x, p, enc_out, mask, n_head, eps, cfg.attention,
-                           cfg.knobs.int8_impl)
+                           cfg.knobs.int8_impl, _flash_impl(cfg))
     return _logits(layer_norm(x, dec["ln_g"], dec["ln_b"], eps), dec)
 
 
@@ -403,11 +415,20 @@ def init_cache(params: ParamTree, enc_out: torch.Tensor, cfg: WhisperConfig,
 
 
 def _cached_attention(q, k_cache, v_cache, last_visible: torch.Tensor,
-                      n_head: int) -> torch.Tensor:
+                      n_head: int, impl: str = "xla") -> torch.Tensor:
     """S new queries (B, S, d) against a (B/R, C, d) cache; key c is
     visible to query i iff c <= last_visible[i]. R = B / cache rows > 1:
     kv row w serves q rows [w*R, (w+1)*R), the beam lanes of one window
-    (whisper.py:650-745). The einsum path of the JAX `_cached_attention`:
+    (whisper.py:650-745).
+
+    S = 1 with impl="flash", R = 1 and no per-row scales takes JAX's
+    kernel branch (whisper.py:696-706): K8 (`decode_attention`) at
+    pos = max(last_visible), q in f32 times hd^-0.5 (and K's per-channel
+    scale) cast back to q's dtype, V's per-channel scale on the output, cast
+    to q's dtype. `decoder_step` sends every S = 1 flash step to the fused
+    path first, so only a direct caller reaches it, as in JAX.
+
+    Otherwise the einsum path of the JAX `_cached_attention`:
     q scaled by hd^-0.5 in f32 (and by K's per-channel scale) and cast
     back, f32 scores (times K's per-row scales), -inf mask, f32 softmax
     (times V's per-row scales, zeroed on masked rows so that a stale scale
@@ -432,6 +453,15 @@ def _cached_attention(q, k_cache, v_cache, last_visible: torch.Tensor,
     bk, c = k_cache.shape[:2]
     rep = b // bk
     hd = d // n_head
+    if s == 1 and impl == "flash" and rep == 1 and k_rows is None:
+        q1 = q[:, 0].float() * float(hd) ** -0.5
+        if k_scale is not None:
+            q1 = q1 * k_scale
+        out = decode_attention(q1.to(q.dtype), k_cache, v_cache,
+                               last_visible.max(), n_head)
+        if v_scale is not None:
+            out = (out.float() * v_scale).to(q.dtype)
+        return out[:, None, :]
     q_dtype = q.dtype
     q32 = q.float() * float(hd) ** -0.5
     if k_scale is not None:
@@ -606,14 +636,15 @@ def decoder_step(params: ParamTree, tokens: torch.Tensor, pos: int,
             sk[:, l, pos:pos + s] = k
             sv[:, l, pos:pos + s] = v
         attn = _cached_attention(q, layer_of(sk, l, True),
-                                 layer_of(sv, l, True), causal_vis, n_head)
+                                 layer_of(sv, l, True), causal_vis, n_head,
+                                 cfg.attention)
         h = h + _linear(attn, p["attn_o_w"], p["attn_o_b"], ii)
 
         hn = layer_norm(h, p["cross_ln_g"], p["cross_ln_b"], eps)
         q = _linear(hn, p["cross_q_w"], p["cross_q_b"], ii)
         cross = _cached_attention(q, layer_of(cache.cross_k, l, False),
                                   layer_of(cache.cross_v, l, False),
-                                  cross_vis, n_head)
+                                  cross_vis, n_head, cfg.attention)
         h = h + _linear(cross, p["cross_o_w"], p["cross_o_b"], ii)
         h = _mlp(h, p, eps, ii)
     return _logits(layer_norm(h, dec["ln_g"], dec["ln_b"], eps), dec), cache

@@ -40,8 +40,7 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_flo
 # argtypes of every C entry point (pointers and the stream as c_void_p, so
 # ctypes never truncates them to 32 bits).
 SIGNATURES = {
-    "wtt_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _LL, _LL,
-                            _LL, _LL, _LL, _LL, _LL, _LL, _F, _P],
+    "wtt_flash_attention": [_P] * 4 + [_I] * 5 + [_LL] * 12 + [_F, _P],
     "wtt_encoder_mlp": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                         _F, _P],
     "wtt_decode_attention": [_P] * 7 + [_I] * 7 + [_LL] * 10 + [_P],

@@ -2,8 +2,8 @@
 Hopper kernels, their plain PyTorch version, and the wrapper that picks
 between them by device.
 
-Replaces three TPU kernels of `whisper_tpu/ops/pallas/decode_attention.py`
-(entry `decode_attention_stacked`):
+Replaces four TPU kernels of `whisper_tpu/ops/pallas/decode_attention.py`
+(entry `decode_attention_stacked`, and K8's `decode_attention`):
   K3  `_decode_attn_stacked_kernel`, the per-lane variant (kv_rep = 1);
   K3g `_decode_attn_stacked_group_kernel`, where kv row j serves the q
       rows [j*kv_rep, (j+1)*kv_rep) -- the beam lanes of one window
@@ -11,7 +11,10 @@ Replaces three TPU kernels of `whisper_tpu/ops/pallas/decode_attention.py`
   K3s `_decode_attn_stacked_scaled_kernel`, the int8 self cache with one
       f32 scale per row for K and for V (`k_rowscale`, `v_rowscale`;
       batch-major, kv_rep = 1): scores times K's row scale before the mask,
-      softmax weights times V's row scale, zero on masked rows.
+      softmax weights times V's row scale, zero on masked rows;
+  K8  `_decode_attn_kernel`, one query per row over ONE layer's flat
+      (B, C, D) cache (entry `decode_attention`): the same `_attend`, so it
+      launches the K3 kernel on the one-layer view (B, 1, C, D), layer 0.
 The caches may be stored as bf16, f32, int8 or packed int4 (uint8, the
 layout of `quantize.py`). An integer cache takes a bf16 or f32 query and
 gives the output in the query's dtype, as the TPU kernels do; the
@@ -136,13 +139,27 @@ def decode_attention_stacked(
     with an f32/int8/int4 cache; head dim 64, unit channel stride, 16-byte
     aligned rows; row scales only with an int8 batch-major cache and
     kv_rep = 1. kv_rep = 1 is K3 (counted in `.launches`), kv_rep > 1 K3g
-    (`.group_launches`), row scales K3s (`.scaled_launches`). The caller
-    guarantees every pos < c_used."""
+    (`.group_launches`), row scales K3s (`.scaled_launches`). Rows past
+    c_used are never read."""
     _check_scales(k_rowscale, v_rowscale, batch_major, kv_rep)
     if q.device.type == "cpu":
         return decode_attention_stacked_plain(
             q, k_cache, v_cache, pos, layer, n_head, batch_major, kv_rep,
             k_rowscale, v_rowscale, c_used)
+    out = _launch(q, k_cache, v_cache, pos, layer, n_head, batch_major,
+                  kv_rep, k_rowscale, v_rowscale, c_used)
+    if k_rowscale is not None:
+        decode_attention_stacked.scaled_launches += 1
+    elif kv_rep == 1:
+        decode_attention_stacked.launches += 1
+    else:
+        decode_attention_stacked.group_launches += 1
+    return out
+
+
+def _launch(q, k_cache, v_cache, pos, layer, n_head, batch_major, kv_rep,
+            k_rowscale, v_rowscale, c_used) -> torch.Tensor:
+    """Check what the CUDA kernel takes and launch it; counts nothing."""
     b, d = q.shape
     if kv_rep < 1:
         raise ValueError(f"kv_rep {kv_rep} must be >= 1")
@@ -209,15 +226,53 @@ def decode_attention_stacked(
         ks[2], vs[lane_dim], vs[layer_dim], vs[2], sc_strides[0],
         sc_strides[1], out.stride(0), stream_ptr(q))
     check(err, "wtt_decode_attention")
-    if scaled:
-        decode_attention_stacked.scaled_launches += 1
-    elif kv_rep == 1:
-        decode_attention_stacked.launches += 1
-    else:
-        decode_attention_stacked.group_launches += 1
     return out
 
 
 decode_attention_stacked.launches = 0
 decode_attention_stacked.group_launches = 0
 decode_attention_stacked.scaled_launches = 0
+
+
+def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
+                           v_cache: torch.Tensor,
+                           pos: Union[int, torch.Tensor],
+                           n_head: int) -> torch.Tensor:
+    """K8's arithmetic: the TPU kernel `_decode_attn_kernel` computes the
+    same `_attend` as the stacked one, so this is the stacked plain version
+    over the one-layer view (B, C, D) -> (B, 1, C, D), layer 0."""
+    return decode_attention_stacked_plain(q, k_cache[:, None],
+                                          v_cache[:, None], pos, 0, n_head,
+                                          batch_major=True)
+
+
+def decode_attention(
+    q: torch.Tensor,  # (B, D) single query, PRE-SCALED by hd^-0.5
+    k_cache: torch.Tensor,  # (B, C, D) one layer's flat cache
+    v_cache: torch.Tensor,
+    pos: Union[int, torch.Tensor],  # highest visible row: int or (B,) i32
+    n_head: int,
+) -> torch.Tensor:
+    """K8, the flat single-query decode attention (the JAX
+    `decode_attention`, decode_attention.py:401): returns (B, D) in v's
+    dtype, or in q's for an integer (int8, packed int4) cache.
+
+    CPU tensors take `decode_attention_plain`. CUDA tensors launch the
+    K3 kernel of `csrc/decode_attention.cu` on the one-layer view
+    (B, 1, C, D), layer 0, with per-row pos, or raise: the view must meet
+    K3's rules (see `decode_attention_stacked`), so a cache sliced out of
+    a larger buffer needs unit channel stride and 16-byte aligned rows
+    and base, else ValueError. Counted in `.flat_launches`, apart from
+    K3's counters."""
+    if k_cache.dim() != 3 or v_cache.dim() != 3:
+        raise ValueError(f"flat caches are (B, C, D), got {tuple(k_cache.shape)}"
+                         f" and {tuple(v_cache.shape)}")
+    if q.device.type == "cpu":
+        return decode_attention_plain(q, k_cache, v_cache, pos, n_head)
+    out = _launch(q, k_cache[:, None], v_cache[:, None], pos, 0, n_head,
+                  True, 1, None, None, None)
+    decode_attention.flat_launches += 1
+    return out
+
+
+decode_attention.flat_launches = 0

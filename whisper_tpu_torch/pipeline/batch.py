@@ -10,13 +10,14 @@ the batch -> `greedy_decode` or `beam_search_batched`. A short last batch
 is padded by repeating its first window, as JAX pads it, so the encoder's
 row count -- and with it the W8A8 kernel choice (K6 at <= 1024 rows, K7
 above) -- is that of a full batch. Tail windows go one at a time through
-`Transcriber._decode_window`, and each stream is stitched on its own.
+`Transcriber._decode`, and each stream is stitched on its own.
 
 As in the JAX package, the windows of a batch are independent:
 `condition_on_previous_text` is not applied here. Options the port does
-not cover raise (`_check_supported`). `transcribe_many_with_timestamps`,
-`WindowPool` and `BatchingWorker` are not ported yet (ROADMAP queue 1
-items 8, 10 and 13).
+not cover raise (`_check_batch_supported`): the batched fallback ladder,
+timestamps (`transcribe_many_with_timestamps`) and clip ranges, as well as
+`WindowPool` and `BatchingWorker`, are not ported yet (ROADMAP queue 1
+items 10 and 13).
 """
 
 from __future__ import annotations
@@ -41,6 +42,25 @@ from .transcribe import (DecodeOptions, Transcriber, _check_supported,
 log = logging.getLogger(__name__)
 
 Window = Tuple[int, int, np.ndarray]  # (stream, window index, samples)
+
+
+def _check_batch_supported(opt: DecodeOptions) -> None:
+    """Raise for the options the batched path does not cover (beyond
+    `_check_supported`'s): the JAX batched ladder, timestamps and clip
+    ranges."""
+    _check_supported(opt)
+    todo = []
+    if opt.timestamps:
+        todo.append("timestamps (transcribe_many_with_timestamps)")
+    if Transcriber._ladder_temps(opt)[1]:
+        todo.append("temperature > 0, a temperature tuple or "
+                    "no_speech_threshold (the batched fallback ladder)")
+    if opt.clip_timestamps is not None:
+        todo.append("clip_timestamps")
+    if todo:
+        raise NotImplementedError(
+            "not ported to the batched path of whisper_tpu_torch yet "
+            "(ROADMAP queue 1 item 10): " + "; ".join(todo))
 
 
 class BatchTranscriber(Transcriber):
@@ -125,8 +145,8 @@ class BatchTranscriber(Transcriber):
             log.info("batch %d-%d/%d windows in %.2fs", i, i + len(group),
                      len(full), time.perf_counter() - t0)
         for s, w, chunk in tail:
-            results[(s, w)] = self._decode_window(chunk, prompt, sup_len,
-                                                  opt)[n_cond:]
+            results[(s, w)] = self._decode(chunk, prompt, sup_len,
+                                           opt)[0][n_cond:]
         return results, n_windows
 
     def transcribe_many(self, waveforms: Sequence[np.ndarray],
@@ -137,7 +157,7 @@ class BatchTranscriber(Transcriber):
         input order, stitched per stream as `transcribe` stitches
         (src/transcribe.rs:56-63)."""
         opt = options or DecodeOptions()
-        _check_supported(opt)
+        _check_batch_supported(opt)
         with torch.inference_mode():
             results, n_windows = self._decode_windows(waveforms, sample_rate,
                                                       opt)

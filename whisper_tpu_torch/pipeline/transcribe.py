@@ -1,13 +1,16 @@
 """Long-form transcription: windowing, per-window decode, stitching.
 
 Counterpart of `whisper_tpu/pipeline/transcribe.py` (reference:
-whisper-burn `src/transcribe.rs`) for the beam (the default) and greedy
-paths at temperature 0: ~14.9 s windows
+whisper-burn `src/transcribe.rs`): ~14.9 s windows
 (`max_waveform_samples(encoder_ctx - 10)` samples) with a 3 s overlap,
 each window's mel clipped to (encoder_ctx - padding) frames and
 zero-padded by `padding` frames, the [SOT, lang, task, notimestamps]
 prompt, suppression while seq len <= 5, token-overlap stitching, and the
-`Chunk {i}: {text}` progress contract.
+`Chunk {i}: {text}` progress contract; beam search (the default) or
+greedy, plus what the JAX `Transcriber` adds beyond the reference: the
+temperature fallback ladder with its quality gates, timestamped segments
+(`transcribe_with_timestamps`), clip ranges, language detection,
+`initial_prompt` and `condition_on_previous_text`.
 
 The JAX pipeline dispatches window i+1 before fetching window i; this port
 runs windows one after another (the result is the same: windows are
@@ -22,6 +25,7 @@ from __future__ import annotations
 import dataclasses
 import logging
 import time
+import zlib
 from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -34,6 +38,7 @@ from ..decode.greedy import greedy_decode
 from ..models.whisper import encoder_forward
 from ..ops.audio import max_waveform_samples, prep_audio
 from ..params import ParamTree, from_numpy_tree
+from ..text.tokenizer import SpecialToken
 from . import vad
 
 log = logging.getLogger(__name__)
@@ -42,8 +47,11 @@ log = logging.getLogger(__name__)
 @dataclasses.dataclass(frozen=True)
 class DecodeOptions:
     """Decoding knobs: the fields and defaults of the JAX package's
-    `DecodeOptions` (redefined because that module imports jax): beam
-    search with 5 beams by default, or strategy="greedy"."""
+    `DecodeOptions` (redefined because that module imports jax; its
+    comments explain each): beam search with 5 beams by default, or
+    strategy="greedy". A `temperature` tuple (or a non-zero float, or a
+    `no_speech_threshold`) turns on the fallback ladder; `seed` seeds its
+    sampling rungs."""
 
     lang: str = "en"
     task: str = "transcribe"
@@ -74,26 +82,43 @@ class DecodeOptions:
 
 
 def _check_supported(opt: DecodeOptions) -> None:
-    """Raise for every option the port's beam and greedy paths do not
-    cover."""
+    """Raise for every option the port does not cover."""
     todo = []
     if opt.strategy not in ("beam", "greedy"):
         todo.append(f"strategy={opt.strategy!r} (ROADMAP queue 1 item 7)")
-    if opt.timestamps:
-        todo.append("timestamps (ROADMAP queue 1 item 8)")
     if opt.self_quant == "int4":
         todo.append("self_quant='int4' (ROADMAP queue 1 item 9)")
-    if (isinstance(opt.temperature, (tuple, list))
-            or float(opt.temperature) != 0.0
-            or opt.no_speech_threshold is not None):
-        todo.append("temperature > 0, a temperature tuple or "
-                    "no_speech_threshold (the fallback ladder: ROADMAP queue "
-                    "1 items 5 and 8)")
-    if opt.clip_timestamps is not None:
-        todo.append("clip_timestamps (ROADMAP queue 1 item 8)")
     if todo:
         raise NotImplementedError(
             "not ported to whisper_tpu_torch yet: " + "; ".join(todo))
+
+
+def parse_clip_timestamps(clips: object, total_seconds: float
+                          ) -> List[Tuple[float, float]]:
+    """"s0,e0,..." or [s0, e0, ...] -> [(start, end)] clamped to the audio
+    (transcribe.py:133). An odd count means the final clip runs to the
+    end. Raises ValueError on unordered or out-of-range values."""
+    if isinstance(clips, str):
+        vals = [float(x) for x in clips.split(",") if x.strip() != ""]
+    else:
+        vals = [float(x) for x in clips]
+    if not vals:
+        return [(0.0, total_seconds)]
+    if len(vals) % 2 == 1:
+        vals.append(total_seconds)
+    out: List[Tuple[float, float]] = []
+    prev_end = 0.0
+    for s, e in zip(vals[::2], vals[1::2]):
+        e = min(e, total_seconds)
+        if s < 0 or s >= e:
+            raise ValueError(f"bad clip range [{s}, {e}]")
+        if s < prev_end:
+            raise ValueError("clip ranges must be sorted and disjoint")
+        if s >= total_seconds:
+            break
+        out.append((s, e))
+        prev_end = e
+    return out
 
 
 def find_chunk_overlap(prev_tokens: Sequence[int], curr_tokens: Sequence[int],
@@ -115,6 +140,38 @@ def find_chunk_overlap(prev_tokens: Sequence[int], curr_tokens: Sequence[int],
     return best if max_overlap >= min_n_overlaps else None
 
 
+def compression_ratio(text: str) -> float:
+    """len(utf-8) / len(zlib-compressed): > ~2.4 flags a repetition loop
+    (transcribe.py:198)."""
+    data = text.encode("utf-8")
+    if not data:
+        return 0.0
+    return len(data) / len(zlib.compress(data))
+
+
+def evaluate_window_quality(opt: DecodeOptions, tok, toks, n_sampled,
+                            sum_logp, ns_prob):
+    """The decode-quality gates of one window (transcribe.py:209, OpenAI's
+    needs_fallback). Returns (ok, silence, avg_logprob,
+    compression_ratio): silence when p(<|nospeech|>) is above
+    `no_speech_threshold` and the logprob check failed (or logprob gating
+    is off), ok when both the logprob and the compression-ratio checks
+    pass. `ns_prob` < 0 means the tokenizer has no <|nospeech|>."""
+    avg_lp = float(sum_logp) / max(int(n_sampled), 1)
+    ns = float(ns_prob)
+    lp_failed = (opt.logprob_threshold is not None
+                 and avg_lp < opt.logprob_threshold)
+    if (opt.no_speech_threshold is not None and ns >= 0.0
+            and ns > opt.no_speech_threshold
+            and (opt.logprob_threshold is None or lp_failed)):
+        return False, True, avg_lp, 0.0
+    cr = compression_ratio(tok.decode(toks, skip_special=True))
+    ok = not lp_failed and not (
+        opt.compression_ratio_threshold is not None
+        and cr > opt.compression_ratio_threshold)
+    return ok, False, avg_lp, cr
+
+
 def window_waveform(waveform: np.ndarray, sample_rate: int,
                     window_samples: int, overlap_samples: int):
     """Yield (start, end) window bounds (src/transcribe.rs:114-138)."""
@@ -123,6 +180,14 @@ def window_waveform(waveform: np.ndarray, sample_rate: int,
     for i in range(n):
         start = i * shift
         yield start, min(start + window_samples, len(waveform))
+
+
+def _rung_generator(device, seed: int, stream: int) -> torch.Generator:
+    """The explicit generator of one sampling rung, seeded from
+    (seed, stream) -- the JAX ladder folds `i * 131 + ti` into
+    PRNGKey(seed) -- so a rerun draws the same tokens."""
+    state = np.random.SeedSequence((seed, stream)).generate_state(1)[0]
+    return torch.Generator(device=device).manual_seed(int(state))
 
 
 class Transcriber:
@@ -185,9 +250,18 @@ class Transcriber:
         self.params = params
         self.cfg = dataclasses.replace(cfg, attention=attention)
         self.tok = tokenizer
-        self._suppress = torch.as_tensor(
-            np.asarray(tokenizer.suppress_mask(), np.float32),
-            device=self.device)
+        mask = np.asarray(tokenizer.suppress_mask(), np.float32)
+        self._suppress = torch.as_tensor(mask, device=self.device)
+        # timestamped decoding keeps the timestamp tokens emittable: the
+        # timestamp rules govern them instead (transcribe.py:320-330)
+        try:
+            self._ts_begin: Optional[int] = tokenizer.timestamp_begin
+            mask = mask.copy()
+            mask[self._ts_begin:] = 0.0
+            self._suppress_ts = torch.as_tensor(mask, device=self.device)
+        except KeyError:
+            self._ts_begin = None
+            self._suppress_ts = self._suppress
 
     def _build_prompt(self, opt: DecodeOptions, prev_tokens=()):
         """Prompt ids (P,) plus the conditioning-prefix length: with
@@ -211,71 +285,216 @@ class Transcriber:
             n_cond = len(cond)
         return torch.tensor(ids, dtype=torch.long, device=self.device), n_cond
 
-    def _decode_window(self, window: np.ndarray, prompt: torch.Tensor,
-                       suppress_until_len: int, opt: DecodeOptions
-                       ) -> List[int]:
-        """One window: log-mel, clip + pad, encoder, then beam search
-        (as whisper_tpu/pipeline/transcribe.py:559-572) or greedy decode;
-        returns the decoded sequence (prompt included)."""
+    def _decode(self, window: np.ndarray, prompt: torch.Tensor,
+                suppress_until_len: int, opt: DecodeOptions,
+                timestamps: bool = False, max_initial_ts_idx: int = 50,
+                temperature: float = 0.0,
+                generator: Optional[torch.Generator] = None,
+                quality: bool = False, sot_pos: int = 0
+                ) -> Tuple[List[int], float, float]:
+        """One window, as the JAX window program runs it
+        (transcribe.py:548-609): log-mel, clip + pad, encoder, then beam
+        search at temperature 0 with strategy "beam", else greedy (sampling
+        at temperature > 0 with `generator`). `timestamps` runs the
+        timestamp rules with the timestamp tokens unsuppressed. Returns
+        (the decoded sequence, prompt included; sum_logp; p(<|nospeech|>)
+        at `sot_pos` when `quality`, -1 when not asked or when the
+        tokenizer lacks the token)."""
         cfg = self.cfg
+        ts_begin = None
+        if timestamps:
+            if self._ts_begin is None:
+                raise ValueError("timestamps=True but the tokenizer has no "
+                                 "timestamp tokens (<|0.00|>...)")
+            ts_begin = self._ts_begin
+        ns_id = (self.tok.special_token(SpecialToken.NO_SPEECH) if quality
+                 else None)
         wave = torch.from_numpy(window).to(self.device)
         mel = prep_audio(wave[None, :], n_mels=cfg.n_mels)
         keep = min(mel.shape[2], cfg.encoder_ctx_size - opt.padding)
         mel = F.pad(mel[:, :, :keep], (0, opt.padding))
         enc = encoder_forward(self.params, mel, cfg)
-        common = dict(eot_id=self.tok.eot, suppress_mask=self._suppress,
-                      max_depth=opt.max_depth,
-                      suppress_until_len=suppress_until_len,
-                      kv_quant=opt.kv_quant, self_quant=opt.self_quant)
-        if opt.strategy == "beam":
-            toks, length, _ = beam_search(self.params, enc, prompt, cfg,
-                                          beam_size=opt.beam_size, **common)
-            return toks[: int(length)].tolist()
-        toks, length, _ = greedy_decode(self.params, enc, prompt, cfg,
-                                        **common)
-        return toks[0, : int(length[0])].tolist()
+        common = dict(
+            eot_id=self.tok.eot,
+            suppress_mask=self._suppress_ts if timestamps else self._suppress,
+            max_depth=opt.max_depth, suppress_until_len=suppress_until_len,
+            kv_quant=opt.kv_quant, self_quant=opt.self_quant,
+            ts_begin=ts_begin, max_initial_ts_idx=max_initial_ts_idx,
+            nospeech_id=ns_id, sot_pos=sot_pos)
+        if opt.strategy == "beam" and temperature == 0.0:
+            out = beam_search(self.params, enc, prompt, cfg,
+                              beam_size=opt.beam_size, **common)
+        else:
+            out = greedy_decode(self.params, enc, prompt, cfg,
+                                temperature=temperature, generator=generator,
+                                **common)
+            out = [x[0] for x in out]
+        toks, length, logp = out[:3]
+        ns = float(out[3]) if ns_id is not None else -1.0
+        return toks[: int(length)].tolist(), float(logp), ns
 
-    def transcribe(self, waveform: np.ndarray, sample_rate: int = SAMPLE_RATE,
-                   options: Optional[DecodeOptions] = None,
-                   on_chunk: Optional[Callable[[int, str], None]] = None
-                   ) -> Tuple[str, List[int]]:
-        """Full long-form pipeline (src/transcribe.rs:23-74). Returns
-        (text, tokens)."""
-        opt = options or DecodeOptions()
-        _check_supported(opt)
-        cfg, tok = self.cfg, self.tok
-        n_window = max_waveform_samples(cfg.encoder_ctx_size - opt.padding)
+    def _decode_window_ladder(self, i: int, window: np.ndarray,
+                              prompt: torch.Tensor, n_cond: int, sup_len: int,
+                              opt: DecodeOptions, temps, timestamps=False,
+                              max_initial_ts_idx: int = 50):
+        """The fallback ladder (transcribe.py:429-472): decode at temps[0];
+        while the quality checks fail, decode again at the next (sampling)
+        temperature, rung ti of window i drawing from the generator seeded
+        from (opt.seed, i * 131 + ti). Returns (the stripped tokens, the
+        accepted temperature, (avg_logprob, compression_ratio,
+        no_speech_prob or None) of the accepted rung); [] means accepted
+        as silence under the no-speech gate."""
+        tok = self.tok
+        n_prompt = int(prompt.shape[0])
+        for ti, temp in enumerate(temps):
+            gen = (_rung_generator(self.device, opt.seed, i * 131 + ti)
+                   if temp > 0.0 else None)
+            seq, logp, ns = self._decode(
+                window, prompt, sup_len, opt, timestamps, max_initial_ts_idx,
+                temp, gen, quality=True, sot_pos=n_cond)
+            toks = seq[n_cond:]
+            ok, silence, avg_lp, cr = evaluate_window_quality(
+                opt, tok, toks, len(seq) - n_prompt, logp, ns)
+            meta = (avg_lp, cr, ns if ns >= 0.0 else None)
+            if silence:
+                log.info("chunk %d: no speech (p=%.2f), skipping", i, ns)
+                return [], temp, meta
+            if ok or ti == len(temps) - 1:
+                if ti:
+                    log.info("chunk %d: accepted at temperature %.1f "
+                             "(avg_logprob %.2f, compression %.2f)",
+                             i, temp, avg_lp, cr)
+                return toks, temp, meta
+            log.info("chunk %d: t=%.1f failed checks (avg_logprob %.2f, "
+                     "compression %.2f), retrying", i, temp, avg_lp, cr)
+        raise AssertionError("unreachable: the last rung always returns")
+
+    @staticmethod
+    def _ladder_temps(opt: DecodeOptions):
+        """(temps tuple, ladder active?) from DecodeOptions.temperature
+        (transcribe.py:475)."""
+        temps = (tuple(float(t) for t in opt.temperature)
+                 if isinstance(opt.temperature, (tuple, list))
+                 else (float(opt.temperature),))
+        active = (len(temps) > 1 or temps[0] != 0.0
+                  or opt.no_speech_threshold is not None)
+        return temps, active
+
+    def _windows(self, waveform: np.ndarray, sample_rate: int,
+                 opt: DecodeOptions):
+        """(i, start, end, samples) of each window that gets decoded: the
+        sub-n_fft tail and (with `opt.vad`) silent windows are skipped."""
+        n_window = max_waveform_samples(self.cfg.encoder_ctx_size
+                                        - opt.padding)
         overlap = int(sample_rate * opt.chunk_overlap_seconds)
         if overlap >= n_window:
             log.warning("chunk overlap (%d samples) >= window (%d); clamping "
                         "overlap to half a window", overlap, n_window)
             overlap = n_window // 2
+        for i, (start, end) in enumerate(
+                window_waveform(waveform, sample_rate, n_window, overlap)):
+            window = np.ascontiguousarray(waveform[start:end],
+                                          dtype=np.float32)
+            if len(window) < 400:  # < n_fft: no STFT frame
+                log.warning("skipping %d-sample tail window (< n_fft)",
+                            len(window))
+                continue
+            if opt.vad and vad.is_silent(
+                    window, sample_rate, opt.vad_threshold_db,
+                    opt.vad_min_speech_seconds):
+                log.info("chunk %d: silent window skipped by VAD", i)
+                continue
+            yield i, start, end, window
+
+    def _prev_prompt(self, opt: DecodeOptions, tokens: Sequence[int]):
+        """(prompt, n_cond, suppression length) of a window conditioned on
+        the non-special `tokens` decoded before it."""
+        prompt, n_cond = self._build_prompt(opt, prev_tokens=[
+            t for t in tokens if not self.tok.is_special(t)])
+        return prompt, n_cond, opt.suppress_until_len + n_cond
+
+    def detect_language(self, waveform: np.ndarray,
+                        sample_rate: int = SAMPLE_RATE,
+                        vote_windows: int = 1,
+                        vad_threshold_db: float = -40.0,
+                        vad_min_speech_seconds: float = 0.1):
+        """Identify the spoken language (transcribe.py:656). Returns (best
+        code, {code: prob}): the language distribution averaged over up
+        to `vote_windows` speech-bearing windows (the energy VAD), or the
+        first window when all are below the VAD threshold."""
+        from .detect import detect_language as _detect
+
+        n_window = max_waveform_samples(self.cfg.encoder_ctx_size - 10)
+        wave = np.asarray(waveform, np.float32)
+        if len(wave) < 400:
+            raise ValueError("audio too short for language detection")
+        starts: List[int] = []
+        for s0 in range(0, len(wave), n_window):
+            win = wave[s0:s0 + n_window]
+            if len(win) < 400:
+                break
+            if not vad.is_silent(win, sample_rate, vad_threshold_db,
+                                 vad_min_speech_seconds):
+                starts.append(s0)
+                if len(starts) >= max(1, int(vote_windows)):
+                    break
+        if not starts:
+            starts = [0]  # all silent: the first window is as good as any
+        acc: dict = {}
+        dtype = self.params["decoder"]["tok_emb"].dtype
+        with torch.inference_mode():
+            for s0 in starts:
+                window = torch.from_numpy(
+                    np.ascontiguousarray(wave[s0:s0 + n_window]))
+                mel = prep_audio(window.to(self.device)[None, :],
+                                 n_mels=self.cfg.n_mels)
+                enc = encoder_forward(self.params, mel.to(dtype), self.cfg)
+                _, dist = _detect(self.params, enc, self.cfg, self.tok)[0]
+                for code, p in dist.items():
+                    acc[code] = acc.get(code, 0.0) + p / len(starts)
+        best = max(acc, key=acc.get)
+        return best, acc
+
+    def transcribe(self, waveform: np.ndarray, sample_rate: int = SAMPLE_RATE,
+                   options: Optional[DecodeOptions] = None,
+                   on_chunk: Optional[Callable[[int, str], None]] = None
+                   ) -> Tuple[str, List[int]]:
+        """Full long-form pipeline (src/transcribe.rs:23-74), with the
+        fallback ladder when `options` turn it on and the
+        `condition_on_previous_text` cut after a window accepted at a
+        temperature above 0.5 (transcribe.py:705-866). Returns (text,
+        tokens)."""
+        opt = options or DecodeOptions()
+        _check_supported(opt)
+        if opt.clip_timestamps is not None:
+            return self._transcribe_clips(waveform, sample_rate, opt,
+                                          on_chunk)
+        tok = self.tok
         prompt, n_cond = self._build_prompt(opt)
+        sup_len = opt.suppress_until_len + n_cond
+        temps, use_ladder = self._ladder_temps(opt)
         tokens: List[int] = []
         text = ""
+        prompt_reset_at = 0  # OpenAI's prompt_reset_since: a permanent cut
         total_t0 = time.perf_counter()
-        windows = window_waveform(waveform, sample_rate, n_window, overlap)
         with torch.inference_mode():
-            for i, (start, end) in enumerate(windows):
+            for i, start, end, window in self._windows(waveform, sample_rate,
+                                                       opt):
                 t0 = time.perf_counter()
-                window = np.ascontiguousarray(waveform[start:end],
-                                              dtype=np.float32)
-                if len(window) < 400:  # < n_fft: no STFT frame
-                    log.warning("skipping %d-sample tail window (< n_fft)",
-                                len(window))
-                    continue
-                if opt.vad and vad.is_silent(
-                        window, sample_rate, opt.vad_threshold_db,
-                        opt.vad_min_speech_seconds):
-                    log.info("chunk %d: silent window skipped by VAD", i)
-                    continue
-                prompt_i, n_cond_i = prompt, n_cond
+                prompt_i, n_cond_i, sup_i = prompt, n_cond, sup_len
                 if opt.condition_on_previous_text:
-                    prompt_i, n_cond_i = self._build_prompt(opt, prev_tokens=[
-                        t for t in tokens if not tok.is_special(t)])
-                new_tokens = self._decode_window(
-                    window, prompt_i, opt.suppress_until_len + n_cond_i,
-                    opt)[n_cond_i:]
+                    prompt_i, n_cond_i, sup_i = self._prev_prompt(
+                        opt, tokens[prompt_reset_at:])
+                reset = False
+                if use_ladder:
+                    new_tokens, accepted_t, _ = self._decode_window_ladder(
+                        i, window, prompt_i, n_cond_i, sup_i, opt, temps)
+                    # a window that needed a high sampling temperature is
+                    # an unreliable context: cut it from future prompts
+                    reset = accepted_t > 0.5
+                else:
+                    new_tokens = self._decode(
+                        window, prompt_i, sup_i, opt)[0][n_cond_i:]
                 spliced = find_chunk_overlap(tokens, new_tokens,
                                              opt.stitch_max_offsets,
                                              opt.stitch_min_overlaps)
@@ -284,6 +503,8 @@ class Transcriber:
                     tokens = tokens[:prev_index] + new_tokens[curr_index:]
                 else:
                     tokens.extend(new_tokens)
+                if reset:
+                    prompt_reset_at = len(tokens)
                 text = tok.decode(tokens, skip_special=True)
                 dt = time.perf_counter() - t0
                 window_sec = (end - start) / sample_rate
@@ -299,3 +520,102 @@ class Transcriber:
         log.info("transcribed %.1fs audio in %.2fs (%.1fx RT)", audio_sec,
                  total, audio_sec / total if total > 0 else 0.0)
         return text, tokens
+
+    def _clips(self, waveform, sample_rate: int, opt: DecodeOptions):
+        """(start s, end s, samples, options without clips) of each range
+        of `opt.clip_timestamps`."""
+        sub = dataclasses.replace(opt, clip_timestamps=None)
+        for s, e in parse_clip_timestamps(opt.clip_timestamps,
+                                          len(waveform) / sample_rate):
+            yield s, waveform[int(s * sample_rate): int(e * sample_rate)], sub
+
+    def _transcribe_clips(self, waveform, sample_rate: int,
+                          opt: DecodeOptions, on_chunk):
+        """clip_timestamps (transcribe.py:869): each range is a long-form
+        pass of its own; the texts are joined by a space."""
+        texts: List[str] = []
+        tokens: List[int] = []
+        for _, clip, sub in self._clips(waveform, sample_rate, opt):
+            text, toks = self.transcribe(clip, sample_rate, sub, on_chunk)
+            if text.strip():
+                texts.append(text.strip())
+            tokens.extend(toks)
+        return " ".join(texts), tokens
+
+    def _transcribe_clips_with_timestamps(self, waveform, sample_rate: int,
+                                          opt: DecodeOptions):
+        """clip_timestamps on the timestamped path (transcribe.py:887):
+        segment times are offset by each clip's start, so they stay
+        absolute in the original audio's timeline."""
+        texts: List[str] = []
+        segments: List = []
+        for s, clip, sub in self._clips(waveform, sample_rate, opt):
+            text, segs = self.transcribe_with_timestamps(clip, sample_rate,
+                                                         sub)
+            if text.strip():
+                texts.append(text.strip())
+            segments += [dataclasses.replace(seg, start=seg.start + s,
+                                             end=seg.end + s) for seg in segs]
+        return " ".join(texts), segments
+
+    def transcribe_with_timestamps(self, waveform: np.ndarray,
+                                   sample_rate: int = SAMPLE_RATE,
+                                   options: Optional[DecodeOptions] = None,
+                                   word_timestamps: bool = False):
+        """Timestamped transcription (transcribe.py:916): returns (text,
+        segments). The prompt omits <|notimestamps|>, the timestamp rules
+        govern the <|x.xx|> tokens, each window's tokens split into
+        Segments with absolute times, windows joined by the token-overlap
+        stitcher (segments.TimestampStitcher). Every segment carries the
+        quality metadata of its window's decode (avg_logprob,
+        compression_ratio, no_speech_prob), off the ladder too.
+        `word_timestamps=True` raises: the alignment (align.py) is not
+        ported."""
+        from .segments import TimestampStitcher
+
+        if word_timestamps:
+            raise NotImplementedError(
+                "word_timestamps (cross-attention DTW alignment, align.py) "
+                "is ROADMAP queue 1 item 14, not ported yet")
+        opt = dataclasses.replace(options or DecodeOptions(), timestamps=True)
+        _check_supported(opt)
+        if opt.clip_timestamps is not None:
+            return self._transcribe_clips_with_timestamps(waveform,
+                                                          sample_rate, opt)
+        tok = self.tok
+        prompt, n_cond = self._build_prompt(opt)
+        sup_len = opt.suppress_until_len + n_cond
+        temps, use_ladder = self._ladder_temps(opt)
+        max_ts_idx = max(0, int(round(opt.max_initial_timestamp / 0.02)))
+        prompt_reset_at = 0
+        stitcher = TimestampStitcher(tok, opt.stitch_max_offsets,
+                                     opt.stitch_min_overlaps)
+        with torch.inference_mode():
+            for i, start, end, window in self._windows(waveform, sample_rate,
+                                                       opt):
+                if opt.condition_on_previous_text:
+                    prompt, n_cond, sup_len = self._prev_prompt(
+                        opt, stitcher.all_tokens[prompt_reset_at:])
+                reset = False
+                if use_ladder:
+                    new_tokens, accepted_t, meta = self._decode_window_ladder(
+                        i, window, prompt, n_cond, sup_len, opt, temps,
+                        timestamps=True, max_initial_ts_idx=max_ts_idx)
+                    reset = accepted_t > 0.5
+                else:
+                    seq, logp, ns = self._decode(
+                        window, prompt, sup_len, opt, timestamps=True,
+                        max_initial_ts_idx=max_ts_idx, quality=True,
+                        sot_pos=n_cond)
+                    new_tokens = seq[n_cond:]
+                    meta = (logp / max(len(seq) - int(prompt.shape[0]), 1),
+                            compression_ratio(tok.decode(new_tokens,
+                                                         skip_special=True)),
+                            ns if ns >= 0.0 else None)
+                stitcher.add_window(new_tokens, start / sample_rate,
+                                    (end - start) / sample_rate, quality=meta)
+                if reset:  # accepted at a high temperature: cut it
+                    prompt_reset_at = len(stitcher.all_tokens)
+        segs = stitcher.segments
+        text = " ".join(s.text.strip() for s in segs)
+        return text, segs
