@@ -52,12 +52,20 @@ Phases, in order; any failure raises and the script exits non-zero:
                 ladder (0, 0.2, 0.4) and no_speech_threshold 0.6 over the
                 35 s audio, cold and warm: equal segments (the sampling
                 rungs' seeded generators), the accepted temperature per
-                window, 3 windows, monotone segment times in [0, 35] s.
-Every phase prints its seconds. Every kernel but K8 and K9 must be launched
-by some slice; K8 and K9 by their site checks. The line before the last is
-a JSON object with one entry per kernel (launches summed over the slices'
-cold runs, or the site check's); the last line is {"ok": true,
-"device": {...}}.
+                window, 3 windows, monotone segment times in [0, 35] s;
+ 12. forced branches -- logits hooks force what random weights never
+                reach (acceptance at rung 0, the no-speech gate, a ragged
+                EOT across beam lanes and across a batched-greedy batch),
+                each on the kernel and the plain path with equal tokens.
+The kernel phase also prints, for K1, K9 and K3g (redesigned for Hopper),
+each time over its first version's (FIRST_VERSION_MS) and over SDPA's in
+the same call; the quantized greedy phase holds its logits against an f32
+reference of the same quantized model (QUANT_F32_RTOL) and one dequant
+matmul against its once-rounded f64 value (DEQUANT_EQUAL_SHARE). Every phase prints
+its seconds. Every kernel but K8 and K9 must be launched by some slice;
+K8 and K9 by their site checks. The line before the last is a JSON object
+with one entry per kernel (launches summed over the slices' cold runs, or
+the site check's); the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -111,6 +119,35 @@ def time_ms(fn, iters: int = 20) -> float:
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12,
               torch.int8: 1979e12}
+
+
+# The three kernels redesigned for Hopper (wgmma + TMA for K1/K9, a cluster
+# split for K3g) and the times of their first versions (WMMA K1/K9; K3g
+# with one block per head, kv row and group) at this script's shapes, in
+# ms: the mean of two runs of `tools/compare_attention_kernels.py` on the
+# commit before the redesign, on one card (the f32 row in a later run;
+# PERF.md section 6 names both runs, NVIDIA H100 80GB HBM3, 700 W). Each
+# new time is printed over these and over SDPA's time in the same call;
+# they are never put in the kernels line, which holds this run's numbers.
+FIRST_VERSION_MS = {
+    ("flash_attention", "B=1 Sq=750 Sk=750 H=20"): 0.1210,
+    ("flash_attention", "B=1 Sq=705 Sk=705 H=20"): 0.1208,
+    ("flash_attention", "B=1 Sq=1500 Sk=1500 H=20"): 0.4860,
+    ("flash_attention", "B=4 Sq=1500 Sk=1500 H=20"): 1.6615,
+    ("flash_attention", "B=1 Sq=448 Sk=448 H=20 causal"): 0.0676,
+    ("flash_attention", "B=1 Sq=4 Sk=1500 H=20"): 0.1502,
+    ("flash_attention_legacy", "B=1 H=20 S=750"): 0.1206,
+    ("flash_attention_legacy", "B=4 H=20 S=1500"): 1.6682,
+    ("flash_attention_legacy", "B=1 H=20 S=224 causal"): 0.0266,
+    ("decode_attention_group", "cross bf16 B=5 R=5 L=32 C=750"): 0.0192,
+    ("decode_attention_group", "cross int8 B=5 R=5 L=32 C=750"): 0.0245,
+    ("decode_attention_group", "cross int4 B=5 R=5 L=32 C=750"): 0.0202,
+    ("decode_attention_group", "cross bf16 B=10 R=10 L=32 C=750"): 0.0198,
+    ("decode_attention_group", "cross bf16 B=16 R=16 L=32 C=750"): 0.0232,
+    ("decode_attention_group", "cross bf16 B=40 R=5 L=32 C=1500"): 0.0655,
+    ("decode_attention_group", "cross bf16 B=20 R=5 L=32 C=750"): 0.0198,
+    ("decode_attention_group", "cross f32 B=10 R=5 L=4 C=128"): 0.0065,
+}
 
 
 def bound(n_bytes: float, flops: float, dtype=torch.bfloat16) -> tuple:
@@ -307,6 +344,8 @@ def phase_kernels() -> dict:
             ("decode_attention_group", "cross", 16, 16, 32, 750, "bf16",
              None, None),
             ("decode_attention_group", "cross", 40, 5, 32, 1500, "bf16", None,
+             None),
+            ("decode_attention_group", "cross", 20, 5, 32, 750, "bf16", None,
              None),
             ("decode_attention_group", "cross", 10, 5, 4, 128, "f32", None,
              None)):
@@ -604,6 +643,20 @@ def phase_kernels() -> dict:
                 f"{r['err_over_tol']:.3f}) kernel {r['ms']:.4f} ms"
                 f" plain {r['plain_ms']:.4f} ms library {lib}{deq}"
                 f" bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    for name in ("flash_attention", "flash_attention_legacy",
+                 "decode_attention_group"):
+        parts = []
+        for r in rows[name]:  # read only: the rows feed the kernels line
+            first = FIRST_VERSION_MS.get((name, r["shape"]))
+            lib = r["library_ms"]
+            parts.append(
+                f"[{r['shape']}] {r['ms']:.4f} ms = "
+                + ("(no first-version time)" if first is None
+                   else f"{r['ms'] / first:.3f} x the first version's "
+                        f"{first:.4f}")
+                + ("" if lib is None
+                   else f", {r['ms'] / lib:.2f} x SDPA's {lib:.4f}"))
+        log(f"redesigned {name}: " + "; ".join(parts))
     return rows
 
 
@@ -714,6 +767,8 @@ def main() -> int:
     sites = timed("sites", phase_sites, params, tr, wave)
     slices["timestamps_ladder"] = timed("timestamps + ladder",
                                         phase_timestamps_ladder, tr, wave)
+    forced = timed("forced branches", phase_forced_branches, params, tr,
+                   waves)
     # every kernel must run on some slice's main path, K8 and K9 at their
     # call sites
     launches = {n: sum(sl["launches"][n] for sl in slices.values())
@@ -746,7 +801,8 @@ def main() -> int:
         })
         if "dequant_ms" in first:
             entries[-1]["dequant_ms"] = first["dequant_ms"]
-    log(json.dumps({"kernels": entries, **slices, "sites": sites}))
+    log(json.dumps({"kernels": entries, **slices, "sites": sites,
+                    "forced_branches": forced}))
     print(json.dumps({"ok": True, "device": device}), flush=True)
     return 0
 
@@ -927,6 +983,177 @@ def phase_timestamps_ladder(tr, wave) -> dict:
                           for s, e, t in cold])
 
 
+def _forcing_hook(n_prompt: int, eot_id: int, eot_at=None):
+    """A logits_hook that fixes the tokens: at depth t (tokens after the
+    prompt) it adds 1e4 to text token 300 + 7 t, or to EOT once t reaches
+    eot_at(rows)[row]. Both paths then emit the same tokens whatever their
+    logits, each with log-prob 0 in f32 (the others' exp underflows)."""
+
+    def hook(x, tokens, seq_len):
+        depth = seq_len - n_prompt
+        rows = x.shape[0]
+        want = torch.full((rows,), 300 + 7 * depth, dtype=torch.long,
+                          device=x.device)
+        if eot_at is not None:
+            at = torch.tensor(eot_at(rows), device=x.device)
+            want = torch.where(at <= depth, eot_id, want)
+        return x.scatter_add(1, want[:, None],
+                             torch.full((rows, 1), 1e4, device=x.device))
+
+    return hook
+
+
+def _flat_hook(n_prompt: int, eot_id: int):
+    """A logits_hook that makes every allowed token equally likely: the
+    average log-prob is -log(allowed tokens), far below -1."""
+
+    def hook(x, tokens, seq_len):
+        return torch.where(torch.isfinite(x), torch.zeros_like(x), x)
+
+    return hook
+
+
+class _Hooked:
+    """Within `with`, the pipeline's decoders run with `make(n_prompt,
+    eot_id)` as their logits_hook (the pipeline itself takes none)."""
+
+    NAMES = (("transcribe", "beam_search"), ("transcribe", "greedy_decode"),
+             ("batch", "greedy_decode"), ("batch", "beam_search_batched"))
+
+    def __init__(self, make, eot_id: int):
+        import importlib
+
+        self.mods = {m: importlib.import_module(
+            f"whisper_tpu_torch.pipeline.{m}") for m in ("transcribe", "batch")}
+        self.make, self.eot_id = make, eot_id
+        self.saved = {}
+
+    def __enter__(self):
+        for m, name in self.NAMES:
+            fn = getattr(self.mods[m], name)
+            self.saved[(m, name)] = fn
+
+            def call(params, enc, prompt, cfg, *a, _fn=fn, **kw):
+                kw["logits_hook"] = self.make(int(prompt.shape[0]),
+                                              self.eot_id)
+                return _fn(params, enc, prompt, cfg, *a, **kw)
+
+            setattr(self.mods[m], name, call)
+        return self
+
+    def __exit__(self, *exc):
+        for (m, name), fn in self.saved.items():
+            setattr(self.mods[m], name, fn)
+
+
+def phase_forced_branches(params, tr, waves) -> dict:
+    """Decode branches random weights never reach, forced by logits hooks
+    over large-v2 windows, each run on the kernel path (launch counts read
+    around it) and on the plain path (attention="xla"), which must give the
+    same tokens:
+      rung 0    -- one window, beam 5 with the ladder (0, 0.2, 0.4): forced
+                   tokens (log-prob 0) and EOT at depth 10 pass the checks,
+                   so the window is accepted at T = 0 after one rung;
+      no speech -- one window, the ladder with no_speech_threshold -1: flat
+                   logits fail the log-prob check, so the no-speech gate
+                   skips the window at rung 0 (the gate reads the raw
+                   p(<|nospeech|>), which no hook changes and which random
+                   weights can round to 0 in f32, hence a threshold below
+                   any probability);
+      beam EOT  -- one window, beam 5, EOT forced on lane i from depth
+                   3 + 2 i: lanes finish at different steps;
+      batch EOT -- `transcribe_many` greedy over the two streams (their 4
+                   full windows as one batch, the tails alone), EOT forced
+                   on row i from depth 3 + 3 i: rows finish ragged."""
+    from whisper_tpu_torch.pipeline.batch import BatchTranscriber
+    from whisper_tpu_torch.pipeline.transcribe import (DecodeOptions,
+                                                       Transcriber)
+
+    cfg, tok = tr.cfg, tr.tok
+    # one full window; no overlap, so transcribe() cuts no second window
+    window = _full_windows(waves[:1], cfg, DecodeOptions())[0]
+    plain = Transcriber(tr.params, cfg, tok, attention="xla")
+    beam_eot = (lambda n, e: _forcing_hook(n, e, lambda rows: [
+        3 + 2 * i for i in range(rows)]))
+    batch_eot = (lambda n, e: _forcing_hook(n, e, lambda rows: [
+        3 + 3 * i for i in range(rows)]))
+    cases = {
+        "rung 0": (lambda n, e: _forcing_hook(n, e, lambda rows: [10] * rows),
+                   DecodeOptions(temperature=(0.0, 0.2, 0.4), max_depth=16,
+                                 chunk_overlap_seconds=0.0), [0.0]),
+        "no speech": (_flat_hook, DecodeOptions(
+            temperature=(0.0, 0.2), no_speech_threshold=-1.0, max_depth=8,
+            chunk_overlap_seconds=0.0), [0.0]),
+        "beam EOT": (beam_eot, DecodeOptions(max_depth=16,
+                                             chunk_overlap_seconds=0.0),
+                     None),
+    }
+    res = {}
+    for name, (make, opts, want_temps) in cases.items():
+        out = {}
+        for path, t in (("kernel", tr), ("plain", plain)):
+            accepted, quality = [], []
+            ladder = t._decode_window_ladder
+
+            def spy(*a, accepted=accepted, quality=quality, ladder=ladder,
+                    **kw):
+                got = ladder(*a, **kw)
+                accepted.append(got[1])
+                quality.append(got[2])
+                return got
+
+            t._decode_window_ladder = spy
+            try:
+                with _Hooked(make, tok.eot), torch.inference_mode():
+                    reset_counts()
+                    text, toks = t.transcribe(window, 16000, opts,
+                                              on_chunk=lambda i, x: None)
+                    torch.cuda.synchronize()
+                    counts = launch_counts()
+            finally:
+                del t._decode_window_ladder
+            out[path] = (toks, accepted, counts, quality)
+        (toks, accepted, counts, quality), ptoks = (out["kernel"],
+                                                     out["plain"][0])
+        if toks != ptoks:
+            raise AssertionError(f"forced {name}: kernel path tokens {toks} "
+                                 f"!= plain path tokens {ptoks}")
+        if want_temps is not None and accepted != want_temps:
+            raise AssertionError(f"forced {name}: accepted at {accepted}, "
+                                 f"expected {want_temps}")
+        if name == "no speech" and toks:
+            raise AssertionError(f"forced no speech: kept tokens {toks}")
+        if name != "no speech" and not toks:
+            raise AssertionError(f"forced {name}: no tokens")
+        launched = {k: v for k, v in counts.items() if v}
+        res[name] = dict(n_tokens=len(toks), accepted=accepted,
+                         quality=quality, launches=launched)
+        log(f"forced {name}: {len(toks)} tokens, accepted at {accepted} "
+            f"(avg_logprob, compression, p(nospeech): {quality}), equal on "
+            f"both paths; kernel path launches {launched}")
+    opts = DecodeOptions(strategy="greedy", max_depth=16)
+    texts = {}
+    for path, attention in (("kernel", "flash"), ("plain", "xla")):
+        bt = BatchTranscriber(tr.params, cfg, tok, batch_size=4,
+                              attention=attention)
+        with _Hooked(batch_eot, tok.eot):
+            reset_counts()
+            texts[path] = bt.transcribe_many(waves, 16000, opts)
+            torch.cuda.synchronize()
+            if path == "kernel":
+                counts = launch_counts()
+    if texts["kernel"] != texts["plain"]:
+        raise AssertionError("forced batch EOT: the kernel and plain paths' "
+                             "transcripts differ")
+    launched = {k: v for k, v in counts.items() if v}
+    res["batch EOT"] = dict(n_tokens=[len(t) for _, t in texts["kernel"]],
+                            launches=launched)
+    log(f"forced batch EOT: tokens per stream "
+        f"{res['batch EOT']['n_tokens']}, equal on both paths; kernel path "
+        f"launches {launched}")
+    return res
+
+
 def synthetic_speech(n_samples: int, seed: int) -> np.ndarray:
     """Speech-shaped synthetic audio: tones + amplitude bursts + noise."""
     rng = np.random.default_rng(seed)
@@ -1100,7 +1327,124 @@ def phase_quant_greedy(params, tr, wave) -> dict:
     start, end = info.pop("window")
     info["paths"] = compare_kernel_and_plain_paths(
         params, tr.cfg, tr.tok, wave[start:end], opts)
+    info["f32_reference"] = compare_quantized_to_f32(
+        params, tr.cfg, tr.tok, wave[start:end], opts)
     return info
+
+
+# The quantized greedy step against the same quantized model (the same
+# int8 weights and cache quantization) computed in f32 on the plain path:
+# relative L2 of the logits over a prefill and 8 steps, a bound tighter
+# than PATH_RTOL. It cannot tell the two dequant products apart (they land
+# within 3% of each other), so one matmul is also held at the bit level:
+# `_matmul` of a bf16 x with an int8 decoder weight against the product
+# in f64 times the scale, cast once to bf16. Kept in f32 until after the
+# scale, the product is within one bf16 step of that everywhere and equal
+# in more than DEQUANT_EQUAL_SHARE of the elements; rounded to bf16 before
+# the scale (the earlier path) it moves many elements by a step.
+QUANT_F32_RTOL = 3e-2
+DEQUANT_EQUAL_SHARE = 0.98
+
+
+def dequant_rounding(matmul, x, w) -> tuple:
+    """(share of elements equal to the once-rounded f64 product, whether
+    every element is within one bf16 step of it, plus the f32 sum's own
+    error bound K * 2^-24 * sum |terms| where the terms cancel) of
+    `matmul(x, w)` for a 2-D x and QTensor w."""
+    from whisper_tpu_torch.quantize import int_values
+
+    q = int_values(w.q).double()
+    want = ((x.double() @ q) * w.scale.double()).bfloat16().float()
+    f32_sum = (q.shape[0] * 2.0 ** -24
+               * (x.double().abs() @ q.abs() * w.scale.double()))
+    got = matmul(x, w, "xla").float()
+    return (float((got == want).float().mean()),
+            bool(((got - want).abs()
+                  <= 2 ** -7 * want.abs() + f32_sum).all()))
+
+
+def compare_quantized_to_f32(params, cfg_k, tok, window, opts) -> dict:
+    """One window through the quantized model three ways, all fed the f32
+    reference's greedy tokens: the f32 plain path (the reference), the
+    kernel path in bf16 (the product kept in f32), and the kernel path
+    with the bf16 product (the earlier dequant path: x @ q rounded to
+    bf16, then the f32 scale). Relative L2 of the prefill and step logits
+    against the reference; the first must be within QUANT_F32_RTOL. Then
+    `dequant_rounding` of both products on the first decoder layer's
+    mlp1_w (1280 x 5120) at 5 rows: the first must pass."""
+    import copy
+    import dataclasses
+
+    import whisper_tpu_torch.models.whisper as M
+    from whisper_tpu_torch.quantize import QTensor, int_values
+
+    current = M._matmul
+
+    def bf16_product(x, w, int8_impl="xla"):
+        if not (isinstance(w, QTensor) and x.dtype == torch.bfloat16
+                and int8_impl == "xla"):
+            return current(x, w, int8_impl)
+        q = int_values(w.q)
+        y = torch.matmul(x, q.to(x.dtype).reshape(q.shape[0], -1))
+        return (y.reshape(*x.shape[:-1], *q.shape[1:]) * w.scale).to(x.dtype)
+
+    dev = params["encoder"]["conv1_w"].device
+    with torch.inference_mode():
+        p32 = copy.deepcopy(params).float()
+        cfg32 = dataclasses.replace(cfg_k, attention="xla")
+        mel = _window_mel([window], cfg_k, opts, dev)
+        runs = {"f32": (p32, cfg32, current), "f32_product": (
+            params, cfg_k, current), "bf16_product": (
+            params, cfg_k, bf16_product)}
+        prompt = torch.tensor([tok.prompt_ids("en")], device=dev)
+        out, tokens = {}, []
+        for name, (pp, cc, mm) in runs.items():
+            M._matmul = mm
+            try:
+                enc = M.encoder_forward(pp, mel, cc)
+                cache = M.init_cache(pp, enc, cc, cache_len=128,
+                                     kv_quant=opts.kv_quant,
+                                     self_quant=opts.self_quant)
+                logits, _ = M.decoder_step(pp, prompt, 0, cache, cc)
+                out[name] = [logits[:, -1].float()]
+                pos = prompt.shape[1]
+                for i in range(8):
+                    if name == "f32":
+                        tokens.append(out[name][-1].argmax(-1)[:, None])
+                    logits, _ = M.decoder_step(pp, tokens[i], pos, cache, cc)
+                    out[name].append(logits[:, -1].float())
+                    pos += 1
+            finally:
+                M._matmul = current
+        del p32
+    ref = torch.stack(out["f32"])
+    res = {name: rel_err(torch.stack(out[name]), ref)
+           for name in ("f32_product", "bf16_product")}
+    log(f"quantized greedy window vs its f32 reference (relative L2 of the "
+        f"prefill + 8 step logits): f32 product {res['f32_product']:.4g} "
+        f"(limit {QUANT_F32_RTOL}), bf16 product (before) "
+        f"{res['bf16_product']:.4g}")
+    if not bool(torch.isfinite(torch.stack(out["f32_product"])).all()):
+        raise AssertionError("quantized logits are not finite")
+    if not res["f32_product"] <= QUANT_F32_RTOL:
+        raise AssertionError(f"quantized step vs f32 reference: {res}")
+    blk = params["decoder"]["blocks"]["mlp1_w"]
+    w = QTensor(blk.q[0], blk.scale[0])
+    x = _randn((5, w.q.shape[0]),
+               torch.Generator(device=dev).manual_seed(SEED))
+    for name, mm in (("f32_product", current), ("bf16_product", bf16_product)):
+        res[f"{name}_equal_share"], res[f"{name}_one_step"] = \
+            dequant_rounding(mm, x, w)
+    log(f"dequant matmul 5 x 1280 x 5120 vs the f64 product cast once: "
+        f"f32 product {res['f32_product_equal_share']:.4f} equal (limit > "
+        f"{DEQUANT_EQUAL_SHARE}), within one bf16 step "
+        f"{res['f32_product_one_step']}; bf16 product (before) "
+        f"{res['bf16_product_equal_share']:.4f} equal, within one step "
+        f"{res['bf16_product_one_step']}")
+    if not (res["f32_product_one_step"]
+            and res["f32_product_equal_share"] > DEQUANT_EQUAL_SHARE):
+        raise AssertionError(f"dequant product rounds more than once: {res}")
+    return res
 
 
 def phase_quant_beam(params, tr, wave) -> dict:

@@ -248,6 +248,19 @@ def test_transcribe_many_refuses_what_it_does_not_cover(setup):
         TB.BatchTranscriber(params, cfg, tok, batch_size=0, device="cpu")
 
 
+def test_transcribe_many_refuses_condition_on_previous_text(setup):
+    """JAX's transcribe_many ignores the option without a word; the port's
+    refuses it, before any window is decoded."""
+    params, _, cfg, tok, _ = setup
+    bt = TB.BatchTranscriber(params, cfg, tok, batch_size=2, device="cpu")
+    calls = []
+    bt._decode_batch = lambda *a, **kw: calls.append(a)
+    with pytest.raises(ValueError, match="condition_on_previous_text"):
+        bt.transcribe_many(_streams(), options=TT.DecodeOptions(
+            condition_on_previous_text=True))
+    assert calls == []
+
+
 def test_cli_transcribe_many_writes_the_files(setup, monkeypatch, capsys):
     params, _, cfg, tok, d = setup
     npy_tree.save_whisper(params, cfg, str(d / "dump"))

@@ -42,35 +42,52 @@ def _close(got, want, atol, rtol):
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
 
 
-@pytest.mark.parametrize("sq,sk,causal", [(100, 100, False), (130, 130, True),
-                                          (3, 77, False)])
-def test_flash_attention_kernel(gen, sq, sk, causal):
-    # v of mean 1: |out| near 1, so keys past Sk leaking into the softmax
-    # would shrink it well past the tolerance
-    q, k = _randn((2, sq, 256), gen), _randn((2, sk, 256), gen)
-    v = _randn((2, sk, 256), gen) + 1
+# (Sq, Sk, causal): the encoder's windows (S = 750, and 705 with 63 of the
+# last 128-key tile padded), the 4-window batch's length, a q-tile that is
+# almost all padding (Sq = 4 against 1500 keys), causal squares that end
+# inside a tile, and a ragged small case.
+FLASH_SHAPES = [(750, 750, False), (705, 705, False), (1500, 1500, False),
+                (4, 1500, False), (130, 130, True), (224, 224, True),
+                (3, 77, False)]
+
+
+@pytest.mark.parametrize("b", [1, 4])
+@pytest.mark.parametrize("sq,sk,causal", FLASH_SHAPES)
+def test_flash_attention_kernel(gen, b, sq, sk, causal):
+    """K1 on q/k/v that are the strided slices of one fused (B, S, 3, d)
+    projection (separate tensors where Sq != Sk). v of mean 1: |out| near
+    1, so keys past Sk leaking into the softmax would shrink it well past
+    the tolerance."""
+    heads, d = 4, 256
+    if sq == sk:
+        qkv = _randn((b, sq, 3, d), gen)
+        qkv[:, :, 2] += 1
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    else:
+        q, k = _randn((b, sq, d), gen), _randn((b, sk, d), gen)
+        v = _randn((b, sk, d), gen) + 1
     before = KA.attention_bhsd.launches
-    got = KA.attention_bhsd(q, k, v, 4, causal=causal)
+    got = KA.attention_bhsd(q, k, v, heads, causal=causal)
     assert KA.attention_bhsd.launches == before + 1
-    _close(got, KA.attention_bhsd_plain(q, k, v, 4, causal=causal),
+    _close(got, KA.attention_bhsd_plain(q, k, v, heads, causal=causal),
            KA.ATOL, KA.RTOL)
 
 
-@pytest.mark.parametrize("sq,sk,causal", [(100, 100, False), (130, 130, True),
-                                          (3, 77, False)])
-def test_legacy_flash_attention_kernel(gen, sq, sk, causal):
+@pytest.mark.parametrize("b", [1, 4])
+@pytest.mark.parametrize("sq,sk,causal", FLASH_SHAPES)
+def test_legacy_flash_attention_kernel(gen, b, sq, sk, causal):
     """K9 on (B, H, S, hd) views of (B, S, H, hd) projections (q
     pre-scaled), and through attention_bhsd(impl="legacy")."""
-    q = _randn((2, sq, 4, 64), gen, 0.125).transpose(1, 2)
-    k = _randn((2, sk, 4, 64), gen).transpose(1, 2)
-    v = (_randn((2, sk, 4, 64), gen) + 1).transpose(1, 2)
+    q = _randn((b, sq, 4, 64), gen, 0.125).transpose(1, 2)
+    k = _randn((b, sk, 4, 64), gen).transpose(1, 2)
+    v = (_randn((b, sk, 4, 64), gen) + 1).transpose(1, 2)
     before = KA.flash_attention.launches
     got = KA.flash_attention(q, k, v, causal)
     assert KA.flash_attention.launches == before + 1
-    assert got.shape == (2, 4, sq, 64) and got.dtype == torch.bfloat16
+    assert got.shape == (b, 4, sq, 64) and got.dtype == torch.bfloat16
     _close(got, KA.flash_attention_plain(q, k, v, causal), KA.ATOL, KA.RTOL)
-    x = _randn((2, sq, 256), gen)
-    kv = _randn((2, sk, 256), gen)
+    x = _randn((b, sq, 256), gen)
+    kv = _randn((b, sk, 256), gen)
     before_k1 = KA.attention_bhsd.launches
     got = KA.attention_bhsd(x, kv, kv + 1, 4, causal=causal, impl="legacy")
     assert KA.flash_attention.launches == before + 2
@@ -146,57 +163,136 @@ def test_decode_attention_kernel(gen, dtype, batch_major):
     _close(got, want, *KC.TOL[dtype])
 
 
+def _ragged_pos(gen, n_q, sa):
+    """A pos per q row in [0, sa), the first 0 and the last sa - 1."""
+    pos = torch.randint(0, sa, (n_q,), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    pos[0], pos[-1] = 0, sa - 1
+    return pos
+
+
+# K3g's shapes: R lanes a kv row (one group up to 8, two at 10 and 16), W
+# kv rows (windows), Sa rows of cache. With 4 heads the split planner gives
+# clusters of 4 blocks (2 at 33 windows; one block, a plain launch, at
+# Sa = 1 and 7); Sa = 1500 and 3000 leave each block more rows than one
+# 256-row TMA box holds.
+GROUP_SHAPES = [(rep, w, sa) for rep in (2, 5, 8, 10, 16) for w in (1, 4)
+                for sa in (1, 7, 750, 1500)] + [(5, 33, 1500), (5, 1, 3000)]
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("batch_major", [True, False])
-@pytest.mark.parametrize("rep", [2, 5])
-def test_decode_attention_group_kernel(gen, dtype, batch_major, rep):
-    """K3g: kv row j serves q rows [j*rep, (j+1)*rep); v of mean 1, so a
-    dropped mask shows."""
-    bk, n_layer, c, d = 3, 4, 50, 128
-    shape = (bk, n_layer, c, d) if batch_major else (n_layer, bk, c, d)
+@pytest.mark.parametrize("rep,w,sa", GROUP_SHAPES)
+def test_decode_attention_group_kernel(gen, dtype, batch_major, rep, w, sa):
+    """K3g: kv row j serves q rows [j*rep, (j+1)*rep), a ragged pos per q
+    row (0 included); v of mean 1, so a dropped mask shows."""
+    n_layer, d = 2, 256
+    shape = (w, n_layer, sa, d) if batch_major else (n_layer, w, sa, d)
     kc = _randn(shape, gen, dtype=dtype)
     vc = (_randn(shape, gen) + 1).to(dtype)
-    q = _randn((bk * rep, d), gen, 0.125, dtype=dtype)
-    pos = torch.tensor([0, 17, 39], dtype=torch.int32,
-                       device="cuda").repeat_interleave(rep)
+    q = _randn((w * rep, d), gen, 0.125, dtype=dtype)
+    pos = _ragged_pos(gen, w * rep, sa)
     before = (KC.decode_attention_stacked.launches,
               KC.decode_attention_stacked.group_launches)
-    got = KC.decode_attention_stacked(q, kc, vc, pos, 2, 2,
-                                      batch_major=batch_major, kv_rep=rep,
-                                      c_used=40)
+    got = KC.decode_attention_stacked(q, kc, vc, pos, 1, 4,
+                                      batch_major=batch_major, kv_rep=rep)
     assert (KC.decode_attention_stacked.launches,
             KC.decode_attention_stacked.group_launches) == (before[0],
                                                             before[1] + 1)
-    want = KC.decode_attention_stacked_plain(q, kc, vc, pos, 2, 2,
+    want = KC.decode_attention_stacked_plain(q, kc, vc, pos, 1, 4,
                                              batch_major=batch_major,
-                                             kv_rep=rep, c_used=40)
+                                             kv_rep=rep)
     _close(got, want, *KC.TOL[dtype])
 
 
 @pytest.mark.parametrize("storage", ["int8", "int4"])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("rep", [1, 5, 10, 16])
-def test_decode_attention_integer_cache_kernel(gen, storage, dtype, rep):
+@pytest.mark.parametrize("rep,w,sa", [(1, 2, 70)] + GROUP_SHAPES)
+def test_decode_attention_integer_cache_kernel(gen, storage, dtype, rep, w,
+                                               sa):
     """K3 (rep 1) and K3g over an int8 / packed-int4 layer-major cross
-    cache; rep 10 and 16 run two groups of lanes per kv row."""
-    bk, n_layer, c, d = 2, 3, 70, 128
+    cache, a ragged pos per q row (0 included); rep 10 and 16 run two
+    groups of lanes per kv row."""
+    n_layer, d = 2, 256
     lim = 7 if storage == "int4" else 127
-    kc, vc = (torch.randint(-lim, lim + 1, (n_layer, bk, c, d), generator=gen,
+    kc, vc = (torch.randint(-lim, lim + 1, (n_layer, w, sa, d), generator=gen,
                             device="cuda", dtype=torch.int8) for _ in "kv")
     if storage == "int4":
         kc, vc = pack_int4(kc), pack_int4(vc)
-    q = _randn((bk * rep, d), gen, 0.5 / lim, dtype=dtype)
-    pos = torch.tensor([c - 1, 33], dtype=torch.int32,
-                       device="cuda").repeat_interleave(rep)
+    q = _randn((w * rep, d), gen, 0.5 / lim, dtype=dtype)
+    pos = _ragged_pos(gen, w * rep, sa)
     counter = "launches" if rep == 1 else "group_launches"
     before = getattr(KC.decode_attention_stacked, counter)
-    got = KC.decode_attention_stacked(q, kc, vc, pos, 1, 2, kv_rep=rep)
+    got = KC.decode_attention_stacked(q, kc, vc, pos, 1, 4, kv_rep=rep)
     assert getattr(KC.decode_attention_stacked, counter) == before + 1
     assert got.dtype == dtype
-    want = KC.decode_attention_stacked_plain(q, kc, vc, pos, 1, 2,
+    want = KC.decode_attention_stacked_plain(q, kc, vc, pos, 1, 4,
                                              kv_rep=rep)
     atol, rtol = KC.TOL[dtype]
     _close(got, want, atol * (lim if dtype == torch.float32 else 1), rtol)
+
+
+@pytest.mark.parametrize("splits", [None, 1, 2, 8])
+@pytest.mark.parametrize("storage", ["bf16", "int4"])
+@pytest.mark.parametrize("rep,w,c,c_used", [(5, 4, 800, 750), (2, 3, 50, 40)])
+def test_decode_attention_group_kernel_c_used(gen, splits, storage, rep, w, c,
+                                              c_used):
+    """K3g reading only rows [0, c_used) of a longer cache, at the planner's
+    cluster size and at forced ones: pos runs from 0 past c_used (clamped
+    to its last row), and a bf16 cache's rows past c_used hold NaN, which
+    would reach the output if the kernel read them."""
+    n_layer, d = 2, 256
+    shape = (n_layer, w, c, d)
+    if storage == "bf16":
+        kc, vc = _randn(shape, gen), _randn(shape, gen) + 1
+        kc[:, :, c_used:], vc[:, :, c_used:] = float("nan"), float("nan")
+        q = _randn((w * rep, d), gen, 0.125)
+    else:
+        kc, vc = (pack_int4(torch.randint(-7, 8, shape, generator=gen,
+                                          device="cuda", dtype=torch.int8))
+                  for _ in "kv")
+        q = _randn((w * rep, d), gen, 0.5 / 7)
+    pos = _ragged_pos(gen, w * rep, c)
+    pos[1], pos[2] = c_used - 1, c_used
+    before = KC.decode_attention_stacked.group_launches
+    got = KC.decode_attention_stacked(q, kc, vc, pos, 1, 4, kv_rep=rep,
+                                      c_used=c_used, splits=splits)
+    assert KC.decode_attention_stacked.group_launches == before + 1
+    want = KC.decode_attention_stacked_plain(q, kc, vc, pos, 1, 4,
+                                             kv_rep=rep, c_used=c_used)
+    _close(got, want, *KC.TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("m", [1, 5, 750])
+def test_dequant_matmul_rounds_once_on_the_card(gen, bits, m):
+    """`_matmul(int8_impl="xla")` of a bf16 x with an int8 / packed-int4
+    QTensor keeps the product in f32 until after the scale: within one
+    bf16 step of the f64 product times the scale cast once (plus the f32
+    sum's own error bound, K * 2^-24 * sum |terms|, which matters only
+    where the terms cancel), and equal to it in more than 98% of the
+    elements. The earlier path, the product rounded to bf16 before the
+    scale, falls below that share."""
+    from whisper_tpu_torch.quantize import QTensor, int_values
+
+    k, n = 1280, 3840
+    lim = 2 ** (bits - 1) - 1
+    qi = torch.randint(-lim, lim + 1, (k, n), generator=gen, device="cuda",
+                       dtype=torch.int8)
+    scale = 0.001 + 0.01 * torch.rand(n, generator=gen, device="cuda")
+    w = QTensor(pack_int4(qi) if bits == 4 else qi, scale)
+    x = _randn((m, k), gen)
+    assert torch.equal(int_values(w.q), qi)
+    want = ((x.double() @ qi.double()) * scale.double()).bfloat16().float()
+    f32_sum = k * 2.0 ** -24 * (x.double().abs() @ qi.double().abs()
+                                * scale.double())
+    got = M._matmul(x, w, "xla")
+    assert got.dtype == torch.bfloat16 and got.shape == (m, n)
+    got = got.float()
+    assert bool(((got - want).abs() <= 2 ** -7 * want.abs() + f32_sum).all())
+    assert float((got == want).float().mean()) > 0.98
+    before = ((x @ qi.bfloat16()).float() * scale).bfloat16().float()
+    assert float((before == want).float().mean()) < 0.98
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

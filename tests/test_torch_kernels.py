@@ -238,3 +238,20 @@ def test_missing_nvcc_raises(monkeypatch):
     monkeypatch.setattr(_build.Path, "exists", lambda self: False)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build._nvcc()
+
+
+@pytest.mark.parametrize("n_head,n_kv,rep,c_used,splits", [
+    (20, 1, 5, 750, 4),    # large-v2 beam 5, one window: 80 blocks
+    (20, 6, 5, 750, 4),    # six windows: 480 blocks
+    (20, 7, 5, 750, 2),    # seven: 280 blocks
+    (20, 14, 5, 750, 1),   # fourteen already put 280 blocks in flight
+    (20, 1, 16, 750, 4),   # two groups of 8 lanes: 160 blocks
+    (20, 1, 5, 300, 2),    # at least 96 rows a block
+    (20, 1, 5, 191, 1),    # too few rows to split
+    (20, 1, 5, 1, 1),
+    (4, 33, 5, 1500, 2),   # 132 blocks, doubled
+])
+def test_k3g_split_plan(n_head, n_kv, rep, c_used, splits):
+    """K3g's cluster size: the least power of two that puts 264 blocks in
+    flight, capped at 4 and at 96 rows a block."""
+    assert KC.plan_splits(n_head, n_kv, rep, c_used) == splits

@@ -180,6 +180,32 @@ def test_int4_weights_under_pallas_raise():
     assert TM._matmul(x, tw, "xla").shape == (3, 256)  # dequant path
 
 
+@pytest.mark.parametrize("bits", [8, 4])
+def test_dequant_matmul_keeps_f32_product(bits):
+    """int8_impl="xla" with a bf16 x: the product stays f32 until after the
+    scale, as JAX's `preferred_element_type=f32` keeps it, so the port
+    equals JAX's `_matmul` up to the one final bf16 rounding (at most one
+    bf16 step, 2^-7 relative)."""
+    rng = np.random.default_rng(bits)
+    k, n_shape = 128, (3, 64)
+    w = rng.standard_normal((k, *n_shape)).astype(np.float32) * 0.05
+    lim = 2 ** (bits - 1) - 1
+    scale = np.abs(w).max(axis=0) / lim
+    q = np.clip(np.round(w / scale), -lim, lim).astype(np.int8)
+    jw = JQ.QTensor(jnp.asarray(q, jnp.int4 if bits == 4 else jnp.int8),
+                    jnp.asarray(scale))
+    tq = torch.from_numpy(q)
+    tw = TQ.QTensor(TQ.pack_int4(tq) if bits == 4 else tq,
+                    torch.from_numpy(scale))
+    x = rng.standard_normal((2, 5, k)).astype(np.float32)
+    xj = jnp.asarray(x, jnp.bfloat16)
+    want = _f32(JM._matmul(xj, jw))
+    got = TM._matmul(torch.from_numpy(_f32(xj)).bfloat16(), tw, "xla")
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    np.testing.assert_allclose(_f32(got), want, rtol=2 ** -7, atol=1e-6)
+    assert np.mean(_f32(got) == want) > 0.98
+
+
 def test_kernel_knobs():
     assert tcfg.WhisperConfig().knobs.int8_impl == "xla"
     for impl in ("w8a8", "auto"):

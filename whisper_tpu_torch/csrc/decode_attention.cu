@@ -43,7 +43,11 @@
 // visible prefix (n = min(pos + 1, c_used) rows) and storing fewer bits are
 // what the design does about it; a split over Sa for B = 1 (only B * 20
 // blocks) is later work.
+#include <cooperative_groups.h>
+
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -55,6 +59,7 @@ constexpr int LPR = HD / CPT;      // threads per row of one head
 constexpr int RPW = 32 / LPR;      // rows a warp reads at once
 constexpr int RPB = RPW * WARPS;   // rows the block reads at once
 constexpr int GROUP = 8;           // most q lanes one K3g block holds
+constexpr int MAX_SPLITS = 8;      // most blocks of a K3g cluster (portable)
 
 struct Int4 {};  // storage tag: packed int4 in uint8
 
@@ -238,44 +243,118 @@ decode_attention_kernel(const Q* __restrict__ q, const typename Store<S>::E* __r
 // _decode_attn_stacked_group_kernel (and its `_attend_group`), plus the f32
 // per-lane kv_rep path of _decode_attn_stacked_kernel. Same numerics as the
 // kernel above, lane by lane: exact f32 scores of each pre-scaled query,
-// rows past that lane's pos masked, f32 softmax, weights rounded once to
-// bf16 for a bf16 query (f32 otherwise), f32 value sum, output in the
-// query's type. Any R >= 2, as the TPU kernel.
+// rows past that lane's pos masked, f32 softmax, each weight
+// round_bf16(exp(s - m) / sum) for a bf16 query (f32 otherwise) with the
+// lane's global max m and sum, f32 value sum, output in the query's type.
+// Any R >= 2, as the TPU kernel. Only the order of the f32 sums differs
+// from the plain version.
 //
-// Bound on the H100: device-memory bandwidth. R lanes per kv row read the
-// same K/V rows, so the per-lane kernel would stream the window's cross
-// cache R times; at large-v2 beam 5 one layer's cross K+V is
-// 2 * 750 * 1280 * 2 B = 3.84 MB per window in bf16 (1.92 MB int8, 0.96 MB
-// int4), ~1.15 us at 3.35 TB/s, against 5x that per lane. The design reads
-// each visible K and V row of a head once per block and scores it against
-// the block's G <= 8 queries held in registers; the block keeps G score rows
-// in shared memory and one warp runs each lane's softmax. R > 8 lanes split
-// into ceil(R / 8) groups of G = ceil(R / groups), one block per (head, kv
-// row, group): each group reads the rows again (from L2 after the first),
-// and registers and shared memory stay bounded for any R.
+// Bound on the H100: device-memory bandwidth, and at one window latency.
+// R lanes per kv row read the same K/V rows, so the per-lane kernel would
+// stream the window's cross cache R times; at large-v2 beam 5 one layer's
+// cross K+V is 2 * 750 * 1280 * 2 B = 3.84 MB per window in bf16 (1.92 MB
+// int8, 0.96 MB int4), ~1.15 us at 3.35 TB/s. One block per (head, kv row)
+// gives only 20 blocks at one window: 20 SMs of 132, each walking its 750
+// rows with one 16-byte load a thread in flight, so the kernel waited on
+// latency at ~6% of that bound. The design:
+//   * R > 8 lanes split into ceil(R / 8) groups of G = ceil(R / groups)
+//     lanes (registers and shared memory bounded for any R); each block
+//     scores its rows against its group's G queries held in registers;
+//   * the visible rows of a (head, kv row, group) are split over a thread
+//     block cluster of `splits` blocks (<= 8; the host's plan takes <= 4,
+//     at least 32 rows a block, until ~264 blocks are in flight: 4 up to
+//     four windows of large-v2, 2 at eight), each taking a contiguous
+//     chunk of ~Sa / splits rows;
+//   * a block brings its chunk's K and V rows of its head into shared memory
+//     as one TMA box each (`cp.async.bulk.tensor`, a byte-typed map of the
+//     stacked cache built on the host), both in flight at once, V's while
+//     the scores are computed (a chunk over 256 rows, a box's limit, goes
+//     in boxes: K's for the scores, then V's for the value sums). One copy
+//     per row, tried first, left the TMA unit's per-copy rate as the limit
+//     at 375-row chunks;
+//   * the cluster combines through distributed shared memory, three
+//     cluster barriers in all: each block stores its G local maxima into
+//     every block, then its G local exp-sums against the global maxima;
+//     every block forms each weight with the global max and sum; each
+//     block stores its G x 64 partial value sums into rank 0, which adds
+//     them and writes the output.
+// One launch per call, as before: the decode step is bound by host
+// launches, so a second combine kernel would cost more than the split
+// saves. A block whose chunk holds no visible row of a lane contributes
+// max -inf, sum 0 and value 0 for it.
 template <typename S, typename Q, int G>
 __global__ void __launch_bounds__(THREADS)
-decode_attention_group_kernel(const Q* __restrict__ q, const typename Store<S>::E* __restrict__ k,
-                              const typename Store<S>::E* __restrict__ v,
-                              const int* __restrict__ pos, Q* __restrict__ out, int R,
-                              int c_used, int layer, const Strides st) {
+decode_attention_group_kernel(const Q* __restrict__ q, const int* __restrict__ pos,
+                              Q* __restrict__ out, int R, int c_used, int layer, const Strides st,
+                              const __grid_constant__ CUtensorMap k_map,
+                              const __grid_constant__ CUtensorMap v_map, int chunk_cap,
+                              int box_rows) {
   using ST = Store<S>;
   using E = typename ST::E;
+  constexpr int ROW_E = HD / ST::CPE;                  // stored elements of a head's row
+  constexpr int ROW_BYTES = ROW_E * (int)sizeof(E);    // 128, 256, 64 or 32
 
-  extern __shared__ float scores[];  // [G][c_used]
+  cg::cluster_group cluster = cg::this_cluster();
+  const int splits = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  // A block may store into another's shared memory only once that block
+  // runs: arrive now, wait before the first such store. A cluster of one
+  // block (a plain launch) needs no cluster barrier at all.
+  auto cluster_sync = [&]() {
+    if (splits > 1) cluster.sync();
+    else __syncthreads();
+  };
+  if (splits > 1) asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+
+  extern __shared__ unsigned char dyn_raw[];
+  // TMA writes to 128-byte aligned shared memory
+  unsigned char* dyn = dyn_raw + ((128 - (wtt::smem_u32(dyn_raw) & 127)) & 127);
+  const int piece = box_rows;  // rows a staging buffer holds: one TMA box
+  E* kbuf = reinterpret_cast<E*>(dyn);                        // [piece][ROW_E]
+  E* vbuf = reinterpret_cast<E*>(dyn + piece * ROW_BYTES);    // [piece][ROW_E]
+  float* scores = reinterpret_cast<float*>(dyn + 2 * piece * ROW_BYTES);  // [G][chunk_cap]
   __shared__ float sq[G * HD];
   __shared__ int sn[G];
   __shared__ float part[G * WARPS * HD];
+  // What the cluster's blocks push into each other's shared memory: every
+  // rank's G local maxima and exp-sums, and (rank 0's copy only) every
+  // rank's G x 64 value sums.
+  __shared__ float all_max[MAX_SPLITS][G], all_sum[MAX_SPLITS][G];
+  __shared__ float gathered[MAX_SPLITS * G * HD];
+  __shared__ __align__(8) uint64_t bars[2];  // K and V staging
 
   const int h = blockIdx.x;
-  const int j = blockIdx.y;           // kv row
-  const int r0 = blockIdx.z * G;      // first lane of this block's group
-  const int ng = min(G, R - r0);      // live lanes of the group
+  const int j = blockIdx.y;               // kv row
+  const int r0 = (blockIdx.z / splits) * G;  // first lane of this block's group
+  const int ng = min(G, R - r0);          // live lanes of the group
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int sub = lane % LPR;
   const int rin = lane / LPR;
 
+  // This block's rows [rb, re): its chunk of the c_used rows, known before
+  // pos is read, so the copies start first. Rows past every lane's pos are
+  // neither scored nor summed.
+  const int rb = min(c_used, rank * chunk_cap);
+  const int re = min(c_used, rb + chunk_cap);
+  // Stage rows [p0, p0 + piece) of this head into buf: one TMA box (the map
+  // is (row bytes, rows, kv rows, layers) in bytes; rows past c_used arrive
+  // as zeros and are never read).
+  auto stage = [&](E* buf, uint64_t* bar, const CUtensorMap* map, int p0) {
+    if (threadIdx.x == 0) {
+      wtt::mbar_expect_tx(bar, (uint32_t)(piece * ROW_BYTES));
+      wtt::tma_load_4d(buf, map, bar, h * ROW_BYTES, p0, j, layer);
+    }
+  };
+  if (threadIdx.x == 0) {
+    wtt::mbar_init(&bars[0], 1);
+    wtt::mbar_init(&bars[1], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    if (rb < re) {
+      stage(kbuf, &bars[0], &k_map, rb);
+      stage(vbuf, &bars[1], &v_map, rb);  // lands during the scores
+    }
+  }
   for (int t = threadIdx.x; t < G * HD; t += THREADS) {
     const int g = t / HD;
     sq[t] = g < ng ? wtt::to_f32(q[(long long)(j * R + r0 + g) * st.q_sb + h * HD + t % HD])
@@ -283,14 +362,13 @@ decode_attention_group_kernel(const Q* __restrict__ q, const typename Store<S>::
   }
   if (threadIdx.x < G)
     sn[threadIdx.x] = threadIdx.x < ng ? min(pos[j * R + r0 + threadIdx.x] + 1, c_used) : 0;
-  const int choff = (h * HD + sub * CPT) / ST::CPE;
-  const E* kb = k + j * st.k_lane + layer * st.k_layer + choff;
-  const E* vb = v + j * st.v_lane + layer * st.v_layer + choff;
   __syncthreads();
 
   int n_max = 0;
 #pragma unroll
   for (int g = 0; g < G; ++g) n_max = max(n_max, sn[g]);
+  const int rv = min(re, n_max);  // end of the rows some lane sees
+  uint32_t k_phase = 0, v_phase = 0;
 
   float qv[G][CPT];
 #pragma unroll
@@ -298,58 +376,94 @@ decode_attention_group_kernel(const Q* __restrict__ q, const typename Store<S>::
 #pragma unroll
     for (int e = 0; e < CPT; ++e) qv[g][e] = sq[g * HD + sub * CPT + e];
 
-  // Scores: each K row is loaded once and dotted with all G queries.
-  for (int base = 0; base < n_max; base += RPB) {
-    const int c = base + warp * RPW + rin;
-    float kv[CPT];
+  // Scores: each staged K row is read once and dotted with all G queries.
+  for (int p0 = rb; p0 < re; p0 += piece) {
+    const int n = max(0, min(piece, rv - p0));
+    if (p0 > rb) {
+      __syncthreads();  // every thread is done with the previous piece
+      stage(kbuf, &bars[0], &k_map, p0);
+    }
+    wtt::mbar_wait(&bars[0], k_phase);
+    k_phase ^= 1;
+    for (int base = 0; base < n; base += RPB) {
+      const int c = base + warp * RPW + rin;
+      float kv[CPT];
 #pragma unroll
-    for (int e = 0; e < CPT; ++e) kv[e] = 0.f;
-    if (c < n_max) ST::load8(kb + c * st.k_row, kv);
+      for (int e = 0; e < CPT; ++e) kv[e] = 0.f;
+      if (c < n) ST::load8(kbuf + c * ROW_E + (sub * CPT) / ST::CPE, kv);
 #pragma unroll
-    for (int g = 0; g < G; ++g) {
-      float dot = 0.f;
+      for (int g = 0; g < G; ++g) {
+        float dot = 0.f;
 #pragma unroll
-      for (int e = 0; e < CPT; ++e) dot += qv[g][e] * kv[e];
+        for (int e = 0; e < CPT; ++e) dot += qv[g][e] * kv[e];
 #pragma unroll
-      for (int o = LPR / 2; o > 0; o >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, o);
-      if (c < n_max && sub == 0) scores[g * c_used + c] = dot;
+        for (int o = LPR / 2; o > 0; o >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, o);
+        if (c < n && sub == 0) scores[g * chunk_cap + p0 - rb + c] = dot;
+      }
     }
   }
   __syncthreads();
 
-  // Softmax: one warp per lane g; rows past that lane's pos weigh 0.
+  // Softmax across the cluster: one warp per lane g; rows past that lane's
+  // pos weigh 0. First the global max, then the global sum against it.
+  if (splits > 1) asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
   for (int g = warp; g < G; g += WARPS) {
-    float* sr = scores + g * c_used;
-    const int n = sn[g];
+    const float* sr = scores + g * chunk_cap - rb;
+    const int n = min(re, sn[g]);
     float mx = -INFINITY;
-    for (int c = lane; c < n; c += 32) mx = fmaxf(mx, sr[c]);
+    for (int c = rb + lane; c < n; c += 32) mx = fmaxf(mx, sr[c]);
     mx = wtt::warp_max(mx);
+    if (lane < splits) *cluster.map_shared_rank(&all_max[rank][g], lane) = mx;
+  }
+  cluster_sync();
+  for (int g = warp; g < G; g += WARPS) {
+    float* sr = scores + g * chunk_cap - rb;
+    const int n = min(re, sn[g]);
+    float mg = -INFINITY;
+    for (int r = 0; r < splits; ++r) mg = fmaxf(mg, all_max[r][g]);
     float sum = 0.f;
-    for (int c = lane; c < n; c += 32) {
-      const float p = expf(sr[c] - mx);
+    for (int c = rb + lane; c < n; c += 32) {
+      const float p = expf(sr[c] - mg);
       sr[c] = p;
       sum += p;
     }
     sum = wtt::warp_sum(sum);
-    for (int c = lane; c < n; c += 32) sr[c] = weight<Q>(sr[c] / sum);
-    for (int c = n + lane; c < n_max; c += 32) sr[c] = 0.f;
+    if (lane < splits) *cluster.map_shared_rank(&all_sum[rank][g], lane) = sum;
+  }
+  cluster_sync();
+  for (int g = warp; g < G; g += WARPS) {
+    float* sr = scores + g * chunk_cap - rb;
+    const int n = min(re, sn[g]);
+    float sum = 0.f;
+    for (int r = 0; r < splits; ++r) sum += all_sum[r][g];
+    for (int c = rb + lane; c < n; c += 32) sr[c] = weight<Q>(sr[c] / sum);
+    for (int c = max(n, rb) + lane; c < re; c += 32) sr[c] = 0.f;
   }
   __syncthreads();
 
-  // Weighted value sums: each V row is loaded once for all G lanes.
+  // Weighted value sums: each staged V row is read once for all G lanes.
   float acc[G][CPT];
 #pragma unroll
   for (int g = 0; g < G; ++g)
 #pragma unroll
     for (int e = 0; e < CPT; ++e) acc[g][e] = 0.f;
-  for (int c = warp * RPW + rin; c < n_max; c += RPB) {
-    float vv[CPT];
-    ST::load8(vb + c * st.v_row, vv);
+  for (int p0 = rb; p0 < re; p0 += piece) {
+    const int n = max(0, min(piece, rv - p0));
+    if (p0 > rb) {
+      __syncthreads();
+      stage(vbuf, &bars[1], &v_map, p0);
+    }
+    wtt::mbar_wait(&bars[1], v_phase);
+    v_phase ^= 1;
+    for (int c = warp * RPW + rin; c < n; c += RPB) {
+      float vv[CPT];
+      ST::load8(vbuf + c * ROW_E + (sub * CPT) / ST::CPE, vv);
 #pragma unroll
-    for (int g = 0; g < G; ++g) {
-      const float w = scores[g * c_used + c];
+      for (int g = 0; g < G; ++g) {
+        const float w = scores[g * chunk_cap + p0 - rb + c];
 #pragma unroll
-      for (int e = 0; e < CPT; ++e) acc[g][e] += w * vv[e];
+        for (int e = 0; e < CPT; ++e) acc[g][e] += w * vv[e];
+      }
     }
   }
 #pragma unroll
@@ -366,18 +480,30 @@ decode_attention_group_kernel(const Q* __restrict__ q, const typename Store<S>::
       for (int e = 0; e < CPT; ++e) part[(g * WARPS + warp) * HD + sub * CPT + e] = acc[g][e];
   }
   __syncthreads();
+  float* to_rank0 = cluster.map_shared_rank(gathered, 0) + rank * G * HD;
   for (int t = threadIdx.x; t < ng * HD; t += THREADS) {
     const int g = t / HD, ch = t % HD;
     float s = 0.f;
 #pragma unroll
     for (int w = 0; w < WARPS; ++w) s += part[(g * WARPS + w) * HD + ch];
-    out[(long long)(j * R + r0 + g) * st.o_sb + h * HD + ch] = wtt::from_f32<Q>(s);
+    to_rank0[t] = s;
+  }
+  // After this barrier no block touches another's shared memory, so every
+  // block but rank 0 may leave.
+  cluster_sync();
+  if (rank == 0) {
+    for (int t = threadIdx.x; t < ng * HD; t += THREADS) {
+      float s = 0.f;
+      for (int r = 0; r < splits; ++r) s += gathered[r * G * HD + t];
+      const int g = t / HD, ch = t % HD;
+      out[(long long)(j * R + r0 + g) * st.o_sb + h * HD + ch] = wtt::from_f32<Q>(s);
+    }
   }
 }
 
-// Static plus dynamic shared memory above 48 KB needs the opt-in. The
-// kernels here hold at most 19 KB statically (K3g at 8 lanes), so a dynamic
-// size up to 16 KB never does; above it, opt in to exactly that size.
+// Static plus dynamic shared memory above 48 KB needs the opt-in. The K3
+// kernel holds under 3 KB statically, so a dynamic size up to 16 KB never
+// does; above it, opt in to exactly that size.
 int set_smem(const void* kernel, size_t bytes) {
   if (bytes <= 16 * 1024) return (int)cudaSuccess;
   return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -399,23 +525,77 @@ int launch(const void* q, const void* k, const void* v, const int* pos, const vo
   return (int)cudaGetLastError();
 }
 
+// K3g's launch: `splits` blocks of a cluster share the rows of each
+// (head, kv row, group). A block stages its chunk of ceil(c_used / splits)
+// rows (rounded up to 8) as one TMA box of at most 256 rows a tensor; a
+// larger chunk goes in boxes of 256. Dynamic shared memory: the K and V
+// boxes, the G score rows of a chunk, and 128 B of alignment slack.
+constexpr int MAX_BOX_ROWS = 256;  // a TMA box dimension's limit
+constexpr int SMEM_LIMIT = 227 * 1024;
+constexpr int GROUP_STATIC = 40 * 1024;  // K3g's static shared memory, rounded up
+
+// A byte-typed 4-D map (row bytes, rows, kv rows, layers) of a stacked
+// cache with the given strides in bytes, and a box of one head's `rows`.
+bool cache_map(CUtensorMap* map, const void* base, int H, int row_bytes, int c_used, int n_kv,
+               int layer, long long row, long long lane, long long lay, int rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)H * row_bytes, (cuuint64_t)c_used, (cuuint64_t)n_kv,
+                              (cuuint64_t)layer + 1};
+  const cuuint64_t strides[3] = {(cuuint64_t)row, (cuuint64_t)lane, (cuuint64_t)lay};
+  const cuuint32_t box[4] = {(cuuint32_t)row_bytes, (cuuint32_t)rows, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return wtt::encode_tiled()(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 4, const_cast<void*>(base), dims,
+                             strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                             CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 template <typename S, typename Q, int G>
 int launch_group(const void* q, const void* k, const void* v, const int* pos, void* out, int B,
-                 int R, int H, int c_used, int layer, const Strides& st, cudaStream_t stream) {
+                 int R, int H, int c_used, int layer, int splits, const Strides& st,
+                 cudaStream_t stream) {
   using E = typename Store<S>::E;
+  constexpr int es = (int)sizeof(E);
+  constexpr int row_bytes = HD / Store<S>::CPE * es;
   auto kernel = decode_attention_group_kernel<S, Q, G>;
-  const size_t smem = (size_t)G * c_used * sizeof(float);
-  const int err = set_smem((const void*)kernel, smem);
-  if (err != cudaSuccess) return err;
-  const int groups = (R + G - 1) / G;
-  kernel<<<dim3(H, B / R, groups), THREADS, smem, stream>>>(
-      (const Q*)q, (const E*)k, (const E*)v, pos, (Q*)out, R, c_used, layer, st);
+  const int chunk_cap = (c_used + splits - 1) / splits;
+  const int box_rows = min(MAX_BOX_ROWS, (chunk_cap + 7) / 8 * 8);
+  const int smem = 128 + 2 * box_rows * row_bytes + G * chunk_cap * (int)sizeof(float);
+  if (smem > SMEM_LIMIT - GROUP_STATIC || wtt::encode_tiled() == nullptr)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap km, vm;
+  if (!cache_map(&km, k, H, row_bytes, c_used, B / R, layer, st.k_row * es, st.k_lane * es,
+                 st.k_layer * es, box_rows) ||
+      !cache_map(&vm, v, H, row_bytes, c_used, B / R, layer, st.v_row * es, st.v_lane * es,
+                 st.v_layer * es, box_rows))
+    return (int)cudaErrorInvalidValue;
+  static int opted = 48 * 1024 - GROUP_STATIC;  // this instantiation's dynamic limit so far
+  if (smem > opted) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    opted = smem;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(H, B / R, ((R + G - 1) / G) * splits);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = splits;
+  cfg.attrs = attr;
+  cfg.numAttrs = splits > 1;  // one block a cluster: a plain launch
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, (const Q*)q, pos, (Q*)out, R, c_used,
+                                             layer, st, km, vm, chunk_cap, box_rows);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
 template <typename S, typename Q>
-int dispatch(int rep, const void* q, const void* k, const void* v, const int* pos, void* out,
-             int B, int H, int c_used, int layer, const Strides& st, cudaStream_t s) {
+int dispatch(int rep, int splits, const void* q, const void* k, const void* v, const int* pos,
+             void* out, int B, int H, int c_used, int layer, const Strides& st, cudaStream_t s) {
   if (rep == 1)
     return launch<S, Q, false>(q, k, v, pos, nullptr, nullptr, out, B, H, c_used, layer, st, s);
   // R lanes in ceil(R / GROUP) groups of G = ceil(R / groups) <= GROUP
@@ -423,7 +603,7 @@ int dispatch(int rep, const void* q, const void* k, const void* v, const int* po
   const int g = (rep + groups - 1) / groups;
 #define WTT_GROUP(G) \
   case G:            \
-    return launch_group<S, Q, G>(q, k, v, pos, out, B, rep, H, c_used, layer, st, s);
+    return launch_group<S, Q, G>(q, k, v, pos, out, B, rep, H, c_used, layer, splits, st, s);
   switch (g) {
     WTT_GROUP(2)
     WTT_GROUP(3)
@@ -442,18 +622,20 @@ int dispatch(int rep, const void* q, const void* k, const void* v, const int* po
 
 // Strides are in stored elements (bytes for int8 and packed int4); the lane
 // strides step over kv rows. B is the number of q rows, rep the q rows per
-// kv row (1: the per-lane K3 kernel, >= 2: the grouped K3g kernel).
-// storage: 0 bf16, 1 f32, 2 int8, 3 packed int4; q_f32 selects an f32
+// kv row (1: the per-lane K3 kernel, >= 2: the grouped K3g kernel), splits
+// the cluster size K3g splits each kv row's visible rows over (1..8; K3
+// ignores it). storage: 0 bf16, 1 f32, 2 int8, 3 packed int4; q_f32 selects an f32
 // query and output (else bf16). ks/vs (K3s): null, or the int8 cache's f32
 // row scales with strides s_lane/s_layer (rep must be 1).
 extern "C" int wtt_decode_attention(const void* q, const void* k, const void* v,
                                     const void* pos, void* out, const void* ks, const void* vs,
-                                    int B, int H, int rep, int c_used, int layer, int storage,
-                                    int q_f32, long long q_sb, long long k_lane,
+                                    int B, int H, int rep, int splits, int c_used, int layer,
+                                    int storage, int q_f32, long long q_sb, long long k_lane,
                                     long long k_layer, long long k_row, long long v_lane,
                                     long long v_layer, long long v_row, long long s_lane,
                                     long long s_layer, long long o_sb, void* stream) {
-  if (rep < 1 || B % rep || c_used < 1 || B < 1 || B / rep > 65535)
+  if (rep < 1 || B % rep || c_used < 1 || B < 1 || B / rep > 65535 || splits < 1 ||
+      splits > MAX_SPLITS)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const int* p = (const int*)pos;
@@ -468,16 +650,16 @@ extern "C" int wtt_decode_attention(const void* q, const void* k, const void* v,
   switch (storage) {
     case 0:
       if (q_f32) return (int)cudaErrorInvalidValue;
-      return dispatch<bf16, bf16>(rep, q, k, v, p, out, B, H, c_used, layer, st, s);
+      return dispatch<bf16, bf16>(rep, splits, q, k, v, p, out, B, H, c_used, layer, st, s);
     case 1:
       if (!q_f32) return (int)cudaErrorInvalidValue;
-      return dispatch<float, float>(rep, q, k, v, p, out, B, H, c_used, layer, st, s);
+      return dispatch<float, float>(rep, splits, q, k, v, p, out, B, H, c_used, layer, st, s);
     case 2:
-      return q_f32 ? dispatch<int8_t, float>(rep, q, k, v, p, out, B, H, c_used, layer, st, s)
-                   : dispatch<int8_t, bf16>(rep, q, k, v, p, out, B, H, c_used, layer, st, s);
+      return q_f32 ? dispatch<int8_t, float>(rep, splits, q, k, v, p, out, B, H, c_used, layer, st, s)
+                   : dispatch<int8_t, bf16>(rep, splits, q, k, v, p, out, B, H, c_used, layer, st, s);
     case 3:
-      return q_f32 ? dispatch<Int4, float>(rep, q, k, v, p, out, B, H, c_used, layer, st, s)
-                   : dispatch<Int4, bf16>(rep, q, k, v, p, out, B, H, c_used, layer, st, s);
+      return q_f32 ? dispatch<Int4, float>(rep, splits, q, k, v, p, out, B, H, c_used, layer, st, s)
+                   : dispatch<Int4, bf16>(rep, splits, q, k, v, p, out, B, H, c_used, layer, st, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -1,221 +1,378 @@
-// Encoder self-attention on the natural (B, S, d) layout, FlashAttention-2
-// style: one block per (q-tile, head, batch), an online softmax over K/V
-// tiles, bf16 tensor-core products (WMMA m16n16k16) with f32 accumulation.
+// Encoder self-attention on the natural (B, S, d) layout for Hopper: a
+// warp-specialised FlashAttention-3-shaped kernel (TMA copies into a ring
+// of shared-memory stages, wgmma products, the online softmax in
+// registers). Head dim 64, bf16 in and out, f32 accumulation.
 //
 // Replaces: whisper_tpu/ops/pallas/flash_attention.py::_attn_bsd_kernel
-// (entry attention_bhsd -> _attention_bsd). The TPU kernel keeps a head's
-// whole K and V resident in VMEM and normalises p before PV. At S = 1500,
-// hd = 64 one head's K+V is 384 KB of bf16, over the 227 KB of shared
-// memory a Hopper block can use, so this kernel streams 64-key tiles and
-// rescales a running f32 output instead (normalising once at the end).
+// (K1, entry attention_bhsd -> _attention_bsd) and ::_attn_kernel (K9,
+// entry flash_attention, the legacy (B, H, S, hd) path). The TPU kernel
+// keeps a head's whole K and V resident in VMEM and normalises p before PV.
+// At S = 1500, hd = 64 one head's K+V is 384 KB of bf16, over the 227 KB of
+// shared memory a Hopper block can use, so this kernel streams 128-key
+// tiles and rescales a running f32 output instead (normalising once at the
+// end).
 //
-// Bound on the H100 at large-v2 (B = 1, S = 1500, d = 1280, 20 heads):
-// 4 * S^2 * d = 11.5 GFLOP per layer against 3 * S * d * 2 B = 11.5 MB of
-// q/k/v (plus K/V re-read once per q-tile from L2: 24 tiles * 7.7 MB), so
-// it is compute-bound on the tensor cores. This first version runs WMMA
-// from shared memory with synchronous tile loads; TMA, wgmma and a
-// producer warp are later work.
+// What bounds it on the H100: 4 * S^2 * d FLOP against 3 * S * d * 2 B of
+// q/k/v. At large-v2 (B = 1, S = 750, d = 1280, 20 heads) that is
+// 2.9 GFLOP against 5.8 MB, ~500 FLOP a byte, above the card's ~295 for
+// bf16: the tensor cores bound it, and only wgmma reaches their rate.
+// What the design does about it:
+//   * one block per (128 query rows, head, batch): 120 blocks at B = 1,
+//     S = 750, one wave on 132 SMs;
+//   * a producer warpgroup (its first thread issues every copy) and two
+//     consumer warpgroups of 64 query rows each; `setmaxnreg` moves the
+//     producer to 24 registers and the consumers to 240;
+//   * Q is loaded once, and K/V tiles of 128 keys stream through a ring of
+//     STAGES shared-memory stages, each with a full and an empty mbarrier,
+//     by `cp.async.bulk.tensor` (TMA) with the 128-byte swizzle: a 64-wide
+//     bf16 row is exactly 128 bytes, the layout the wgmma descriptors read;
+//     the copies of later tiles overlap the math of the current one;
+//   * S = Q K^T is `wgmma.mma_async` m64n128k16 with both operands in
+//     shared memory; the online softmax runs on the accumulator fragment in
+//     registers (exp2 with scale * log2(e) folded into one FMA); P is
+//     rounded to bf16 in registers, where the accumulator's fragment is
+//     already wgmma's register A fragment, and O += P V is m64n64k16 with
+//     V as the transposed (MN-major) shared-memory B operand;
+//   * O stays in registers and is normalised once at the end, staged
+//     through the consumer's own Q rows, and written with 16-byte stores.
+// Registers and shared memory from `-Xptxas -v` are in PERF.md.
 //
-// Queries and keys may differ in length (Sq, Sk); `causal` masks key j
-// for query i when j > i (every row sees key 0, so no row is empty).
+// Tensors come as base pointer plus batch, head and row strides; the host
+// entry builds one 4-D TMA map (hd, S, H, B) for each of q, k and v with
+// those strides. On the (B, S, d) layout (K1) the head stride is 64 (heads
+// are column slices), so q/k/v may be the strided slices of the fused QKV
+// projection: no HBM transpose, no copy. K9 hands over (B, H, S, hd) views
+// and scale 1 (its q comes pre-scaled). Rows past Sq and Sk lie outside the
+// maps, so TMA fills them with zeros and never reads the next batch's rows;
+// keys >= Sk are masked to -inf (a zero key would otherwise score 0).
+// `causal` masks key j for query i when j > i on the absolute query row;
+// key tiles wholly above a block's diagonal are skipped, and only tiles that
+// cross it (or Sk) are masked.
 //
-// Each tensor comes with a batch, a head and a row stride. On the (B, S, d)
-// layout (K1) the head stride is 64: heads are column slices
-// [h*64, h*64+64) of each row, so q/k/v may be the strided slices of the
-// fused QKV projection (no HBM transpose, no copy).
-//
-// Also replaces: whisper_tpu/ops/pallas/flash_attention.py::_attn_kernel
-// (K9, entry flash_attention, the legacy (B, H, S, hd) path of
-// attention_bhsd). The same kernel serves it with the head strides of the
-// (B, H, S, hd) views and scale 1 (its q comes pre-scaled): the (B, S, H, hd)
-// views of the projections are handed over as they are. K9 computes its
-// scores as f32 products of the f32-cast q and k; for bf16 inputs a
-// bf16 x bf16 product is exact in f32, so these WMMA scores with f32
-// accumulation are K9's scores up to the order of the f32 sums. K9 pads the
-// keys to a multiple of 128 and masks keys >= Sk with -1e30, normalises p
-// before casting it to bf16 and masks j > i for causal; here the keys past
-// Sk are zero-filled and masked with -inf, p is cast before the division
-// (once at the end), and the causal mask is the same compare on the
-// absolute query row.
-#include <mma.h>
-
+// Numerics (K1 and K9): scores are f32 sums of exact bf16 x bf16 products;
+// p = exp(s * scale - m) is rounded to bf16 unnormalised for PV, the row sum
+// is taken over the f32 p, and the output is divided once at the end, so it
+// stays within the wrapper's tolerance of the plain version (which
+// normalises p before rounding).
 #include "common.cuh"
-
-using namespace nvcuda;
 
 namespace {
 
-constexpr int HD = 64;           // head dim: every Whisper size
-constexpr int BQ = 64;           // query rows per block
-constexpr int BK = 64;           // keys per K/V tile
-constexpr int WARPS = BQ / 16;   // each warp owns 16 query rows
-constexpr int THREADS = WARPS * 32;
-constexpr int LDH = HD + 8;      // bf16 smem row stride (144 B rows)
-constexpr int LDS = BK + 4;      // f32 smem row stride for scores / PV
+constexpr int HD = 64;             // head dim: every Whisper size
+constexpr int BQ = 128;            // query rows per block
+constexpr int BK = 128;            // keys per K/V tile
+constexpr int STAGES = 3;          // K/V ring depth
+constexpr int THREADS = 3 * 128;   // producer warpgroup + two consumers
+constexpr int ROW_BYTES = HD * 2;  // 128: one swizzle row
+constexpr int Q_BYTES = BQ * ROW_BYTES;
+constexpr int KV_BYTES = BK * ROW_BYTES;
+constexpr int SMEM_BYTES = 1024 /* alignment slack */ + Q_BYTES + 2 * STAGES * KV_BYTES + 1024;
+constexpr int REGS = 168;          // 65536 / 384, rounded down to a multiple of 8
+constexpr int PRODUCER_REGS = 24;  // REGS - 144: frees 144 * 128 registers...
+constexpr int CONSUMER_REGS = 240; // ...that lift the 256 consumer threads by 72
+static_assert((REGS - PRODUCER_REGS) * 128 >= (CONSUMER_REGS - REGS) * 256,
+              "setmaxnreg: the consumers would wait for registers no one frees");
 
-constexpr int SQ_BYTES = BQ * LDH * 2;
-constexpr int SK_BYTES = BK * LDH * 2;
-constexpr int SS_BYTES = WARPS * 16 * LDS * 4;
-constexpr int SP_BYTES = WARPS * 16 * LDH * 2;
-constexpr int SO_BYTES = WARPS * 16 * HD * 4;
-constexpr int SML_BYTES = 2 * WARPS * 16 * 4;
-constexpr int SMEM_BYTES =
-    SQ_BYTES + 2 * SK_BYTES + SS_BYTES + SP_BYTES + SO_BYTES + SML_BYTES;
-
-// Copy `rows` rows of one head (64 bf16 = 8 x 16 B each) into a smem tile,
-// zero-filling rows at or past `valid` so masked keys never carry NaN.
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                          long long row_stride, int rows, int valid) {
-  for (int i = threadIdx.x; i < rows * (HD / 8); i += THREADS) {
-    int r = i / (HD / 8);
-    int c = (i % (HD / 8)) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < valid) val = *reinterpret_cast<const uint4*>(src + r * row_stride + c);
-    *reinterpret_cast<uint4*>(dst + r * LDH + c) = val;
-  }
+// --- wgmma ------------------------------------------------------------------
+// Shared-memory matrix descriptor of a tile written by TMA with the 128-byte
+// swizzle: rows of 128 B, 8-row groups 1024 B apart (SBO), the tile 1024-B
+// aligned (base offset 0). For a K-major operand the leading byte offset is
+// unused; for the MN-major V (N = 64 = one swizzle row) too. Stepping 16
+// values along K adds 32 B to the start address (K-major) or 16 rows,
+// 2048 B (MN-major).
+__device__ __forceinline__ uint64_t sw128_desc(const void* tile) {
+  return (uint64_t)((wtt::smem_u32(tile) & 0x3FFFF) >> 4) | (1ull << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
 }
 
-__global__ void __launch_bounds__(THREADS)
-flash_attention_kernel(const __nv_bfloat16* __restrict__ q,
-                       const __nv_bfloat16* __restrict__ k,
-                       const __nv_bfloat16* __restrict__ v,
-                       __nv_bfloat16* __restrict__ out, int Sq, int Sk,
-                       int causal, long long q_sb, long long q_sh, long long q_ss,
-                       long long k_sb, long long k_sh, long long k_ss, long long v_sb,
-                       long long v_sh, long long v_ss, long long o_sb, long long o_sh,
-                       long long o_ss, float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem + SQ_BYTES);
-  __nv_bfloat16* sV = reinterpret_cast<__nv_bfloat16*>(smem + SQ_BYTES + SK_BYTES);
-  float* sS = reinterpret_cast<float*>(smem + SQ_BYTES + 2 * SK_BYTES);
-  __nv_bfloat16* sP =
-      reinterpret_cast<__nv_bfloat16*>(smem + SQ_BYTES + 2 * SK_BYTES + SS_BYTES);
-  float* sO = reinterpret_cast<float*>(smem + SQ_BYTES + 2 * SK_BYTES + SS_BYTES + SP_BYTES);
-  float* sM = reinterpret_cast<float*>(smem + SQ_BYTES + 2 * SK_BYTES + SS_BYTES +
-                                       SP_BYTES + SO_BYTES);
-  float* sL = sM + WARPS * 16;
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Pin accumulator registers at a point of the program: the compiler sees a
+// wgmma's outputs as written when the instruction issues, so without this
+// it could move their reads above the wait (or their writes past the issue).
+template <int N>
+__device__ __forceinline__ void fence_regs(float* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// D(64 x 128, f32) (+)= A(64 x 16, smem, K-major) * B(16 x 128, smem, K-major)
+__device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d)
+      : "memory");
+}
+
+// D(64 x 64, f32) += A(64 x 16, registers, bf16) * B(16 x 64, smem, MN-major)
+__device__ __forceinline__ void wgmma_rs_n64_tb(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1)
+      : "memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+flash_attention_kernel(const __grid_constant__ CUtensorMap q_map,
+                       const __grid_constant__ CUtensorMap k_map,
+                       const __grid_constant__ CUtensorMap v_map, __nv_bfloat16* __restrict__ out,
+                       int Sq, int Sk, int causal, long long o_sb, long long o_sh, long long o_ss,
+                       float scale_log2) {
+  extern __shared__ unsigned char smem_raw[];
+  // the 128-byte swizzle repeats every 1024 B: align the tiles to it
+  unsigned char* smem = smem_raw + ((1024 - (wtt::smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* sQ = smem;  // [BQ][128 B], swizzled
+  unsigned char* sK = smem + Q_BYTES;                      // [STAGES][BK][128 B]
+  unsigned char* sV = smem + Q_BYTES + STAGES * KV_BYTES;  // [STAGES][BK][128 B]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + Q_BYTES + 2 * STAGES * KV_BYTES);
+  uint64_t* q_full = bars;
+  uint64_t* full = bars + 1;             // [STAGES]
+  uint64_t* empty = bars + 1 + STAGES;   // [STAGES]
 
   const int q0 = blockIdx.x * BQ;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
+  const int wg = threadIdx.x / 128;  // 0 producer, 1-2 consumers
+  // causal: keys past the block's last query row are never visible
+  const int k_end = causal ? min(Sk, q0 + BQ) : Sk;
+  const int n_tiles = (k_end + BK - 1) / BK;
 
-  const __nv_bfloat16* qb = q + b * q_sb + h * q_sh + (long long)q0 * q_ss;
-  const __nv_bfloat16* kb = k + b * k_sb + h * k_sh;
-  const __nv_bfloat16* vb = v + b * v_sb + h * v_sh;
-
-  load_tile(sQ, qb, q_ss, BQ, Sq - q0);
-  for (int i = threadIdx.x; i < WARPS * 16 * HD; i += THREADS) sO[i] = 0.f;
-  for (int i = threadIdx.x; i < WARPS * 16; i += THREADS) {
-    sM[i] = -INFINITY;
-    sL[i] = 0.f;
+  if (threadIdx.x == 0) {
+    wtt::mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      wtt::mbar_init(&full[s], 1);
+      wtt::mbar_init(&empty[s], 8);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  // This warp's 16 query rows stay in registers for the whole K sweep.
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> qf[HD / 16];
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk)
-    wmma::load_matrix_sync(qf[kk], sQ + warp * 16 * LDH + kk * 16, LDH);
-
-  float* wS = sS + warp * 16 * LDS;
-  __nv_bfloat16* wP = sP + warp * 16 * LDH;
-  float* wO = sO + warp * 16 * HD;
-  const int row = lane / 2;          // softmax / output row of this lane
-  const int col0 = (lane % 2) * 32;  // its 32 of the tile's 64 columns
-
-  const int qi = q0 + warp * 16 + row;  // this lane's query row
-  // causal: keys past the block's last query row are never visible
-  const int k_end = causal ? min(Sk, q0 + BQ) : Sk;
-  for (int j0 = 0; j0 < k_end; j0 += BK) {
-    load_tile(sK, kb + (long long)j0 * k_ss, k_ss, BK, Sk - j0);
-    load_tile(sV, vb + (long long)j0 * v_ss, v_ss, BK, Sk - j0);
-    __syncthreads();
-
-    // S = Q K^T for this warp's 16 rows x 64 keys (f32 accumulate).
-#pragma unroll
-    for (int nt = 0; nt < BK / 16; ++nt) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> kf;
-        wmma::load_matrix_sync(kf, sK + nt * 16 * LDH + kk * 16, LDH);
-        wmma::mma_sync(acc, qf[kk], kf, acc);
+  if (wg == 0) {
+    // Producer: one thread issues every copy; the warpgroup keeps 24
+    // registers a thread and never rejoins the consumers.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (threadIdx.x == 0) {
+      wtt::mbar_expect_tx(q_full, Q_BYTES);
+      wtt::tma_load_4d(sQ, &q_map, q_full, 0, q0, h, b);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % STAGES;
+        if (t >= STAGES) wtt::mbar_wait(&empty[s], ((t / STAGES) & 1) ^ 1);
+        wtt::mbar_expect_tx(&full[s], 2 * KV_BYTES);
+        wtt::tma_load_4d(sK + s * KV_BYTES, &k_map, &full[s], 0, t * BK, h, b);
+        wtt::tma_load_4d(sV + s * KV_BYTES, &v_map, &full[s], 0, t * BK, h, b);
       }
-      wmma::store_matrix_sync(wS + nt * 16, acc, LDS, wmma::mem_row_major);
     }
-    __syncwarp();
-
-    // Online softmax: two lanes per row, 32 columns each.
-    float s[32];
-    float mx = -INFINITY;
-#pragma unroll
-    for (int c = 0; c < 32; ++c) {
-      float val = wS[row * LDS + col0 + c] * scale;
-      const int j = j0 + col0 + c;
-      if (j >= Sk || (causal && j > qi)) val = -INFINITY;
-      s[c] = val;
-      mx = fmaxf(mx, val);
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    const float m_old = sM[warp * 16 + row];
-    const float m_new = fmaxf(m_old, mx);
-    const float m_use = m_new == -INFINITY ? 0.f : m_new;
-    float sum = 0.f;
-#pragma unroll
-    for (int c = 0; c < 32; ++c) {
-      float p = expf(s[c] - m_use);
-      sum += p;
-      wP[row * LDH + col0 + c] = __float2bfloat16(p);
-    }
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    const float alpha = expf(m_old - m_use);
-    __syncwarp();
-    if (lane % 2 == 0) {
-      sM[warp * 16 + row] = m_new;
-      sL[warp * 16 + row] = sL[warp * 16 + row] * alpha + sum;
-    }
-
-    // PV for this tile (into the score scratch), then O = O * alpha + PV.
-#pragma unroll
-    for (int nt = 0; nt < HD / 16; ++nt) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> pf;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> vf;
-        wmma::load_matrix_sync(pf, wP + kk * 16, LDH);
-        wmma::load_matrix_sync(vf, sV + kk * 16 * LDH + nt * 16, LDH);
-        wmma::mma_sync(acc, pf, vf, acc);
-      }
-      wmma::store_matrix_sync(wS + nt * 16, acc, LDS, wmma::mem_row_major);
-    }
-    __syncwarp();
-#pragma unroll
-    for (int c = 0; c < 32; ++c)
-      wO[row * HD + col0 + c] = wO[row * HD + col0 + c] * alpha + wS[row * LDS + col0 + c];
-    __syncthreads();  // every warp is done with sK / sV before the next load
+    return;
   }
 
-  if (qi < Sq) {
-    const float inv = 1.f / sL[warp * 16 + row];
-    __nv_bfloat16* orow = out + b * o_sb + h * o_sh + (long long)qi * o_ss + col0;
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+  const int c = wg - 1;            // consumer: query rows [c*64, c*64 + 64)
+  const int t128 = threadIdx.x % 128;
+  const int warp = t128 / 32;
+  const int lane = t128 % 32;
+  // This thread's two rows of the accumulator fragments (within the 64) and
+  // the first of its two columns in every 8-column block.
+  const int r_lo = warp * 16 + lane / 4;
+  const int col = 2 * (lane % 4);
+  const int qi_lo = q0 + c * 64 + r_lo;  // absolute query rows
+  const int qi_hi = qi_lo + 8;
+
+  float o[32];
 #pragma unroll
-    for (int c = 0; c < 32; c += 8) {
-      __align__(16) __nv_bfloat16 pack[8];
+  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  float s[64];
 #pragma unroll
-      for (int e = 0; e < 8; ++e) pack[e] = __float2bfloat16(wO[row * HD + col0 + c + e] * inv);
-      *reinterpret_cast<uint4*>(orow + c) = *reinterpret_cast<const uint4*>(pack);
+  for (int i = 0; i < 64; ++i) s[i] = 0.f;
+  float m_lo = -INFINITY, m_hi = -INFINITY;  // running max of s * scale_log2
+  float l_lo = 0.f, l_hi = 0.f;              // this thread's share of the row sums
+
+  const uint64_t q_desc = sw128_desc(sQ + c * 64 * ROW_BYTES);
+  wtt::mbar_wait(q_full, 0);
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = t % STAGES;
+    const int k0 = t * BK;
+    wtt::mbar_wait(&full[st], (t / STAGES) & 1);
+
+    // S = Q K^T over hd = 64: four k16 steps of 32 B each.
+    const uint64_t k_desc = sw128_desc(sK + st * KV_BYTES);
+    fence_regs<64>(s);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) wgmma_ss_n128(s, q_desc + 2 * kk, k_desc + 2 * kk, kk);
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs<64>(s);
+
+    // Mask keys >= Sk and, for causal, keys past the row; only tiles that
+    // reach past Sk or cross this consumer's diagonal need it.
+    if (k0 + BK > Sk || (causal && k0 + BK - 1 > q0 + c * 64)) {
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = k0 + 8 * j + col + (e & 1);
+          const int qi = e < 2 ? qi_lo : qi_hi;
+          if (key >= Sk || (causal && key > qi)) s[4 * j + e] = -INFINITY;
+        }
+      }
     }
+
+    // Online softmax on the fragment: rows r_lo (e = 0, 1) and r_lo + 8
+    // (e = 2, 3); the four lanes of a quad share a row.
+    float mx_lo = -INFINITY, mx_hi = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+      mx_lo = fmaxf(mx_lo, fmaxf(s[4 * j], s[4 * j + 1]));
+      mx_hi = fmaxf(mx_hi, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, off));
+      mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, off));
+    }
+    const float mn_lo = fmaxf(m_lo, mx_lo * scale_log2);
+    const float mn_hi = fmaxf(m_hi, mx_hi * scale_log2);
+    const float mu_lo = mn_lo == -INFINITY ? 0.f : mn_lo;  // an all-masked row
+    const float mu_hi = mn_hi == -INFINITY ? 0.f : mn_hi;
+    const float a_lo = ex2(m_lo - mu_lo);
+    const float a_hi = ex2(m_hi - mu_hi);
+    m_lo = mn_lo;
+    m_hi = mn_hi;
+    float sum_lo = 0.f, sum_hi = 0.f;
+    uint32_t p[BK / 16][4];  // wgmma A fragments of P, one per k16 step
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+      const float p0 = ex2(fmaf(s[4 * j], scale_log2, -mu_lo));
+      const float p1 = ex2(fmaf(s[4 * j + 1], scale_log2, -mu_lo));
+      const float p2 = ex2(fmaf(s[4 * j + 2], scale_log2, -mu_hi));
+      const float p3 = ex2(fmaf(s[4 * j + 3], scale_log2, -mu_hi));
+      sum_lo += p0 + p1;
+      sum_hi += p2 + p3;
+      // 8-column block j holds keys 8j..8j+7: the A fragment of k16 step
+      // j / 2 takes blocks 2i (regs 0, 1) and 2i + 1 (regs 2, 3).
+      p[j / 2][(j & 1) * 2 + 0] = pack_bf16(p0, p1);
+      p[j / 2][(j & 1) * 2 + 1] = pack_bf16(p2, p3);
+    }
+    l_lo = l_lo * a_lo + sum_lo;
+    l_hi = l_hi * a_hi + sum_hi;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      o[4 * j] *= a_lo;
+      o[4 * j + 1] *= a_lo;
+      o[4 * j + 2] *= a_hi;
+      o[4 * j + 3] *= a_hi;
+    }
+
+    // O += P V: eight k16 steps over the tile's 128 keys, 2048 B each.
+    const uint64_t v_desc = sw128_desc(sV + st * KV_BYTES);
+    fence_regs<32>(o);
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < BK / 16; ++kc) wgmma_rs_n64_tb(o, p[kc], v_desc + 128 * kc);
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs<32>(o);
+    __syncwarp();
+    if (lane == 0) wtt::mbar_arrive(&empty[st]);  // this warp is done with the stage
   }
+
+  // Normalise, stage the bf16 rows in this consumer's own (now unused) 64
+  // rows of sQ with the same 16-byte XOR swizzle, then 16-byte stores.
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l_lo += __shfl_xor_sync(0xffffffffu, l_lo, off);
+    l_hi += __shfl_xor_sync(0xffffffffu, l_hi, off);
+  }
+  const float inv_lo = 1.f / l_lo, inv_hi = 1.f / l_hi;
+  unsigned char* stage = sQ + c * 64 * ROW_BYTES;
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + c) : "memory");
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j) {
+    const int r0 = r_lo, r1 = r_lo + 8;
+    const int byte = col * 2;  // within the 16-byte chunk j
+    *reinterpret_cast<uint32_t*>(stage + r0 * ROW_BYTES + ((j ^ (r0 & 7)) << 4) + byte) =
+        pack_bf16(o[4 * j] * inv_lo, o[4 * j + 1] * inv_lo);
+    *reinterpret_cast<uint32_t*>(stage + r1 * ROW_BYTES + ((j ^ (r1 & 7)) << 4) + byte) =
+        pack_bf16(o[4 * j + 2] * inv_hi, o[4 * j + 3] * inv_hi);
+  }
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + c) : "memory");
+  __nv_bfloat16* ob = out + b * o_sb + h * o_sh;
+#pragma unroll
+  for (int i = t128; i < 64 * (HD / 8); i += 128) {
+    const int r = i / (HD / 8), ch = i % (HD / 8);
+    const int qi = q0 + c * 64 + r;
+    if (qi < Sq)
+      *reinterpret_cast<uint4*>(ob + (long long)qi * o_ss + ch * 8) =
+          *reinterpret_cast<const uint4*>(stage + r * ROW_BYTES + ((ch ^ (r & 7)) << 4));
+  }
+}
+
+// A 4-D map (hd, rows, H, B) over bf16 with the given element strides, and
+// a box of one head's 128 rows.
+bool make_map(CUtensorMap* map, const void* base, int rows, int H, int B, long long sb,
+              long long sh, long long ss) {
+  const cuuint64_t dims[4] = {(cuuint64_t)HD, (cuuint64_t)rows, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)ss * 2, (cuuint64_t)sh * 2, (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {HD, BK, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return wtt::encode_tiled()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+                             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace
 
+// Strides are in elements; each row of 64 channels must be 16-byte aligned
+// (the wrapper checks). Returns a cudaError_t: cudaErrorInvalidValue when
+// the tensor maps cannot be built, cudaErrorInvalidConfiguration when the
+// kernel was not compiled to the register count its setmaxnreg split
+// assumes (a launch would wait forever for registers).
 extern "C" int wtt_flash_attention(const void* q, const void* k, const void* v, void* out,
                                    int B, int Sq, int Sk, int H, int causal,
                                    long long q_sb, long long q_sh, long long q_ss,
@@ -225,15 +382,25 @@ extern "C" int wtt_flash_attention(const void* q, const void* k, const void* v, 
                                    float scale, void* stream) {
   static bool configured = false;
   if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+    cudaFuncAttributes attr;
+    cudaError_t err = cudaFuncGetAttributes(&attr, flash_attention_kernel);
+    if (err != cudaSuccess) return (int)err;
+    if (attr.numRegs != REGS) return (int)cudaErrorInvalidConfiguration;
+    err = cudaFuncSetAttribute(flash_attention_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
     if (err != cudaSuccess) return (int)err;
     configured = true;
   }
+  if (B < 1 || Sq < 1 || Sk < 1 || H < 1 || wtt::encode_tiled() == nullptr)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap qm, km, vm;
+  if (!make_map(&qm, q, Sq, H, B, q_sb, q_sh, q_ss) ||
+      !make_map(&km, k, Sk, H, B, k_sb, k_sh, k_ss) ||
+      !make_map(&vm, v, Sk, H, B, v_sb, v_sh, v_ss))
+    return (int)cudaErrorInvalidValue;
   dim3 grid((Sq + BQ - 1) / BQ, H, B);
   flash_attention_kernel<<<grid, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
-      (__nv_bfloat16*)out, Sq, Sk, causal, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
-      o_sb, o_sh, o_ss, scale);
+      qm, km, vm, (__nv_bfloat16*)out, Sq, Sk, causal, o_sb, o_sh, o_ss,
+      scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
 }

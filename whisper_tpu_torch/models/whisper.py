@@ -75,10 +75,13 @@ def _matmul(x: torch.Tensor, w, int8_impl: str = "xla") -> torch.Tensor:
         what JAX computes on a TPU. Packed int4 weights have no W8A8
         kernel and raise;
       * otherwise (int8_impl="xla", the default, or widths not multiples of
-        128, JAX's own rule): x @ q.to(x.dtype) (int4 unpacked first; the
-        integers are exact in bf16), times the per-channel scale in f32,
-        cast to x's dtype. A bf16 product is rounded once before the scale
-        (the JAX dot keeps it f32): one bf16 step, on the card only."""
+        128, JAX's own rule): x @ q (int4 unpacked first; the integers are
+        exact in bf16) with the product kept in f32, as JAX's
+        `preferred_element_type=f32` keeps it, times the per-channel scale
+        in f32, cast once to x's dtype. On the card a bf16 x takes the
+        f32-output bf16 GEMM (`torch.mm(..., out_dtype=torch.float32)`);
+        elsewhere the f32 product of the operands (bf16 x bf16 products
+        are exact in f32)."""
     if isinstance(w, QTensor):
         k = w.q.shape[0]
         n = w.scale.numel()  # out channels (int4 q packs two per byte)
@@ -96,9 +99,13 @@ def _matmul(x: torch.Tensor, w, int8_impl: str = "xla") -> torch.Tensor:
                        w.scale.reshape(n), out_dtype=x.dtype)
                 return y.reshape(*lead, *w.scale.shape)
         q = int_values(w.q)
-        y = torch.matmul(x, q.to(x.dtype).reshape(q.shape[0], -1))
+        x2, q2 = x.reshape(-1, k), q.reshape(k, -1)
+        if x.is_cuda and x.dtype == torch.bfloat16:
+            y = torch.mm(x2, q2.to(x.dtype), out_dtype=torch.float32)
+        else:
+            y = torch.mm(x2.float(), q2.float())
         y = y.reshape(*x.shape[:-1], *q.shape[1:])
-        return (y * w.scale).to(x.dtype)  # f32 scale: the product is f32
+        return (y * w.scale).to(x.dtype)
     y = torch.matmul(x, w.reshape(w.shape[0], -1))
     return y.reshape(*x.shape[:-1], *w.shape[1:])
 

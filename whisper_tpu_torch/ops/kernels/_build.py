@@ -3,9 +3,12 @@
 Each source in `whisper_tpu_torch/csrc/` compiles with `nvcc` for Hopper
 (`sm_90a`) into an object file, all of them at once in parallel processes,
 and the objects link into ONE shared library with a plain C interface,
-loaded with `ctypes`. Nothing here runs at import time: `library()` builds
-at first use, so importing the package on a machine without `nvcc` or a
-GPU compiles and loads nothing.
+loaded with `ctypes`. The library links against the CUDA runtime alone:
+the TMA kernels get libcuda's `cuTensorMapEncodeTiled` through
+`cudaGetDriverEntryPoint*` at run time, so no `-lcuda` is needed.
+Nothing here runs at import time: `library()` builds at first use, so
+importing the package on a machine without `nvcc` or a GPU compiles and
+loads nothing.
 
 The library lands in `build/whisper_tpu_torch/` at the repository root,
 named by a hash of the sources and flags, so an edit to any source builds
@@ -43,7 +46,7 @@ SIGNATURES = {
     "wtt_flash_attention": [_P] * 4 + [_I] * 5 + [_LL] * 12 + [_F, _P],
     "wtt_encoder_mlp": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                         _F, _P],
-    "wtt_decode_attention": [_P] * 7 + [_I] * 7 + [_LL] * 10 + [_P],
+    "wtt_decode_attention": [_P] * 7 + [_I] * 8 + [_LL] * 10 + [_P],
     "wtt_permute_attention": [_P] * 17 + [_I] * 4 + [_LL] * 9 + [_P],
     "wtt_permute_lanes": [_I, _I, _P, _P, _P, _P, _P],
     "wtt_w8a8_matmul": [_P] * 6 + [_I] * 6 + [_P],

@@ -21,16 +21,22 @@ gives the output in the query's dtype, as the TPU kernels do; the
 per-channel scales of a quantized cross cache are folded into the query
 and the output by the caller (`models/whisper.py`), so K3/K3g stay
 scale-free. The CUDA source, `csrc/decode_attention.cu`, runs one block
-per (head, lane) for K3/K3s and one per (head, kv row, group of <= 8
-lanes) for K3g, and takes the base pointer, strides and layer index of the
-WHOLE stacked cache -- no per-layer copy is sliced out before the launch.
-Its notes reckon the bytes that bound each.
+per (head, lane) for K3/K3s; K3g runs a thread-block cluster of `splits`
+blocks per (head, kv row, group of <= 8 lanes), each block scoring a chunk
+of the rows, the cluster combining the softmax statistics and the value
+sums through distributed shared memory in the one launch (`plan_splits`
+picks the cluster size). Both take the base pointer, strides and layer
+index of the WHOLE stacked cache -- no per-layer copy is sliced out before
+the launch. Its notes reckon the bytes that bound each.
 
 Tolerance against the plain version: elementwise
 |kernel - plain| <= ATOL + RTOL * |plain| with (ATOL, RTOL) = TOL[dtype of
-the output]. The two compute the same f32 scores and the same once-rounded
-weights; only the f32 summation order differs, which can move a bf16
-output by one rounding step.
+the output]. The two compute the same f32 scores and the same
+once-rounded weights round_bf16(exp(s - max) / sum) from the same global
+max; only the order of the f32 sums differs (K3g sums the exp-sum and the
+value sums per block of its cluster, then across the blocks, so it is no
+longer bit-equal to the plain version), which can move a bf16 output by
+one rounding step.
 """
 
 from __future__ import annotations
@@ -48,6 +54,26 @@ NEG_INF = -1e30  # the TPU kernel's mask value
 STORAGE = {torch.bfloat16: 0, torch.float32: 1, torch.int8: 2, torch.uint8: 3}
 _EXACT = (torch.bfloat16, torch.int8, torch.uint8)
 _HD = 64
+GROUP = 8  # most q lanes one K3g block holds (csrc/decode_attention.cu)
+SMS = 132  # the H100's streaming multiprocessors
+MAX_SPLITS = 4  # K3g clusters of 8 time slower than of 4 (PERF.md)
+MIN_ROWS = 96  # fewest cache rows a K3g block is left (fewer: one block)
+
+
+def plan_splits(n_head: int, n_kv: int, kv_rep: int, c_used: int) -> int:
+    """K3g's cluster size: blocks per (head, kv row, group of <= GROUP
+    lanes) that split the c_used rows. The least power of two that puts
+    2 * SMS blocks in flight, capped at MAX_SPLITS and at c_used / MIN_ROWS
+    (timed by `tools/sweep_k3g_splits.py`, PERF.md section 6). Large-v2
+    (20 heads) beam 5 over Sa = 750: 4 from one to six windows, 2 from
+    seven to thirteen, 1 beyond; 1 below 192 rows, where a plain launch
+    of whole rows beats a cluster's barriers."""
+    blocks = n_head * n_kv * -(-kv_rep // GROUP)
+    splits = 1
+    while (splits < MAX_SPLITS and blocks * splits < 2 * SMS
+           and c_used >= 2 * splits * MIN_ROWS):
+        splits *= 2
+    return splits
 
 
 def _layer_view(cache, layer, batch_major):
@@ -132,6 +158,7 @@ def decode_attention_stacked(
     k_rowscale: Optional[torch.Tensor] = None,  # (B, L, C) f32, int8 cache
     v_rowscale: Optional[torch.Tensor] = None,
     c_used: Optional[int] = None,  # read only rows [0, c_used)
+    splits: Optional[int] = None,  # K3g's cluster size; None: plan_splits
 ) -> torch.Tensor:
     """Returns (B, d) in the cache dtype (the query's for an integer
     cache). CPU tensors take the plain version; CUDA tensors launch the
@@ -140,14 +167,16 @@ def decode_attention_stacked(
     aligned rows; row scales only with an int8 batch-major cache and
     kv_rep = 1. kv_rep = 1 is K3 (counted in `.launches`), kv_rep > 1 K3g
     (`.group_launches`), row scales K3s (`.scaled_launches`). Rows past
-    c_used are never read."""
+    c_used are never read. `splits` forces K3g's cluster size (1 to 8;
+    `tools/sweep_k3g_splits.py` times each): it moves only the order of
+    the f32 sums, and K3 and K3s ignore it."""
     _check_scales(k_rowscale, v_rowscale, batch_major, kv_rep)
     if q.device.type == "cpu":
         return decode_attention_stacked_plain(
             q, k_cache, v_cache, pos, layer, n_head, batch_major, kv_rep,
             k_rowscale, v_rowscale, c_used)
     out = _launch(q, k_cache, v_cache, pos, layer, n_head, batch_major,
-                  kv_rep, k_rowscale, v_rowscale, c_used)
+                  kv_rep, k_rowscale, v_rowscale, c_used, splits)
     if k_rowscale is not None:
         decode_attention_stacked.scaled_launches += 1
     elif kv_rep == 1:
@@ -158,7 +187,7 @@ def decode_attention_stacked(
 
 
 def _launch(q, k_cache, v_cache, pos, layer, n_head, batch_major, kv_rep,
-            k_rowscale, v_rowscale, c_used) -> torch.Tensor:
+            k_rowscale, v_rowscale, c_used, splits=None) -> torch.Tensor:
     """Check what the CUDA kernel takes and launch it; counts nothing."""
     b, d = q.shape
     if kv_rep < 1:
@@ -221,7 +250,10 @@ def _launch(q, k_cache, v_cache, pos, layer, n_head, batch_major, kv_rep,
     err = library().wtt_decode_attention(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         pos_rows.data_ptr(), out.data_ptr(), sc_ptr[0] or None,
-        sc_ptr[1] or None, b, n_head, kv_rep, cu, int(layer), STORAGE[sd],
+        sc_ptr[1] or None, b, n_head, kv_rep,
+        1 if kv_rep == 1 else splits or plan_splits(n_head, b // kv_rep,
+                                                    kv_rep, cu),
+        cu, int(layer), STORAGE[sd],
         int(q.dtype == torch.float32), qs[0], ks[lane_dim], ks[layer_dim],
         ks[2], vs[lane_dim], vs[layer_dim], vs[2], sc_strides[0],
         sc_strides[1], out.stride(0), stream_ptr(q))

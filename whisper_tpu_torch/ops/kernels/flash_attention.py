@@ -7,13 +7,15 @@ Replaces two TPU kernels of `whisper_tpu/ops/pallas/flash_attention.py`:
   K9 `_attn_kernel` (entry `flash_attention`, on (B, H, S, hd)), which
      `attention_bhsd` runs under impl="legacy" -- the JAX package's
      WHISPER_TPU_FLASH_IMPL=legacy, here `KernelKnobs.flash_impl`.
-The CUDA source, `csrc/flash_attention.cu`, is an online-softmax
-(FlashAttention-2 style) loop over 64-key tiles, one block per (q-tile,
-head, batch), with bf16 WMMA products and f32 accumulation, over tensors
-given by batch, head and row strides, so both layouts are views and
-nothing is transposed in memory. What bounds it and why it streams K/V
-instead of keeping a head resident as the TPU kernels do is in the
-source's note.
+The CUDA source, `csrc/flash_attention.cu`, is a warp-specialised
+FlashAttention-3-shaped kernel for Hopper: one block per (128 query rows,
+head, batch), a producer warpgroup streaming 128-key K/V tiles by TMA into
+a 3-stage shared-memory ring (mbarriers), two consumer warpgroups running
+the `wgmma` products with the online softmax in registers. The host entry
+builds TMA maps over the tensors' batch, head and row strides, so both
+layouts are views and nothing is transposed in memory. What bounds it and
+why it streams K/V instead of keeping a head resident as the TPU kernels
+do is in the source's note.
 
 Tolerance against the plain version (bf16 in, bf16 out, v of order 1):
 elementwise |kernel - plain| <= ATOL + RTOL * |plain|. The plain version
@@ -70,8 +72,8 @@ def attention_bhsd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _launch(q, k, v, out, causal: bool, scale: float) -> None:
     """Launch the CUDA kernel on (B, H, S, hd) views (any batch, head and
-    row strides that keep 16-byte aligned rows of unit channel stride)
-    after checking what it takes; counts nothing."""
+    row strides that keep 16-byte aligned rows of unit channel stride: the
+    TMA maps' rules) after checking what it takes; counts nothing."""
     b, h, s, hd = q.shape
     sk = k.shape[2]
     if k.shape != (b, h, sk, hd) or v.shape != k.shape:

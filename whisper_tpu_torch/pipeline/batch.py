@@ -12,12 +12,14 @@ row count -- and with it the W8A8 kernel choice (K6 at <= 1024 rows, K7
 above) -- is that of a full batch. Tail windows go one at a time through
 `Transcriber._decode`, and each stream is stitched on its own.
 
-As in the JAX package, the windows of a batch are independent:
-`condition_on_previous_text` is not applied here. Options the port does
-not cover raise (`_check_batch_supported`): the batched fallback ladder,
-timestamps (`transcribe_many_with_timestamps`) and clip ranges, as well as
-`WindowPool` and `BatchingWorker`, are not ported yet (ROADMAP queue 1
-items 10 and 13).
+The windows of a batch are independent, so `condition_on_previous_text`
+cannot chain them: JAX's `transcribe_many` ignores the option without a
+word (its CLI refuses it with `--parallel-windows`), and the port's raises
+ValueError instead (`_check_batch_supported`), as `Transcriber.transcribe`
+applies it. Options the port does not cover raise NotImplementedError: the
+batched fallback ladder, timestamps (`transcribe_many_with_timestamps`) and
+clip ranges, as well as `WindowPool` and `BatchingWorker`, are not ported
+yet (ROADMAP queue 1 items 10 and 13).
 """
 
 from __future__ import annotations
@@ -46,9 +48,15 @@ Window = Tuple[int, int, np.ndarray]  # (stream, window index, samples)
 
 def _check_batch_supported(opt: DecodeOptions) -> None:
     """Raise for the options the batched path does not cover (beyond
-    `_check_supported`'s): the JAX batched ladder, timestamps and clip
-    ranges."""
+    `_check_supported`'s): `condition_on_previous_text`, which independent
+    windows cannot apply (ValueError), and the JAX batched ladder,
+    timestamps and clip ranges (NotImplementedError)."""
     _check_supported(opt)
+    if opt.condition_on_previous_text:
+        raise ValueError(
+            "condition_on_previous_text needs each window decoded after the "
+            "one before it; transcribe_many decodes windows independently "
+            "(use Transcriber.transcribe)")
     todo = []
     if opt.timestamps:
         todo.append("timestamps (transcribe_many_with_timestamps)")
