@@ -186,14 +186,18 @@ def test_beam_search_batched_timestamps_match_jax(setup):
     _batched_both(setup, seeds=(29, 30, 31), timestamps=True)
 
 
-@pytest.mark.parametrize("fuse", [None, False])
-def test_beam_search_batched_quantized_caches_match_jax(setup, fuse):
+@pytest.mark.parametrize("fuse,self_quant", [
+    (None, True), (False, True), (None, "int4")])
+def test_beam_search_batched_quantized_caches_match_jax(setup, fuse,
+                                                        self_quant):
     """int8 weights, an int4 cross cache and an int8 self cache: the fused
     copy-on-write path (K5) by default, K4's prefix reshuffle with
-    fuse_reshuffle=False; JAX runs attention="flash" in interpret mode."""
+    fuse_reshuffle=False; and an int4 self cache through K5 (its K4 path:
+    test_torch_fused_beam.py). JAX runs attention="flash" in interpret
+    mode."""
     _batched_both(setup, seeds=(5, 6, 7), hook=True, quantized=True,
-                  jax_attention="flash", kv_quant="int4", self_quant=True,
-                  fuse_reshuffle=fuse, logp_atol=1e-3)
+                  jax_attention="flash", kv_quant="int4",
+                  self_quant=self_quant, fuse_reshuffle=fuse, logp_atol=1e-3)
 
 
 # ------------------------------------------------------------- pipeline

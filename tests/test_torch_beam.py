@@ -178,16 +178,23 @@ def test_cache_gather_matches_jax():
 
 def test_quantized_and_fused_options_raise(setup):
     """Cache flavours JAX refuses raise ValueError; the int4 self cache,
-    which JAX has and the port does not, raises NotImplementedError naming
-    its ROADMAP item."""
+    which JAX has, searches as JAX's does (the same tokens and length)."""
     params, cfg, tok = setup
     enc = torch.zeros(1, ENC_CTX // 2, 32)
+    prompt = tok.prompt_ids("en")
     for opt, err, match in ((dict(kv_quant="int2"), ValueError, "kv_quant"),
                             (dict(self_quant="fp8"), ValueError,
-                             "self_quant"),
-                            (dict(self_quant="int4", fuse_reshuffle=True),
-                             NotImplementedError, "item 9")):
+                             "self_quant")):
         with pytest.raises(err, match=match):
             tbeam.beam_search(from_numpy_tree(params), enc,
-                              torch.tensor(tok.prompt_ids("en")), cfg,
-                              tok.eot, **opt)
+                              torch.tensor(prompt), cfg, tok.eot, **opt)
+    opt = dict(self_quant="int4", fuse_reshuffle=True, max_depth=6)
+    with jax.default_matmul_precision("highest"):
+        jt, jl, _ = jbeam.beam_search(
+            jax.tree.map(jnp.asarray, params), jnp.asarray(enc.numpy()),
+            jnp.asarray(prompt, jnp.int32), cfg, tok.eot, **opt)
+    tt, tl, _ = tbeam.beam_search(from_numpy_tree(params), enc,
+                                  torch.tensor(prompt), cfg, tok.eot, **opt)
+    n = int(jl)
+    assert int(tl) == n
+    np.testing.assert_array_equal(tt[:n].numpy(), np.asarray(jt)[:n])

@@ -295,13 +295,17 @@ def test_dequant_matmul_rounds_once_on_the_card(gen, bits, m):
     assert float((before == want).float().mean()) < 0.98
 
 
+@pytest.mark.parametrize("storage", ["int8", "int4"])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_decode_attention_scaled_kernel(gen, dtype):
-    """K3s: int8 batch-major self cache with row scales, mixed pos, and a
-    NaN scale on each lane's first masked row."""
+def test_decode_attention_scaled_kernel(gen, dtype, storage):
+    """K3s: int8 or packed-int4 batch-major self cache with row scales,
+    mixed pos, and a NaN scale on each lane's first masked row."""
     b, n_layer, c, d = 4, 3, 64, 128
-    kc, vc = (torch.randint(-127, 128, (b, n_layer, c, d), generator=gen,
+    lim = 7 if storage == "int4" else 127
+    kc, vc = (torch.randint(-lim, lim + 1, (b, n_layer, c, d), generator=gen,
                             device="cuda", dtype=torch.int8) for _ in "kv")
+    if storage == "int4":
+        kc, vc = pack_int4(kc), pack_int4(vc)
     ks, vs = (0.01 + 0.04 * torch.rand((b, n_layer, c), generator=gen,
                                        device="cuda") for _ in "kv")
     pos = torch.tensor([0, 9, 40, 62], dtype=torch.int32, device="cuda")
@@ -309,10 +313,12 @@ def test_decode_attention_scaled_kernel(gen, dtype):
     ks[rows, 2, pos.long() + 1] = float("nan")
     vs[rows, 2, pos.long() + 1] = float("nan")
     q = _randn((b, d), gen, 0.125, dtype=dtype)
-    before = KC.decode_attention_stacked.scaled_launches
+    counter = ("scaled_int4_launches" if storage == "int4"
+               else "scaled_launches")
+    before = getattr(KC.decode_attention_stacked, counter)
     got = KC.decode_attention_stacked(q, kc, vc, pos, 2, 2, batch_major=True,
                                       k_rowscale=ks, v_rowscale=vs)
-    assert KC.decode_attention_stacked.scaled_launches == before + 1
+    assert getattr(KC.decode_attention_stacked, counter) == before + 1
     want = KC.decode_attention_stacked_plain(q, kc, vc, pos, 2, 2,
                                              batch_major=True, k_rowscale=ks,
                                              v_rowscale=vs)
@@ -320,24 +326,33 @@ def test_decode_attention_scaled_kernel(gen, dtype):
     _close(got, want, *KC.TOL[dtype])
 
 
+@pytest.mark.parametrize("storage", ["int8", "int4"])
 @pytest.mark.parametrize("kind", ["random", "collapse", "identity"])
 @pytest.mark.parametrize("cow", [True, False])
 @pytest.mark.parametrize("per_lane_pos", [False, True])
-def test_permute_attention_kernel_bit_equal(gen, kind, cow, per_lane_pos):
-    """K5 against its plain version on the same inputs: the attention
-    output within K3's tolerance, every cache and scale array bit-equal:
-    COW dests from `_cow_assign` with one int pos (the in-place path), and
-    dests=None or a pos per lane (both staged by the wrapper)."""
+def test_permute_attention_kernel_bit_equal(gen, kind, cow, per_lane_pos,
+                                            storage):
+    """K5 against its plain version on the same inputs, int8 or packed
+    int4 caches and new rows: the attention output within K3's tolerance,
+    every cache and scale array bit-equal: COW dests from `_cow_assign`
+    with one int pos (the in-place path), and dests=None or a pos per lane
+    (both staged by the wrapper)."""
     from whisper_tpu_torch.decode.beam import _cow_assign
 
     k, nw, n_layer, c, d = 5, 2, 2, 64, 256
     b = k * nw
-    caches = [torch.randint(-127, 128, (b, n_layer, c, d), generator=gen,
-                            device="cuda", dtype=torch.int8) for _ in "kv"]
+    int4 = storage == "int4"
+    lim = 7 if int4 else 127
+
+    def ints(shape):
+        t = torch.randint(-lim, lim + 1, shape, generator=gen, device="cuda",
+                          dtype=torch.int8)
+        return pack_int4(t) if int4 else t
+
+    caches = [ints((b, n_layer, c, d)) for _ in "kv"]
     caches += [0.01 + 0.04 * torch.rand((b, n_layer, c), generator=gen,
                                         device="cuda") for _ in "kv"]
-    new = [torch.randint(-127, 128, (b, d), generator=gen, device="cuda",
-                         dtype=torch.int8) for _ in "kv"]
+    new = [ints((b, d)) for _ in "kv"]
     new += [0.01 + 0.04 * torch.rand(b, generator=gen, device="cuda")
             for _ in "kv"]
     q = _randn((b, d), gen)
@@ -358,10 +373,11 @@ def test_permute_attention_kernel_bit_equal(gen, kind, cow, per_lane_pos):
         dests = (dests + offs).reshape(b)
     parents = (parent + offs).reshape(b)
     mine = [x.clone() for x in caches]
-    before = KF.decode_attention_permute_fused.launches
+    counter = "int4_launches" if int4 else "launches"
+    before = getattr(KF.decode_attention_permute_fused, counter)
     got = KF.decode_attention_permute_fused(q, *mine, *new, parents, pos, 1,
                                             4, k, dests=dests)
-    assert KF.decode_attention_permute_fused.launches == before + 1
+    assert getattr(KF.decode_attention_permute_fused, counter) == before + 1
     plain = [x.clone() for x in caches]
     want = KF.decode_attention_permute_fused_plain(q, *plain, *new, parents,
                                                    pos, 1, 4, k, dests=dests)
@@ -396,50 +412,66 @@ def test_permute_kernel_bit_exact(gen, valid_len):
             assert torch.equal(o, a[idx])
 
 
-def _w8a8_operands(gen, m, k, n, dtype):
+def _w8a8_operands(gen, m, k, n, dtype, bits=8):
     """x with a zero row and a row of exact half quantization steps, int8
-    weights, f32 column scales."""
+    weights (bits=4: values in [-7, 7], packed to (k, n / 2) uint8), f32
+    column scales."""
     x = _randn((m, k), gen, dtype=torch.float32)
     x[0] = 0
     if m > 1:
         x[1] = 0
         x[1, 0] = 127.0
         x[1, 1:41] = torch.arange(40, device="cuda") + 0.5
-    wq = torch.randint(-127, 128, (k, n), generator=gen, device="cuda",
+    lim = 2 ** (bits - 1) - 1
+    wq = torch.randint(-lim, lim + 1, (k, n), generator=gen, device="cuda",
                        dtype=torch.int8)
     scale = 0.001 + 0.01 * torch.rand(n, generator=gen, device="cuda")
-    return x.to(dtype), wq, scale
+    return x.to(dtype), pack_int4(wq) if bits == 4 else wq, scale
 
 
+def _w8a8_counter(wq):
+    return "int4_launches" if wq.dtype == torch.uint8 else "launches"
+
+
+@pytest.mark.parametrize("bits", [8, 4])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("m,k,n", [(1, 256, 384), (5, 1280, 256),
                                    (20, 512, 128), (70, 256, 256),
                                    (300, 384, 640)])
-def test_w8a8_small_kernel_bit_equal(gen, dtype, m, k, n):
+def test_w8a8_small_kernel_bit_equal(gen, dtype, m, k, n, bits):
     """K6 at decode rows (the 16-row tiles) and past 64 rows (the 128 x 128
-    tiles), bf16 and f32 x: bit-equal to its plain version."""
+    tiles), bf16 and f32 x, int8 and packed-int4 weights: bit-equal to its
+    plain version (and, for int4, to the int8 kernel over the unpacked
+    weight)."""
     from whisper_tpu_torch.ops.kernels import dequant_matmul as KQ
+    from whisper_tpu_torch.quantize import int_values
 
-    x, wq, scale = _w8a8_operands(gen, m, k, n, dtype)
-    before = KQ.quantized_matmul.launches
+    x, wq, scale = _w8a8_operands(gen, m, k, n, dtype, bits)
+    counter = _w8a8_counter(wq)
+    before = getattr(KQ.quantized_matmul, counter)
     got = KQ.quantized_matmul(x, wq, scale)
-    assert KQ.quantized_matmul.launches == before + 1
+    assert getattr(KQ.quantized_matmul, counter) == before + 1
     assert got.dtype == dtype and got.shape == (m, n)
     torch.cuda.synchronize()
     assert torch.equal(got, KQ.quantized_matmul_plain(x, wq, scale))
+    if bits == 4:
+        assert torch.equal(got, KQ.quantized_matmul(x, int_values(wq), scale))
 
 
+@pytest.mark.parametrize("bits", [8, 4])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("m", [10, 1025, 1537])
-def test_w8a8_big_kernel_bit_equal(gen, dtype, m):
+def test_w8a8_big_kernel_bit_equal(gen, dtype, m, bits):
     """K7's rounding in the small-M kernel (10 rows) and with a ragged last
-    row tile: bit-equal to its plain version."""
+    row tile, int8 and packed-int4 weights: bit-equal to its plain
+    version."""
     from whisper_tpu_torch.ops.kernels import dequant_matmul as KQ
 
-    x, wq, scale = _w8a8_operands(gen, m, 640, 384, dtype)
-    before = KQ.quantized_matmul_big.launches
+    x, wq, scale = _w8a8_operands(gen, m, 640, 384, dtype, bits)
+    counter = _w8a8_counter(wq)
+    before = getattr(KQ.quantized_matmul_big, counter)
     got = KQ.quantized_matmul_big(x, wq, scale)
-    assert KQ.quantized_matmul_big.launches == before + 1
+    assert getattr(KQ.quantized_matmul_big, counter) == before + 1
     torch.cuda.synchronize()
     assert torch.equal(got, KQ.quantized_matmul_big_plain(x, wq, scale))
     f32 = KQ.quantized_matmul_big(x, wq, scale, out_dtype=torch.float32)
@@ -452,8 +484,11 @@ def test_w8a8_wrappers_raise_on_what_they_do_not_take(gen):
     from whisper_tpu_torch.quantize import pack_int4
 
     x, wq, scale = _w8a8_operands(gen, 4, 256, 256, torch.bfloat16)
-    with pytest.raises(TypeError, match="int8 weights"):
-        KQ.quantized_matmul(x, pack_int4(wq.clamp(-7, 7)), scale)
+    with pytest.raises(TypeError, match="int8 or packed-int4"):
+        KQ.quantized_matmul(x, wq.to(torch.int16), scale)
+    with pytest.raises(ValueError, match="scales"):  # packed N 512 != 256
+        KQ.quantized_matmul(x, pack_int4(torch.zeros(
+            (256, 512), dtype=torch.int8, device="cuda")), scale)
     with pytest.raises(ValueError, match="multiples of 128"):
         KQ.quantized_matmul(x[:, :200], wq[:200], scale)
     with pytest.raises(ValueError, match="contiguous"):
@@ -645,11 +680,13 @@ def test_cli_timestamps_ladder_and_detect_lang_on_the_card(cli_dir,
     assert len(doc["probs"]) == 3 and doc["language"] in doc["probs"]
 
 
-def test_w8a8_model_runs_k6_and_k7_on_the_card(gen):
-    """The encoder over W8A8 weights on the card: 4 windows of 48 rows
-    (192 rows: K6) and 24 windows (1152 rows: K7), within the plain
-    path's reach: the kernel path's output is finite and close to the
-    dequant path's (W8A8 quantizes the activations: ~1e-2 relative)."""
+@pytest.mark.parametrize("bits", [8, 4])
+def test_w8a8_model_runs_k6_and_k7_on_the_card(gen, bits):
+    """The encoder over W8A8 weights (int8, or packed int4) on the card:
+    4 windows of 48 rows (192 rows: K6) and 24 windows (1152 rows: K7),
+    within the plain path's reach: the kernel path's output is finite and
+    close to the dequant path's (W8A8 quantizes the activations: ~1e-2
+    relative)."""
     import dataclasses
 
     from whisper_tpu_torch.config import KernelKnobs, tiny_test_config
@@ -662,16 +699,99 @@ def test_w8a8_model_runs_k6_and_k7_on_the_card(gen):
     w8a8 = dataclasses.replace(cfg, attention="flash",
                                knobs=KernelKnobs(int8_impl="pallas"))
     params = quantize_params(init_params(cfg, gen, dtype=torch.bfloat16),
-                             quantize_encoder=True, bits=8)
+                             quantize_encoder=True, bits=bits)
+    name = "int4_launches" if bits == 4 else "launches"
     for windows, counter in ((4, KQ.quantized_matmul),
                              (24, KQ.quantized_matmul_big)):
         mel = torch.randn((windows, 80, 96), generator=gen, device="cuda")
-        before = counter.launches
+        before = getattr(counter, name)
         got = M.encoder_forward(params, mel, w8a8)
-        assert counter.launches == before + 2 * 4  # 4 matmuls a layer
+        assert getattr(counter, name) == before + 2 * 4  # 4 matmuls a layer
         want = M.encoder_forward(params, mel, dataclasses.replace(
             w8a8, knobs=KernelKnobs()))
         torch.cuda.synchronize()
         assert bool(torch.isfinite(got).all())
         rel = float((got.float() - want.float()).norm() / want.float().norm())
         assert rel < 5e-2, rel
+
+
+def test_decode_agreement_on_the_card_equals_the_cpu(gen):
+    """`decode_agreement` at a tiny config with int4 weights under
+    int8_impl="pallas" (K6 over packed int4 on the card) and int4 cross and
+    self caches, f32 on the plain attention path: the same report as the
+    same call on the CPU (cuDNN's TF32 convolutions off for the call, so
+    the two differ only by f32 summation order). Then the kernel path
+    (bf16, attention="flash") runs K3s and K5 over the int4 self cache and
+    K6 over the int4 weights, with a finite logit delta."""
+    import copy
+    import dataclasses
+    import math
+
+    from whisper_tpu_torch.config import KernelKnobs, tiny_test_config
+    from whisper_tpu_torch.eval import agreement
+    from whisper_tpu_torch.ops.kernels import dequant_matmul as KQ
+    from whisper_tpu_torch.params import init_params
+    from whisper_tpu_torch.quantize import quantize_params
+
+    cfg = dataclasses.replace(  # widths the fused encoder MLP (K2) takes
+        tiny_test_config(n_state=256, n_head=4, n_vocab=128, n_audio_ctx=64,
+                         n_text_ctx=32),
+        knobs=KernelKnobs(int8_impl="pallas"))
+    ref = init_params(cfg, gen)
+    test = quantize_params(ref, quantize_encoder=True, bits=4)
+    kw = dict(eot_id=5, prompt=[1, 2, 3], max_depth=10, n_windows=3,
+              beam_size=3, kv_quant_test="int4", self_quant_test="int4")
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        before = KQ.quantized_matmul.int4_launches
+        got = agreement.decode_agreement(ref, test, cfg, **kw)
+        assert KQ.quantized_matmul.int4_launches > before
+        want = agreement.decode_agreement(  # ParamTree.to moves in place
+            copy.deepcopy(ref).to(device="cpu"),
+            copy.deepcopy(test).to(device="cpu"), cfg, **kw)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    for strategy in ("greedy", "beam"):
+        assert got[strategy] == want[strategy], strategy
+    assert abs(got["max_logit_delta_rel"]
+               - want["max_logit_delta_rel"]) <= 1e-3
+
+    flash = dataclasses.replace(cfg, attention="flash")
+    bf16 = copy.deepcopy(ref).to(dtype=torch.bfloat16)
+    counters = {"K3s int4": (KC.decode_attention_stacked,
+                             "scaled_int4_launches"),
+                "K5 int4": (KF.decode_attention_permute_fused,
+                            "int4_launches"),
+                "K6 int4": (KQ.quantized_matmul, "int4_launches")}
+    before = {k: getattr(*c) for k, c in counters.items()}
+    report = agreement.decode_agreement(
+        bf16, quantize_params(bf16, quantize_encoder=True, bits=4), flash,
+        **kw)
+    grew = {k: getattr(*c) - before[k] for k, c in counters.items()}
+    assert all(n > 0 for n in grew.values()), grew
+    assert math.isfinite(report["max_logit_delta_rel"])
+
+
+def test_cli_quant_check_and_eval_on_the_card(cli_dir, monkeypatch, capsys):
+    """`quant-check --kv int4` on the card (bf16, the kernels: K3s and K5
+    over the int8 self cache) prints the report line and exits 0 or 1 by
+    the gate; `eval` over a one-item manifest prints its JSON line."""
+    import json
+
+    monkeypatch.chdir(cli_dir)
+    before = KF.decode_attention_permute_fused.launches
+    rc = torch_cli.main(["quant-check", "dump", "--kv", "int4", "--windows",
+                         "2", "--max-depth", "6"])
+    out, err = capsys.readouterr()
+    assert rc in (0, 1), err
+    assert ("PASS" if rc == 0 else "FAIL:") in err
+    report = json.loads(out.splitlines()[-1])
+    assert set(report) == {"greedy", "beam", "max_logit_delta_rel"}
+    assert KF.decode_attention_permute_fused.launches > before
+    (cli_dir / "m.tsv").write_text("audio.wav\thello world\n")
+    rc = torch_cli.main(["eval", "dump", "m.tsv", "en", "--greedy"])
+    out, err = capsys.readouterr()
+    assert rc == 0, err
+    doc = json.loads(out.splitlines()[-1])
+    assert doc["utterances"] == 1 and doc["words"] == 2

@@ -1,9 +1,10 @@
 """The quantized decode path of the port vs the JAX package, f32 on the
-CPU: K5 (the fused reshuffle + append + attention) and `_cow_assign`, beam
-search over int8/int4 cross caches and an int8 self cache through the
-fused copy-on-write path and through K4's prefix reshuffle, greedy with an
-int8 self cache, the Transcriber and the CLI with quantized caches, and
-beam 10 (past the grouped kernel's old 8-lane cap).
+CPU: K5 (the fused reshuffle + append + attention, over int8 and packed
+int4 caches) and `_cow_assign`, beam search over int8/int4 cross caches
+and an int8 or int4 self cache through the fused copy-on-write path and
+through K4's prefix reshuffle, greedy with an int8 or int4 self cache, the
+Transcriber and the CLI with quantized caches, and beam 10 (past the
+grouped kernel's old 8-lane cap).
 
 Setup as tests/test_torch_beam.py (the synthetic tokenizer, a 2-layer
 n_state-32 model, PRNGKey(7), ENC_CTX 96), with int8 weights
@@ -47,6 +48,7 @@ from whisper_tpu_torch.ops.kernels import decode_attention as KC
 from whisper_tpu_torch.ops.kernels import permute_attention as KF
 from whisper_tpu_torch.params import from_numpy_tree
 from whisper_tpu_torch.pipeline import transcribe as TT
+from whisper_tpu_torch.quantize import int_values, pack_int4
 
 ENC_CTX = 96
 LOGP_ATOL = 1e-3
@@ -67,25 +69,35 @@ def _k5_parents(kind, rng, nw, k):
     return p.astype(np.int32)
 
 
-@pytest.mark.parametrize("kind", ["random", "cycle", "collapse", "identity"])
-@pytest.mark.parametrize("cow", [True, False])
-def test_k5_plain_matches_pallas(kind, cow):
+K5_KINDS = ["random", "cycle", "collapse", "identity"]
+
+
+# int8: every kind with and without COW dests; int4: every kind with COW
+# dests (the beam path) and random parents with dests=None
+@pytest.mark.parametrize("cow,kind,storage", [
+    *[(c, k, "int8") for c in (True, False) for k in K5_KINDS],
+    *[(True, k, "int4") for k in K5_KINDS], (False, "random", "int4")])
+def test_k5_plain_matches_pallas(kind, cow, storage):
     """Two windows of 5 lanes, per-lane pos, parents of each kind; with
     `cow` the parents and dests come from `_cow_assign` over a shuffled
     slot map (as after earlier steps), else dests=None (identity slots).
     Held: the attention output, every row [0, pos] that a lane writes, and
-    every slot and layer the call must leave alone."""
-    rng = np.random.default_rng(
-        ["random", "cycle", "collapse", "identity"].index(kind) * 2 + cow)
+    every slot and layer the call must leave alone. An int4 cache and new
+    rows hold values in [-7, 7]: JAX takes them as `jnp.int4`, the port
+    packed (a row of d / 2 bytes); the written rows are compared as
+    values."""
+    rng = np.random.default_rng(K5_KINDS.index(kind) * 2 + cow)
     k, nw, n_layer, c, d, heads, layer = 5, 2, 2, 64, 128, 2, 1
     b = k * nw
-    kc = rng.integers(-127, 128, (b, n_layer, c, d)).astype(np.int8)
-    vc = rng.integers(-127, 128, (b, n_layer, c, d)).astype(np.int8)
+    int4 = storage == "int4"
+    lim = 7 if int4 else 127
+    kc = rng.integers(-lim, lim + 1, (b, n_layer, c, d)).astype(np.int8)
+    vc = rng.integers(-lim, lim + 1, (b, n_layer, c, d)).astype(np.int8)
     ks = rng.uniform(0.01, 0.05, (b, n_layer, c)).astype(np.float32)
     vs = rng.uniform(0.01, 0.05, (b, n_layer, c)).astype(np.float32)
     q = rng.standard_normal((b, d)).astype(np.float32)
-    nk = rng.integers(-127, 128, (b, d)).astype(np.int8)
-    nv = rng.integers(-127, 128, (b, d)).astype(np.int8)
+    nk = rng.integers(-lim, lim + 1, (b, d)).astype(np.int8)
+    nv = rng.integers(-lim, lim + 1, (b, d)).astype(np.int8)
     nks = rng.uniform(0.01, 0.05, b).astype(np.float32)
     nvs = rng.uniform(0.01, 0.05, b).astype(np.float32)
     pos = rng.integers(0, 40, b).astype(np.int32)
@@ -101,16 +113,23 @@ def test_k5_plain_matches_pallas(kind, cow):
         parents = (parent + offs).reshape(b)
         dests = None
     jq = jnp.asarray(q, jnp.bfloat16)
-    want = j_fused(jq, jnp.asarray(kc), jnp.asarray(vc), jnp.asarray(ks),
-                   jnp.asarray(vs), jnp.asarray(nk), jnp.asarray(nv),
-                   jnp.asarray(nks), jnp.asarray(nvs), jnp.asarray(parents),
-                   jnp.asarray(pos), jnp.int32(layer), heads, k,
+    jdt = jnp.int4 if int4 else jnp.int8
+    want = j_fused(jq, jnp.asarray(kc, jdt), jnp.asarray(vc, jdt),
+                   jnp.asarray(ks), jnp.asarray(vs), jnp.asarray(nk, jdt),
+                   jnp.asarray(nv, jdt), jnp.asarray(nks), jnp.asarray(nvs),
+                   jnp.asarray(parents), jnp.asarray(pos), jnp.int32(layer),
+                   heads, k,
                    dests=None if dests is None else jnp.asarray(dests),
                    interpret=True)
-    t = [torch.from_numpy(a.copy()) for a in (kc, vc, ks, vs)]
+
+    def stored(a):  # the port's storage of int values
+        t = torch.from_numpy(a.copy())
+        return pack_int4(t) if int4 and a.dtype == np.int8 else t
+
+    t = [stored(a) for a in (kc, vc, ks, vs)]
     got = KF.decode_attention_permute_fused(
-        torch.from_numpy(q).to(torch.bfloat16), *t, torch.from_numpy(nk),
-        torch.from_numpy(nv), torch.from_numpy(nks), torch.from_numpy(nvs),
+        torch.from_numpy(q).to(torch.bfloat16), *t, stored(nk), stored(nv),
+        torch.from_numpy(nks), torch.from_numpy(nvs),
         torch.from_numpy(parents), torch.from_numpy(pos), layer, heads, k,
         dests=None if dests is None else torch.from_numpy(dests))
     assert all(g is tt for g, tt in zip(got[1:], t))  # updated in place
@@ -120,7 +139,10 @@ def test_k5_plain_matches_pallas(kind, cow):
                                rtol=rtol)
     slots = np.arange(b) if dests is None else dests
     for g, w, before in zip(got[1:], want[1:], (kc, vc, ks, vs)):
-        g, w = g.numpy(), np.asarray(w)
+        g = int_values(g).numpy() if g.dtype == torch.uint8 else g.numpy()
+        w = np.asarray(w)
+        if w.dtype == jnp.int4:
+            w = w.astype(np.int8)
         for i, s in enumerate(slots):
             np.testing.assert_array_equal(g[s, layer, :pos[i] + 1],
                                           w[s, layer, :pos[i] + 1])
@@ -237,15 +259,18 @@ def _beam_both(setup, seed, jax_attention, torch_attention, hook=False,
     return n, len(prompt), tt
 
 
-@pytest.mark.parametrize("kv_quant", ["int8", "int4"])
+@pytest.mark.parametrize("kv_quant,self_quant", [
+    ("int8", True), ("int4", True), ("int4", "int4")])
 @pytest.mark.parametrize("fuse", [None, False])
-def test_quantized_beam_search_matches_jax(setup, kv_quant, fuse):
-    """int8 weights, an int8/int4 cross cache and an int8 self cache,
-    with the EOT-staggering hook: fuse=None is the default fused COW path
-    (K5) on both sides, fuse=False the K4 prefix reshuffle."""
+def test_quantized_beam_search_matches_jax(setup, kv_quant, self_quant,
+                                           fuse):
+    """int8 weights, an int8/int4 cross cache and an int8 or int4 self
+    cache, with the EOT-staggering hook: fuse=None is the default fused
+    COW path (K5) on both sides, fuse=False the K4 prefix reshuffle (of
+    packed rows, as bytes, for int4)."""
     n, p, _ = _beam_both(setup, seed=6, jax_attention="flash",
                          torch_attention="flash", hook=True,
-                         kv_quant=kv_quant, self_quant=True,
+                         kv_quant=kv_quant, self_quant=self_quant,
                          fuse_reshuffle=fuse)
     assert p < n < p + MAX_DEPTH  # lanes ended early: the pool and stop rule
 
@@ -285,13 +310,16 @@ def test_beam_size_ten_matches_jax(setup):
                quantized=False, beam_size=10)
 
 
-@pytest.mark.parametrize("kv_quant", [True, "int4"])
-def test_quantized_greedy_matches_jax(setup, kv_quant):
+@pytest.mark.parametrize("kv_quant,self_quant", [
+    (True, True), ("int4", True), ("int4", "int4")])
+def test_quantized_greedy_matches_jax(setup, kv_quant, self_quant):
+    """Two windows, int8 weights, an int8/int4 cross cache and an int8
+    or int4 self cache (K3s over either on the flash step)."""
     params, qparams, cfg, tok, _ = setup
     enc = np.concatenate([_enc(params, cfg, 11), _enc(params, cfg, 12)])
     sup = tok.suppress_mask()
     prompt = tok.prompt_ids("en")
-    kw = dict(max_depth=MAX_DEPTH, kv_quant=kv_quant, self_quant=True)
+    kw = dict(max_depth=MAX_DEPTH, kv_quant=kv_quant, self_quant=self_quant)
     flash = dataclasses.replace(cfg, attention="flash")
     with jax.default_matmul_precision("highest"):
         jt, jl, jlp = jgreedy.greedy_decode(
@@ -327,20 +355,22 @@ def _multiwindow_wave():
 def test_transcriber_with_quantized_caches_matches_jax(setup):
     """Both Transcribers on the same int8 weights, int8 cross and self
     caches, beam search over 3 windows; the port runs the fused COW path
-    ("flash" on the CPU takes the plain versions), JAX the K4 reshuffle."""
+    ("flash" on the CPU takes the plain versions), JAX the K4 reshuffle.
+    Then the same with an int4 cross and an int4 self cache
+    (`DecodeOptions(self_quant="int4")`, as JAX's)."""
     _, qparams, cfg, tok, _ = setup
-    opts = dict(max_depth=8, chunk_overlap_seconds=0.15, kv_quant=True,
-                self_quant=True)
     wave = _multiwindow_wave()
-    want = JT.Transcriber(qparams, cfg, tok, attention="xla",
-                          matmul_precision="highest").transcribe(
-        wave, options=JT.DecodeOptions(**opts), on_chunk=lambda i, s: None)
+    jtr = JT.Transcriber(qparams, cfg, tok, attention="xla",
+                         matmul_precision="highest")
     tr = TT.Transcriber(qparams, cfg, tok, attention="flash", device="cpu")
-    got = tr.transcribe(wave, options=TT.DecodeOptions(**opts),
-                        on_chunk=lambda i, s: None)
-    assert got == want and got[1]
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tr.transcribe(wave, options=TT.DecodeOptions(self_quant="int4"))
+    for kv, self_kv in ((True, True), ("int4", "int4")):
+        opts = dict(max_depth=8, chunk_overlap_seconds=0.15, kv_quant=kv,
+                    self_quant=self_kv)
+        want = jtr.transcribe(wave, options=JT.DecodeOptions(**opts),
+                              on_chunk=lambda i, s: None)
+        got = tr.transcribe(wave, options=TT.DecodeOptions(**opts),
+                            on_chunk=lambda i, s: None)
+        assert got == want and got[1], self_kv
 
 
 def test_cli_quantized_caches_match_jax_cli(setup, monkeypatch, capsys):

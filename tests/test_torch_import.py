@@ -114,7 +114,9 @@ def test_no_port_file_imports_the_jax_package():
     jax_pattern = re.compile(r"^\s*(from|import)\s+jax(\.|\s|$)")
     files = [*Path(REPO, "whisper_tpu_torch").rglob("*.py"),
              Path(REPO, "chip_smoke.py"),
-             Path(REPO, "tools", "profile_torch_decode.py")]
+             *(Path(REPO, "tools", f) for f in (
+                 "profile_torch_decode.py", "compare_attention_kernels.py",
+                 "sweep_k3g_splits.py", "int4_path_gap.py"))]
     found = [f"{f}:{i}" for f in files
              for i, line in enumerate(f.read_text().splitlines(), 1)
              if pattern.match(line) or jax_pattern.match(line)]

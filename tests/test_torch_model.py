@@ -19,6 +19,7 @@ import torch
 
 from whisper_tpu.config import tiny_test_config
 from whisper_tpu.models import whisper as JM
+from whisper_tpu_torch import quantize as TQ
 from whisper_tpu_torch.models import whisper as TM
 from whisper_tpu_torch.params import from_numpy_tree
 
@@ -139,12 +140,24 @@ def test_whisper_forward_and_conv_layout(setup):
 
 
 def test_unported_cache_options_raise(setup):
-    _, tp, mel, _ = setup
-    xa = torch.zeros(2, 15, 128)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        TM.init_cache(tp, xa, CFG, kv_quant=True, self_quant="int4")
+    """A decode batch that is not a multiple of the windows raises; the
+    int4 self cache beside an int8 cross cache is JAX's (packed to d / 2
+    bytes a row, row scales at 1)."""
+    jp, tp, mel, _ = setup
+    xa = np.zeros((2, 15, 128), np.float32)
+    want = JM.init_cache(jp, jnp.asarray(xa), CFG, kv_quant=True,
+                         self_quant="int4")
+    got = TM.init_cache(tp, torch.from_numpy(xa), CFG, kv_quant=True,
+                        self_quant="int4")
+    for name in ("self_k", "self_v", "cross_k", "cross_v"):
+        w, g = getattr(want, name), getattr(got, name)
+        assert g.q.dtype == (torch.uint8 if name.startswith("self")
+                             else torch.int8), name
+        np.testing.assert_array_equal(TQ.int_values(g.q).numpy(),
+                                      np.asarray(w.q).astype(np.int8))
+        np.testing.assert_array_equal(g.scale.numpy(), np.asarray(w.scale))
     with pytest.raises(ValueError, match="multiple"):
-        TM.init_cache(tp, xa, CFG, batch=5)
+        TM.init_cache(tp, torch.from_numpy(xa), CFG, batch=5)
 
 
 @pytest.mark.parametrize("attention", ["xla", "flash"])

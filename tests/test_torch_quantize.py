@@ -1,7 +1,7 @@
 """The port's quantization (weights, int4 packing, KV caches) and the K3s
-and integer-storage K3/K3g plain versions vs the JAX package, f32 on the
-CPU; the JAX kernels run in interpret mode, as tests/test_pallas.py runs
-them.
+(int8 and packed-int4 self caches) and integer-storage K3/K3g plain
+versions vs the JAX package, f32 on the CPU; the JAX kernels run in
+interpret mode, as tests/test_pallas.py runs them.
 
 Tolerances. Integer values and scales quantized from the same f32 inputs
 are held EQUAL (both packages divide in IEEE f32 and round half to even).
@@ -127,19 +127,27 @@ def test_from_numpy_tree_of_a_jax_quantized_tree(jparams, bits):
         jq["decoder"]["blocks"])
 
 
-def test_q8_rows_matches_jax():
+@pytest.mark.parametrize("storage", ["int8", "int4"])
+def test_q8_rows_matches_jax(storage):
+    """Per-row quantization to the cache's storage: int8, or int4 (limit
+    7) packed two channels a byte; values and scales equal."""
     rng = np.random.default_rng(1)
     x = rng.standard_normal((3, 5, 128)).astype(np.float32) * 3
     x[1, 2] = 0  # an all-zero row keeps scale 1
-    wq, ws = JM._q8_rows(jnp.asarray(x))
-    gq, gs = TM._q8_rows(torch.from_numpy(x))
-    assert gs.shape == (3, 5) and gq.dtype == torch.int8
-    np.testing.assert_array_equal(gq.numpy(), _ints(wq))
+    int4 = storage == "int4"
+    wq, ws = JM._q8_rows(jnp.asarray(x), jnp.int4 if int4 else jnp.int8)
+    gq, gs = TM._q8_rows(torch.from_numpy(x),
+                         torch.uint8 if int4 else torch.int8)
+    assert gs.shape == (3, 5)
+    assert gq.dtype == (torch.uint8 if int4 else torch.int8)
+    assert gq.shape == (3, 5, 64 if int4 else 128)
+    np.testing.assert_array_equal(_ints(gq), _ints(wq))
     np.testing.assert_array_equal(gs.numpy(), np.asarray(ws))
+    assert np.abs(_ints(gq)).max() == (7 if int4 else 127)
 
 
 CACHE_FLAVOURS = [(True, False), ("int8", True), ("int4", False),
-                  ("int4", True), (False, True)]
+                  ("int4", True), (False, True), ("int4", "int4")]
 
 
 @pytest.mark.parametrize("kv_quant,self_quant", CACHE_FLAVOURS)
@@ -182,8 +190,13 @@ def test_init_cache_rejects_unsupported_flavours(jparams):
         TM.init_cache(tp, xa, CFG, kv_quant="int2")
     with pytest.raises(ValueError, match="self_quant"):
         TM.init_cache(tp, xa, CFG, self_quant="fp8")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        TM.init_cache(tp, xa, CFG, self_quant="int4")
+    # int4 is taken: a packed (B, L, C, d / 2) uint8 cache, f32 row scales
+    cache = TM.init_cache(tp, xa, CFG, batch=2, cache_len=16,
+                          self_quant="int4")
+    for t in (cache.self_k, cache.self_v):
+        assert t.q.dtype == torch.uint8 and t.q.shape == (2, 2, 16, 64)
+        assert t.scale.dtype == torch.float32 and t.scale.shape == (2, 2, 16)
+        assert bool((t.q == 0).all()) and bool((t.scale == 1).all())
 
 
 @pytest.mark.parametrize("attention", ["xla", "flash"])
@@ -192,9 +205,9 @@ def test_quantized_decoder_steps_match_jax(jparams, attention, kv_quant,
                                            self_quant):
     """int8 weights and each cache flavour: prefill (the einsum path with
     the scale folds and the sanitised row scales) and S = 1 steps (the
-    fused step, K3s and integer K3 under "flash", whose JAX side runs in
-    interpret mode): logits within LOGIT_ATOL, the self cache's int8 rows
-    and scales equal."""
+    fused step, K3s over int8 or int4 and integer K3 under "flash", whose
+    JAX side runs in interpret mode): logits within LOGIT_ATOL, the self
+    cache's integer rows and scales equal."""
     cfg = dataclasses.replace(CFG, attention=attention)
     jq = JQ.quantize_params(jparams, bits=8)
     tp = from_numpy_tree(jax.tree.map(np.asarray, jq))
@@ -221,7 +234,7 @@ def test_quantized_decoder_steps_match_jax(jparams, attention, kv_quant,
         n = PROMPT + STEPS
         for name in ("self_k", "self_v"):
             g, w = getattr(tc, name), getattr(jc, name)
-            diff = np.abs(g.q[:, :, :n].numpy().astype(np.int32)
+            diff = np.abs(_ints(g.q)[:, :, :n].astype(np.int32)
                           - _ints(w.q)[:, :, :n])
             assert diff.max() <= 1 and diff.mean() <= Q_FLIPS, name
             np.testing.assert_allclose(g.scale.numpy(), np.asarray(w.scale),
@@ -234,24 +247,27 @@ def test_quantized_weights_refuse_the_fused_mlp():
     assert not TM._use_fused_mlp(x, w1, "flash")
 
 
-def _k3s_inputs(rng, dtype, b=4, n_layer=3, c=64, d=128):
-    kc = rng.integers(-127, 128, (b, n_layer, c, d)).astype(np.int8)
-    vc = rng.integers(-127, 128, (b, n_layer, c, d)).astype(np.int8)
+def _k3s_inputs(rng, dtype, b=4, n_layer=3, c=64, d=128, lim=127):
+    kc = rng.integers(-lim, lim + 1, (b, n_layer, c, d)).astype(np.int8)
+    vc = rng.integers(-lim, lim + 1, (b, n_layer, c, d)).astype(np.int8)
     ks = rng.uniform(0.01, 0.05, (b, n_layer, c)).astype(np.float32)
     vs = rng.uniform(0.01, 0.05, (b, n_layer, c)).astype(np.float32)
     q = (rng.standard_normal((b, d)) * 0.125).astype(np.float32)
     return q, kc, vc, ks, vs
 
 
+@pytest.mark.parametrize("storage", ["int8", "int4"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("c_used", [None, 32])
-def test_k3s_plain_matches_pallas(dtype, c_used):
-    """K3s: an int8 batch-major self cache with per-row K and V scales,
-    mixed pos, and a NaN scale on a masked row of every lane (the
-    uninitialised tail of a prefix-only reshuffle) that must not reach the
-    output."""
+def test_k3s_plain_matches_pallas(dtype, c_used, storage):
+    """K3s: an int8 or packed-int4 batch-major self cache with per-row K
+    and V scales, mixed pos, and a NaN scale on a masked row of every lane
+    (the uninitialised tail of a prefix-only reshuffle) that must not
+    reach the output. The int4 cache holds values in [-7, 7] (what
+    `_q8_rows` writes); JAX takes them as `jnp.int4`, the port packed."""
     rng = np.random.default_rng(4)
-    q, kc, vc, ks, vs = _k3s_inputs(rng, dtype)
+    int4 = storage == "int4"
+    q, kc, vc, ks, vs = _k3s_inputs(rng, dtype, lim=7 if int4 else 127)
     hi = (c_used or 64) - 1
     pos = np.array([0, 9, hi // 2, hi - 1], np.int32)
     layer, heads = 1, 2
@@ -259,15 +275,18 @@ def test_k3s_plain_matches_pallas(dtype, c_used):
         ks[i, layer, p + 1] = np.nan
         vs[i, layer, p + 1] = np.nan
     jd = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}[dtype]
-    want = j_decode(jnp.asarray(q, jd), jnp.asarray(kc), jnp.asarray(vc),
-                    jnp.asarray(pos), jnp.int32(layer), heads,
-                    interpret=True, batch_major=True,
+    jdt = jnp.int4 if int4 else jnp.int8
+    want = j_decode(jnp.asarray(q, jd), jnp.asarray(kc, jdt),
+                    jnp.asarray(vc, jdt), jnp.asarray(pos), jnp.int32(layer),
+                    heads, interpret=True, batch_major=True,
                     k_rowscale=jnp.asarray(ks), v_rowscale=jnp.asarray(vs),
                     c_used=c_used)
+    tk, tv = torch.from_numpy(kc), torch.from_numpy(vc)
+    if int4:
+        tk, tv = TQ.pack_int4(tk), TQ.pack_int4(tv)
     got = KC.decode_attention_stacked(
-        torch.from_numpy(q).to(dtype), torch.from_numpy(kc),
-        torch.from_numpy(vc), torch.from_numpy(pos), layer, heads,
-        batch_major=True, k_rowscale=torch.from_numpy(ks),
+        torch.from_numpy(q).to(dtype), tk, tv, torch.from_numpy(pos), layer,
+        heads, batch_major=True, k_rowscale=torch.from_numpy(ks),
         v_rowscale=torch.from_numpy(vs), c_used=c_used)
     assert got.dtype == dtype and got.shape == (4, 128)
     assert bool(torch.isfinite(got).all())

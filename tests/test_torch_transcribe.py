@@ -336,16 +336,30 @@ def test_condition_on_previous_text_matches_jax(setup):
 
 # timestamps, the temperature ladder, no_speech_threshold and clips are
 # ported: tests/test_torch_timestamps.py::test_ported_options_match_jax
-@pytest.mark.parametrize("change", [
-    dict(strategy="sample"), dict(self_quant="int4"),
-    dict(kv_quant="int4", self_quant="int4"),
+@pytest.mark.parametrize("change,ported", [
+    pytest.param(dict(strategy="sample"), False, id="change0"),
+    pytest.param(dict(self_quant="int4"), True, id="change1"),
+    pytest.param(dict(kv_quant="int4", self_quant="int4"), True,
+                 id="change2"),
 ])
-def test_unported_options_raise(setup, change):
+def test_unported_options_raise(setup, change, ported):
+    """An option the port lacks raises NotImplementedError naming its
+    ROADMAP item; a ported one (the int4 self cache, with or without the
+    int4 cross cache) transcribes as the JAX Transcriber does."""
     params, cfg, tok, _ = setup
-    opts = TT.DecodeOptions(**{"strategy": "greedy", **change})
+    opts = {"strategy": "greedy", "max_depth": 8, **change}
     t = TT.Transcriber(params, cfg, tok, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t.transcribe(np.zeros(8000, np.float32), options=opts)
+    wave = _audio(8000, 0)
+    if not ported:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            t.transcribe(wave, options=TT.DecodeOptions(**opts))
+        return
+    want = JT.Transcriber(params, cfg, tok, attention="xla",
+                          matmul_precision="highest").transcribe(
+        wave, options=JT.DecodeOptions(**opts), on_chunk=lambda i, s: None)
+    got = t.transcribe(wave, options=TT.DecodeOptions(**opts),
+                       on_chunk=lambda i, s: None)
+    assert got == want and got[1]
 
 
 def test_draft_raises(setup):

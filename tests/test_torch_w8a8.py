@@ -1,7 +1,8 @@
 """The port's W8A8 path (`cfg.knobs.int8_impl="pallas"`) vs the JAX package
 on the CPU: K6/K7's plain versions against the Pallas kernels in interpret
-mode, `_matmul`'s dispatch, the `init_cache` cross-KV projection, and the
-model functions over `quantize_params(..., quantize_encoder=True)` weights.
+mode over int8 and packed-int4 weights, `_matmul`'s dispatch, the
+`init_cache` cross-KV projection, and the model functions over
+`quantize_params(..., quantize_encoder=True)` weights.
 
 JAX routes "pallas" to its kernels only when `jax.default_backend()` is
 "tpu". The model-level tests replace the name `jax` inside
@@ -72,9 +73,10 @@ def on_tpu(monkeypatch):
     monkeypatch.setattr(JM, "jax", _TpuJax())
 
 
-def _operands(rng, m, k, n, dtype):
+def _operands(rng, m, k, n, dtype, bits=8):
     """x with a zero row and a row of exact half quantization steps (an
-    absmax of 127 makes the steps 1), int8 weights, f32 column scales."""
+    absmax of 127 makes the steps 1), int8 (or int4: JAX's `jnp.int4`, the
+    port's packed uint8) weights, f32 column scales."""
     x = rng.standard_normal((m, k)).astype(np.float32)
     x[0] = 0
     if m > 1:
@@ -85,10 +87,15 @@ def _operands(rng, m, k, n, dtype):
     xj = jnp.asarray(x, dtype)
     xt = torch.from_numpy(np.array(xj.astype(jnp.float32))).to(
         torch.bfloat16 if dtype == jnp.bfloat16 else torch.float32)
-    wq = rng.integers(-127, 128, (k, n)).astype(np.int8)
+    lim = 2 ** (bits - 1) - 1
+    wq = rng.integers(-lim, lim + 1, (k, n)).astype(np.int8)
     s = rng.uniform(0.001, 0.01, n).astype(np.float32)
+    tw = torch.from_numpy(wq)
+    if bits == 4:
+        return (xj, jnp.asarray(wq, jnp.int4), jnp.asarray(s)), (
+            xt, TQ.pack_int4(tw), torch.from_numpy(s))
     return (xj, jnp.asarray(wq), jnp.asarray(s)), (
-        xt, torch.from_numpy(wq), torch.from_numpy(s))
+        xt, tw, torch.from_numpy(s))
 
 
 def _f32(a):
@@ -96,13 +103,16 @@ def _f32(a):
                       else a.astype(jnp.float32))
 
 
+@pytest.mark.parametrize("bits", [8, 4])
 @pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
 @pytest.mark.parametrize("big,m", [(False, 1), (False, 5), (False, 37),
                                    (False, 1024), (True, 1025),
                                    (True, 1100)])
-def test_w8a8_plain_matches_pallas_interpret(big, m, dtype):
+def test_w8a8_plain_matches_pallas_interpret(big, m, dtype, bits):
+    """Bit-equal, int8 weights and packed int4 ones (a (K, N / 2) uint8
+    weight against the Pallas kernels' `jnp.int4` (K, N))."""
     rng = np.random.default_rng(m)
-    jargs, targs = _operands(rng, m, 256, 384, dtype)
+    jargs, targs = _operands(rng, m, 256, 384, dtype, bits)
     if big:
         want = JK.quantized_matmul_big(*jargs, interpret=True)
         got = KQ.quantized_matmul_big(*targs)
@@ -171,13 +181,34 @@ def test_matmul_dispatch_matches_jax(on_tpu, monkeypatch, lead, k, n_shape,
         np.testing.assert_array_equal(got.numpy(), want)
 
 
-def test_int4_weights_under_pallas_raise():
+def test_int4_weights_under_pallas_raise(on_tpu, monkeypatch):
+    """int4 weights under int8_impl="pallas" raise nothing: a (k, 3, d)
+    weight packs to (k, 3, d / 2) and flattens to the kernels' (k, n / 2)
+    with its column pairs intact. K6 (M = 5) and K7 (M = 1100) take it and
+    equal JAX's `_matmul` over the same `jnp.int4` weight on its Pallas
+    path; int8_impl="xla" keeps the dequant product."""
+    calls = []
+    for name in ("quantized_matmul", "quantized_matmul_big"):
+        fn = getattr(TM, name)
+        monkeypatch.setattr(TM, name, lambda *a, _f=fn, _n=name, **kw: (
+            calls.append(_n), _f(*a, **kw))[1])
     rng = np.random.default_rng(0)
-    _, tw = _qweight(rng, 128, (256,), bits=4)
-    x = torch.zeros(3, 128)
-    with pytest.raises(NotImplementedError, match="queue 2"):
-        TM._matmul(x, tw, "pallas")
-    assert TM._matmul(x, tw, "xla").shape == (3, 256)  # dequant path
+    k, n_shape = 128, (3, 128)
+    w = rng.standard_normal((k, *n_shape)).astype(np.float32) * 0.05
+    scale = np.abs(w).max(axis=0) / 7
+    q = np.clip(np.round(w / scale), -7, 7).astype(np.int8)
+    jw = JQ.QTensor(jnp.asarray(q, jnp.int4), jnp.asarray(scale))
+    tw = TQ.QTensor(TQ.pack_int4(torch.from_numpy(q)),
+                    torch.from_numpy(scale))
+    for m in (5, 1100):
+        x = rng.standard_normal((m, k)).astype(np.float32)
+        with jcfg.active_knobs(jcfg.KernelKnobs(int8_impl="pallas")):
+            want = np.asarray(JM._matmul(jnp.asarray(x), jw))
+        got = TM._matmul(torch.from_numpy(x), tw, "pallas")
+        assert got.shape == want.shape == (m, 3, 128)
+        np.testing.assert_array_equal(got.numpy(), want)
+    assert calls == ["quantized_matmul", "quantized_matmul_big"]
+    assert TM._matmul(torch.zeros(3, 128), tw, "xla").shape == (3, 3, 128)
 
 
 @pytest.mark.parametrize("bits", [8, 4])
@@ -216,30 +247,34 @@ def test_kernel_knobs():
     assert TCFG.to_cfg_dict() == tcfg.tiny_test_config(**DIMS).to_cfg_dict()
 
 
-@pytest.fixture(scope="module")
-def model():
+@pytest.fixture(scope="module", params=[8, 4], ids=["int8", "int4"])
+def model(request):
     """Random params (f32), their JAX `quantize_params(quantize_encoder=
-    True)` tree as numpy, and 4 windows of mel."""
+    True, bits=8 or 4)` tree as numpy, and 4 windows of mel."""
     params = JM.init_params(jax.random.PRNGKey(3), JCFG)
     qp = jax.tree.map(np.asarray, JQ.quantize_params(
-        params, quantize_encoder=True, bits=8))
+        params, quantize_encoder=True, bits=request.param))
     mel = np.random.default_rng(5).standard_normal(
         (4, 80, 600)).astype(np.float32) * 0.5
     return qp, from_numpy_tree(qp), mel
 
 
 def test_quantized_tree_carries_over(model):
-    """A JAX quantize_params(quantize_encoder=True) tree converts with
-    from_numpy_tree and gives the same encoder output on the dequant path
-    (the default knobs)."""
+    """A JAX quantize_params(quantize_encoder=True) tree, int8 or int4,
+    converts with from_numpy_tree (int4 packed to uint8, values equal) and
+    gives the same encoder output on the dequant path (the default
+    knobs)."""
     qp, tp, mel = model
     jc, tc = (dataclasses.replace(c, knobs=k.KernelKnobs())
               for c, k in ((JCFG, jcfg), (TCFG, tcfg)))
+    int4 = qp["encoder"]["blocks"]["qkv_w"].q.dtype == jnp.int4
     for key in ("qkv_w", "mlp1_w", "mlp2_w"):
         w = tp["encoder"]["blocks"][key]
-        assert isinstance(w, TQ.QTensor) and w.q.dtype == torch.int8
-        np.testing.assert_array_equal(w.q.numpy(),
-                                      qp["encoder"]["blocks"][key].q)
+        assert isinstance(w, TQ.QTensor)
+        assert w.q.dtype == (torch.uint8 if int4 else torch.int8)
+        np.testing.assert_array_equal(
+            TQ.int_values(w.q).numpy(),
+            qp["encoder"]["blocks"][key].q.astype(np.int8))
     with jax.default_matmul_precision("highest"):
         want = np.asarray(JM.encoder_forward(jax.tree.map(jnp.asarray, qp),
                                              jnp.asarray(mel[:1]), jc))
@@ -250,7 +285,8 @@ def test_quantized_tree_carries_over(model):
 def test_w8a8_model_matches_jax(model, on_tpu, monkeypatch):
     """encoder_forward over 4 windows (1200 rows: K7), init_cache (the
     cross-KV vmap fallback), the prefill decoder_step (M = 4 x 4 rows: K6)
-    and three S = 1 steps, all under int8_impl="pallas"."""
+    and three S = 1 steps, all under int8_impl="pallas", over int8 and
+    over int4 weights."""
     qp, tp, mel = model
     calls = {"quantized_matmul": 0, "quantized_matmul_big": 0}
     for name in calls:

@@ -10,9 +10,11 @@ after a warm-up run of each; then the same two over int8 weight-only
 cross and self caches; beam: the bench's int4 cross and int8 self
 caches, through the fused reshuffle), first with the dequant-in-matmul
 products (int8_impl="xla"), then with the W8A8 kernels K6/K7
-(int8_impl="pallas", encoder weights int8 too); last the W8A8 beam over
+(int8_impl="pallas", encoder weights int8 too); then the W8A8 beam over
 4 windows at once (`beam_search_batched`, 20 lanes: the full windows of
-chip_smoke's two 35 s streams). Each decode runs once under the host clock
+chip_smoke's two 35 s streams); last greedy and beam over packed-int4
+weights under int8_impl="pallas" with int4 cross and self caches (K6, K3
+/ K3g over int4, K3s and K5 over the int4 self cache). Each decode runs once under the host clock
 alone and once under `torch.profiler`; the profile gives the device time
 per kernel name, the number of kernel launches, and the device's busy
 share (summed kernel time over the host-clock wall time of the unprofiled
@@ -81,6 +83,7 @@ def main() -> int:
                   max_depth=args.depth)
     qparams = quantize_params(params, bits=8)
     wparams = quantize_params(params, quantize_encoder=True, bits=8)
+    w4params = quantize_params(params, quantize_encoder=True, bits=4)
     w8a8 = dataclasses.replace(cfg, knobs=KernelKnobs(int8_impl="pallas"))
     waves = [synthetic_speech(35 * 16000, SEED + s) for s in (0, 1)]
     with torch.inference_mode():
@@ -105,7 +108,13 @@ def main() -> int:
                 self_quant=True, **common),
             "beam5_w8a8_int4kv_4windows": lambda: beam_search_batched(
                 wparams, enc4, prompt, w8a8, beam_size=5, kv_quant="int4",
-                self_quant=True, **common)}
+                self_quant=True, **common),
+            "greedy_w4a8_int4kv_int4self": lambda: greedy_decode(
+                w4params, enc, prompt, w8a8, kv_quant="int4",
+                self_quant="int4", **common),
+            "beam5_w4a8_int4kv_int4self": lambda: beam_search(
+                w4params, enc, prompt, w8a8, beam_size=5, kv_quant="int4",
+                self_quant="int4", **common)}
     for name, fn in runs.items():
         with torch.inference_mode():
             fn()  # warm-up

@@ -2,9 +2,9 @@
 
 The JAX package `whisper_tpu` stays the reference. This package imports
 torch and never jax, and nothing of `whisper_tpu`: it keeps its own copies
-of the jax-free parts it needs (config, tokenizer, io, vad). Its
-hand-written CUDA kernels build at first use (ops/kernels/_build.py), never
-at import.
+of the jax-free parts it needs (config, tokenizer, io, vad, the WER
+harness and its text normalizers). Its hand-written CUDA kernels build at
+first use (ops/kernels/_build.py), never at import.
 """
 
 __version__ = "0.1.0"

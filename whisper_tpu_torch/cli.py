@@ -3,6 +3,8 @@
     python -m whisper_tpu_torch.cli transcribe <model> <audio.wav> <lang> <out.txt>
     python -m whisper_tpu_torch.cli transcribe-many <model> <lang> <out dir> <wav...>
     python -m whisper_tpu_torch.cli detect-lang <model> <audio.wav>
+    python -m whisper_tpu_torch.cli eval <model> <dataset> [lang]
+    python -m whisper_tpu_torch.cli quant-check <model>
 
 Keeps the reference's positional contract (whisper-burn
 src/bin/transcribe/main.rs:85-94) and its progress lines, as
@@ -22,7 +24,11 @@ fallback ladder), `--no-speech-threshold`, `--vad`, `--timestamps` with
 prints the JSON line of `whisper_tpu.cli detect-lang`.
 `transcribe-many` (as `whisper_tpu.cli transcribe-many`) decodes several
 files' full windows together in batches of `--batch-size` and writes
-`<stem>.txt` per input into the output directory.
+`<stem>.txt` per input into the output directory. `eval` (WER over a
+LibriSpeech-layout directory or a manifest) and `quant-check` (the
+quantization agreement gate: int8 weights and quantized caches against
+the bf16 path on seeded audio, exit 1 unless tokens match) keep the JAX
+commands' flags, JSON line and exit codes, plus `--device`.
 """
 
 from __future__ import annotations
@@ -436,9 +442,144 @@ def cmd_transcribe_many(argv) -> int:
     return 0
 
 
+def cmd_eval(argv) -> int:
+    p = argparse.ArgumentParser(
+        prog="whisper_tpu_torch eval",
+        description="WER evaluation over a local dataset (LibriSpeech layout "
+                    "or manifest file) on the PyTorch/CUDA port.")
+    p.add_argument("model")
+    p.add_argument("dataset", help="LibriSpeech-style directory, or a "
+                                   ".tsv/.jsonl manifest (audio<TAB>text)")
+    p.add_argument("lang", nargs="?", default="en")
+    p.add_argument("--tokenizer", default=None)
+    p.add_argument("--greedy", action="store_true")
+    p.add_argument("--limit", type=int, default=None)
+    p.add_argument("--basic-normalizer", action="store_true",
+                   help="language-agnostic normalization instead of the "
+                        "OpenAI-style English rules")
+    _add_device_args(p)
+    p.add_argument("-v", "--verbose", action="count", default=0)
+    args = p.parse_args(argv)
+
+    if _no_card(args.device):
+        return 1
+    from .config import SAMPLE_RATE
+    from .eval import wer as werlib
+    from .io import checkpoint, native as wav_native, wav
+    from .pipeline.transcribe import DecodeOptions, Transcriber
+    from .text.tokenizer import WhisperTokenizer
+
+    _configure_logging(args.verbose)
+    tok_path = args.tokenizer or os.path.join(
+        os.path.dirname(os.path.abspath(args.model)), "tokenizer.json")
+    tokenizer = WhisperTokenizer(tok_path)
+    params, cfg = checkpoint.load_params(args.model)
+    t = Transcriber(params, cfg, tokenizer, dtype=_dtype(args),
+                    device=args.device)
+    opts = DecodeOptions(lang=args.lang,
+                         strategy="greedy" if args.greedy else "beam")
+
+    def transcribe_path(path: str) -> str:
+        waveform, rate = wav_native.load_audio(path)  # WAV or FLAC
+        if rate != SAMPLE_RATE:
+            waveform = wav.resample(waveform, rate, SAMPLE_RATE)
+        text, _ = t.transcribe(waveform, SAMPLE_RATE, opts,
+                               on_chunk=lambda *a: None)
+        return text
+
+    if os.path.isdir(args.dataset):
+        items = werlib.iter_librispeech(args.dataset)
+    else:
+        items = werlib.iter_manifest(args.dataset)
+
+    def progress(i, audio, ref, hyp, res):
+        print(f"[{i}] WER so far: {res.wer:.4f} ({res.errors}/{res.words})",
+              file=sys.stderr)
+
+    result = werlib.evaluate(transcribe_path, items, limit=args.limit,
+                             on_item=progress if args.verbose else None,
+                             english=not args.basic_normalizer)
+    print(json.dumps({"wer": round(result.wer, 5), "errors": result.errors,
+                      "words": result.words,
+                      "utterances": result.utterances}))
+    return 0
+
+
+def cmd_quant_check(argv) -> int:
+    p = argparse.ArgumentParser(
+        prog="whisper_tpu_torch quant-check",
+        description="Quantization agreement gate: decode with int8 weights "
+                    "(+ optional int8 cross-KV) vs the bf16 reference path "
+                    "on fixed synthetic inputs; fails unless tokens match.")
+    p.add_argument("model", help="checkpoint (.safetensors/.cfg, npy dir, "
+                                 "or .mpk.gz)")
+    p.add_argument("--tokenizer", default=None)
+    p.add_argument("--kv", choices=["int8", "int4", "none"], default="int8",
+                   help="also quantize the cross-attention KV cache")
+    p.add_argument("--self-kv", choices=["int8", "none"], default="int8",
+                   help="also quantize the self-attention KV cache")
+    p.add_argument("--windows", type=int, default=8)
+    p.add_argument("--max-depth", type=int, default=32)
+    p.add_argument("--min-token-match", type=float, default=0.99)
+    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                   help="where the model runs (default: the CUDA card, "
+                        "through the port's kernels; the CPU, on the plain "
+                        "path, only when asked for)")
+    p.add_argument("-v", "--verbose", action="count", default=0)
+    args = p.parse_args(argv)
+
+    if _no_card(args.device):
+        return 1
+    import dataclasses
+
+    import torch
+
+    from .eval import agreement
+    from .io import checkpoint
+    from .params import from_numpy_tree
+    from .quantize import quantize_params
+    from .text.tokenizer import WhisperTokenizer
+
+    _configure_logging(args.verbose)
+    tree, cfg = checkpoint.load_params(args.model)
+    # bf16 weights, as the JAX command casts them; the kernels on the card
+    params = from_numpy_tree(tree, args.device, torch.bfloat16)
+    cfg = dataclasses.replace(
+        cfg, attention="flash" if args.device == "cuda" else "xla")
+    tok_path = args.tokenizer or os.path.join(
+        os.path.dirname(os.path.abspath(args.model)), "tokenizer.json")
+    if os.path.exists(tok_path):
+        tok = WhisperTokenizer(tok_path)
+        prompt = tok.prompt_ids("en")
+        suppress = tok.suppress_mask()
+        eot = tok.eot
+    else:  # no tokenizer next to the weights: structural ids still gate
+        print(f"# no tokenizer at {tok_path}; using synthetic prompt",
+              file=sys.stderr)
+        v = cfg.text_decoder_config.n_vocab
+        prompt, suppress, eot = [v - 8, v - 7, v - 6, v - 5], None, v - 1
+
+    report = agreement.decode_agreement(
+        params, quantize_params(params), cfg, eot_id=eot, prompt=prompt,
+        suppress_mask=suppress, max_depth=args.max_depth,
+        n_windows=args.windows,
+        kv_quant_test=False if args.kv == "none" else args.kv,
+        self_quant_test=args.self_kv == "int8")
+    print(json.dumps(report))
+    try:
+        agreement.gate(report, min_token_match=args.min_token_match)
+    except AssertionError as e:
+        print(f"FAIL: {e}", file=sys.stderr)
+        return 1
+    print("PASS", file=sys.stderr)
+    return 0
+
+
 COMMANDS = {"transcribe": cmd_transcribe,
             "transcribe-many": cmd_transcribe_many,
-            "detect-lang": cmd_detect_lang}
+            "detect-lang": cmd_detect_lang,
+            "eval": cmd_eval,
+            "quant-check": cmd_quant_check}
 
 
 def main(argv=None) -> int:
@@ -462,6 +603,14 @@ def main(argv=None) -> int:
               "       python -m whisper_tpu_torch.cli detect-lang <model> "
               "<audio> [--top N] [--vote-windows N] [--resample] "
               "[--device cuda|cpu] [--dtype float32|bfloat16] "
+              "[--tokenizer PATH]\n"
+              "       python -m whisper_tpu_torch.cli eval <model> <dataset> "
+              "[lang] [--greedy] [--limit N] [--basic-normalizer] "
+              "[--device cuda|cpu] [--dtype float32|bfloat16] "
+              "[--tokenizer PATH]\n"
+              "       python -m whisper_tpu_torch.cli quant-check <model> "
+              "[--kv int8|int4|none] [--self-kv int8|none] [--windows N] "
+              "[--max-depth N] [--min-token-match R] [--device cuda|cpu] "
               "[--tokenizer PATH]", file=sys.stderr)
         return 2
     return COMMANDS[argv[0]](argv[1:])

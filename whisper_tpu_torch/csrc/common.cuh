@@ -71,6 +71,74 @@ struct Vec16<float> {
   }
 };
 
+// Cache storage types, as the decode-attention kernels (K3/K3g/K3s) and the
+// fused beam kernel (K5) read them: 8 channels of a row at a time. E is the
+// stored element, CPE the channels per element. The integer types also
+// expose the raw bytes of 8 channels (Raw: 8 bytes of int8, 4 bytes of
+// packed int4), so a kernel that copies rows (K5) stores exactly what it
+// read and unpacks the same registers.
+struct Int4 {};  // storage tag: packed int4 in uint8 (two's-complement
+                 // nibbles, low nibble = even channel)
+
+template <typename S>
+struct Store;
+
+template <>
+struct Store<__nv_bfloat16> {
+  using E = __nv_bfloat16;
+  static constexpr int CPE = 1;
+  __device__ __forceinline__ static void load8(const E* p, float* out) {
+    Vec16<__nv_bfloat16>::load(p, out);
+  }
+};
+
+template <>
+struct Store<float> {
+  using E = float;
+  static constexpr int CPE = 1;
+  __device__ __forceinline__ static void load8(const E* p, float* out) {
+    Vec16<float>::load(p, out);
+    Vec16<float>::load(p + 4, out + 4);
+  }
+};
+
+template <>
+struct Store<int8_t> {
+  using E = int8_t;
+  using Raw = uint2;
+  static constexpr int CPE = 1;
+  __device__ __forceinline__ static Raw raw8(const E* p) {
+    return *reinterpret_cast<const Raw*>(p);
+  }
+  __device__ __forceinline__ static void unpack8(Raw raw, float* out) {
+    const int8_t* v = reinterpret_cast<const int8_t*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) out[i] = (float)v[i];
+  }
+  __device__ __forceinline__ static void load8(const E* p, float* out) {
+    unpack8(raw8(p), out);
+  }
+};
+
+template <>
+struct Store<Int4> {
+  using E = uint8_t;
+  using Raw = uint32_t;
+  static constexpr int CPE = 2;
+  __device__ __forceinline__ static Raw raw8(const E* p) {
+    return *reinterpret_cast<const Raw*>(p);
+  }
+  // nibble i (bits 4i..4i+3) is channel i: shift it to the top, then an
+  // arithmetic shift back sign-extends it
+  __device__ __forceinline__ static void unpack8(Raw raw, float* out) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) out[i] = (float)((int)(raw << (28 - 4 * i)) >> 28);
+  }
+  __device__ __forceinline__ static void load8(const E* p, float* out) {
+    unpack8(raw8(p), out);
+  }
+};
+
 // mbarriers and TMA (Hopper): the shared-memory address of a generic
 // pointer, barrier init / arrive / expect-tx, a wait on a phase, a TMA box
 // copy, and libcuda's tensor-map encoder.

@@ -3,10 +3,10 @@
 //
 // Replaces: whisper_tpu/ops/pallas/decode_attention.py::
 // _decode_attn_stacked_kernel (K3, entry decode_attention_stacked) and
-// _decode_attn_stacked_scaled_kernel (K3s, the int8 self cache with per-row
-// scales). The kernel takes the base pointer of the whole stacked cache, its
-// (lane, layer, row) strides and the layer index, so both stackings are
-// served without a per-layer staging copy:
+// _decode_attn_stacked_scaled_kernel (K3s, the int8 or packed-int4 self
+// cache with per-row scales). The kernel takes the base pointer of the
+// whole stacked cache, its (lane, layer, row) strides and the layer index,
+// so both stackings are served without a per-layer staging copy:
 //   self cache  (B, L, C, d)  batch-major
 //   cross cache (L, B, Sa, d) layer-major
 // One block per (head, lane). Each thread holds 8 channels of a row of one
@@ -21,7 +21,7 @@
 // query's type (the TPU kernel's out_shape for an integer cache). The
 // per-channel scales of a quantized cross cache are folded into the query
 // and the output by the caller, so the kernel itself is scale-free; the
-// per-row scales of the int8 self cache (K3s) are read here.
+// per-row scales of the int8 / int4 self cache (K3s) are read here.
 //
 // Numerics follow the TPU kernel's _attend: scores are exact f32 dot
 // products of the (pre-scaled) query with the stored keys (integers are
@@ -39,10 +39,10 @@
 // 2 * Sa * d * 2 B = 3.84 MB per lane per layer in bf16 (Sa = 750), half
 // that in int8 and a quarter in int4; the self cache at most
 // 2 * C * d * 2 B = 0.66 MB per lane per layer (C = 128), 0.33 MB in int8
-// plus 1 KB of row scales; against 2 FLOP per value. Reading only the
-// visible prefix (n = min(pos + 1, c_used) rows) and storing fewer bits are
-// what the design does about it; a split over Sa for B = 1 (only B * 20
-// blocks) is later work.
+// and 0.16 MB in int4, plus 1 KB of row scales; against 2 FLOP per value.
+// Reading only the visible prefix (n = min(pos + 1, c_used) rows) and
+// storing fewer bits are what the design does about it; a split over Sa
+// for B = 1 (only B * 20 blocks) is later work.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -61,53 +61,9 @@ constexpr int RPB = RPW * WARPS;   // rows the block reads at once
 constexpr int GROUP = 8;           // most q lanes one K3g block holds
 constexpr int MAX_SPLITS = 8;      // most blocks of a K3g cluster (portable)
 
-struct Int4 {};  // storage tag: packed int4 in uint8
-
-// Load 8 channels of one row (p points at the first) as floats.
-template <typename S>
-struct Store;
-
-template <>
-struct Store<__nv_bfloat16> {
-  using E = __nv_bfloat16;
-  static constexpr int CPE = 1;  // channels per stored element
-  __device__ __forceinline__ static void load8(const E* p, float* out) {
-    wtt::Vec16<__nv_bfloat16>::load(p, out);
-  }
-};
-
-template <>
-struct Store<float> {
-  using E = float;
-  static constexpr int CPE = 1;
-  __device__ __forceinline__ static void load8(const E* p, float* out) {
-    wtt::Vec16<float>::load(p, out);
-    wtt::Vec16<float>::load(p + 4, out + 4);
-  }
-};
-
-template <>
-struct Store<int8_t> {
-  using E = int8_t;
-  static constexpr int CPE = 1;
-  __device__ __forceinline__ static void load8(const E* p, float* out) {
-    const uint2 raw = *reinterpret_cast<const uint2*>(p);
-    const int8_t* v = reinterpret_cast<const int8_t*>(&raw);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) out[i] = (float)v[i];
-  }
-};
-
-template <>
-struct Store<Int4> {
-  using E = uint8_t;
-  static constexpr int CPE = 2;
-  __device__ __forceinline__ static void load8(const E* p, float* out) {
-    const uint32_t raw = *reinterpret_cast<const uint32_t*>(p);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) out[i] = (float)((int)(raw << (28 - 4 * i)) >> 28);
-  }
-};
+// Load 8 channels of one row (p points at the first) as floats: common.cuh.
+using wtt::Int4;
+using wtt::Store;
 
 // The softmax weight as the value sum sees it: rounded to bf16 once for a
 // bf16 query, f32 otherwise.
@@ -625,8 +581,8 @@ int dispatch(int rep, int splits, const void* q, const void* k, const void* v, c
 // kv row (1: the per-lane K3 kernel, >= 2: the grouped K3g kernel), splits
 // the cluster size K3g splits each kv row's visible rows over (1..8; K3
 // ignores it). storage: 0 bf16, 1 f32, 2 int8, 3 packed int4; q_f32 selects an f32
-// query and output (else bf16). ks/vs (K3s): null, or the int8 cache's f32
-// row scales with strides s_lane/s_layer (rep must be 1).
+// query and output (else bf16). ks/vs (K3s): null, or the int8 / int4
+// cache's f32 row scales with strides s_lane/s_layer (rep must be 1).
 extern "C" int wtt_decode_attention(const void* q, const void* k, const void* v,
                                     const void* pos, void* out, const void* ks, const void* vs,
                                     int B, int H, int rep, int splits, int c_used, int layer,
@@ -642,8 +598,11 @@ extern "C" int wtt_decode_attention(const void* q, const void* k, const void* v,
   const Strides st{q_sb, k_lane, k_layer, k_row, v_lane, v_layer, v_row, s_lane, s_layer, o_sb};
   using bf16 = __nv_bfloat16;
   if (ks != nullptr || vs != nullptr) {
-    if (ks == nullptr || vs == nullptr || rep != 1 || storage != 2)
+    if (ks == nullptr || vs == nullptr || rep != 1 || (storage != 2 && storage != 3))
       return (int)cudaErrorInvalidValue;
+    if (storage == 3)
+      return q_f32 ? launch<Int4, float, true>(q, k, v, p, ks, vs, out, B, H, c_used, layer, st, s)
+                   : launch<Int4, bf16, true>(q, k, v, p, ks, vs, out, B, H, c_used, layer, st, s);
     return q_f32 ? launch<int8_t, float, true>(q, k, v, p, ks, vs, out, B, H, c_used, layer, st, s)
                  : launch<int8_t, bf16, true>(q, k, v, p, ks, vs, out, B, H, c_used, layer, st, s);
   }

@@ -1,5 +1,6 @@
-// W8A8 matrix product: per-row dynamic int8 activations times int8 weights,
-// exact int32 accumulation, f32 (row scale x column scale) epilogue.
+// W8A8 matrix product: per-row dynamic int8 activations times int8 (or
+// packed int4) weights, exact int32 accumulation, f32 (row scale x column
+// scale) epilogue.
 //
 //   xs[m]  = absmax_m > 0 ? absmax_m * (1/127) : 1          (absmax over row m)
 //   xq     = clip(rint(x / xs), -127, 127)       K6, quantized_matmul
@@ -30,8 +31,19 @@
 // step's loads are issued into registers before the current step's products
 // (one stage of register double buffering).
 //
+// Packed int4 weights (the same kernels, template flag INT4): (K, N / 2)
+// uint8, two two's-complement nibbles a byte, the low nibble the even
+// column (quantize.py's layout). The 4 columns a thread takes from a k row
+// are one 16-bit load; `expand4` sign-extends its four nibbles into the four
+// bytes of the 32-bit word the int8 load would have given, before the
+// transpose, so the n-major shared tiles, the s8 x s8 mma and the f32
+// epilogue are the int8 path's. The int32 sums of the same integer values
+// are exact, so the output is bit-equal to the int8 kernel's over the
+// unpacked weight (and to the plain version).
+//
 // Bound on the H100. At decode M (1, 5, 20 rows) the weight stream bounds
-// it: 1280 x 3840 int8 is 4.9 MB, ~1.5 us at 3.35 TB/s. Two tile shapes:
+// it: 1280 x 3840 int8 is 4.9 MB, ~1.5 us at 3.35 TB/s (int4: 2.5 MB,
+// ~0.7 us). Two tile shapes:
 //   * M <= 64 (decode, prefill): 16-row tiles, 32 columns a block, the K
 //     steps split over the block's 8 warps (each with its own shared tiles
 //     and one K step in flight), the partial int32 sums added in shared
@@ -101,6 +113,29 @@ __device__ __forceinline__ void mma_s8(int* c, const unsigned* a, unsigned b0, u
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// Four packed int4 values (16 bits, value j in bits 4j..4j+3) -> four
+// sign-extended int8 bytes (byte j = value j): spread the nibbles to the
+// bytes, then copy each nibble's sign bit (bit 3 of its byte) into bits 4-7
+// of the same byte (s * 0x1E sets bits 4..7 from bit 3, no carry across
+// bytes).
+__device__ __forceinline__ unsigned expand4(unsigned h) {
+  const unsigned x = (h & 0xFu) | ((h & 0xF0u) << 4) | ((h & 0xF00u) << 8) | ((h & 0xF000u) << 12);
+  const unsigned s = x & 0x08080808u;
+  return x | (s * 0x1Eu);
+}
+
+// The 4 int8 weights of columns [col, col + 4) of k row `row` as one
+// 32-bit word (byte j = column col + j); INT4 reads them from the packed
+// (K, N / 2) layout (col is a multiple of 4, so the load is 2-byte aligned).
+template <bool INT4>
+__device__ __forceinline__ unsigned load_w4(const int8_t* wq, long long row, int col, int N) {
+  if constexpr (INT4) {
+    const uint8_t* p = reinterpret_cast<const uint8_t*>(wq) + row * (N / 2) + col / 2;
+    return expand4(__ldg(reinterpret_cast<const unsigned short*>(p)));
+  }
+  return __ldg(reinterpret_cast<const unsigned*>(wq + row * N + col));
+}
+
 // rows r[0..3] hold 4 bytes (n0..n3) of k0..k3; w[j] = the 4 k bytes of n_j.
 __device__ __forceinline__ void transpose4x4(const unsigned* r, unsigned* w) {
   const unsigned t0 = __byte_perm(r[0], r[1], 0x5140);
@@ -124,7 +159,7 @@ constexpr int SMALL_M = 64;
 constexpr int SM_BN = 32;
 constexpr int SM_WARPS = THREADS / 32;
 
-template <typename O>
+template <typename O, bool INT4>
 __global__ void __launch_bounds__(THREADS)
 gemm_small_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xs,
                   const int8_t* __restrict__ wq, const float* __restrict__ ws,
@@ -153,9 +188,8 @@ gemm_small_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xs,
 #pragma unroll
     for (int i = 0; i < 4; ++i) {  // 16 k-blocks x 8 n-blocks of 4 x 4 bytes
       const int kb = (lane >> 3) + 4 * i, nb = lane & 7;
-      const int8_t* p = wq + (long long)(k0 + 4 * kb) * N + n0 + 4 * nb;
 #pragma unroll
-      for (int r = 0; r < 4; ++r) rb[i][r] = __ldg(reinterpret_cast<const unsigned*>(p + (long long)r * N));
+      for (int r = 0; r < 4; ++r) rb[i][r] = load_w4<INT4>(wq, k0 + 4 * kb + r, n0 + 4 * nb, N);
     }
   };
   auto store = [&]() {
@@ -233,7 +267,7 @@ __device__ __forceinline__ void store_pair<float>(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
 
-template <typename O>
+template <typename O, bool INT4>
 __global__ void __launch_bounds__(THREADS)
 gemm_big_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xs,
                 const int8_t* __restrict__ wq, const float* __restrict__ ws,
@@ -260,9 +294,8 @@ gemm_big_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xs,
 #pragma unroll
     for (int i = 0; i < 2; ++i) {  // 16 k-blocks x 32 n-blocks of 4 x 4 bytes
       const int kb = (tid >> 5) + 8 * i, nb = tid & 31;
-      const int8_t* p = wq + (long long)(k0 + 4 * kb) * N + n0 + 4 * nb;
 #pragma unroll
-      for (int r = 0; r < 4; ++r) rb[i][r] = __ldg(reinterpret_cast<const unsigned*>(p + (long long)r * N));
+      for (int r = 0; r < 4; ++r) rb[i][r] = load_w4<INT4>(wq, k0 + 4 * kb + r, n0 + 4 * nb, N);
     }
   };
 
@@ -323,7 +356,7 @@ gemm_big_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xs,
   }
 }
 
-template <typename T, typename O>
+template <typename T, typename O, bool INT4>
 void launch(const void* x, const int8_t* wq, const float* ws, void* out, int8_t* xq, float* xs,
             int M, int K, int N, bool big, cudaStream_t st) {
   if (big)
@@ -332,23 +365,33 @@ void launch(const void* x, const int8_t* wq, const float* ws, void* out, int8_t*
     quantize_rows_kernel<T, false><<<M, THREADS, 0, st>>>((const T*)x, xq, xs, K);
   if (M <= SMALL_M) {
     dim3 grid(N / SM_BN, (M + 15) / 16);
-    gemm_small_kernel<O><<<grid, THREADS, 0, st>>>(xq, xs, wq, ws, (O*)out, M, K, N);
+    gemm_small_kernel<O, INT4><<<grid, THREADS, 0, st>>>(xq, xs, wq, ws, (O*)out, M, K, N);
   } else {
     dim3 grid(N / BG_BN, (M + BG_BM - 1) / BG_BM);
-    gemm_big_kernel<O><<<grid, THREADS, 0, st>>>(xq, xs, wq, ws, (O*)out, M, K, N);
+    gemm_big_kernel<O, INT4><<<grid, THREADS, 0, st>>>(xq, xs, wq, ws, (O*)out, M, K, N);
   }
+}
+
+template <typename T, typename O>
+void launch_w(const void* x, const int8_t* wq, const float* ws, void* out, int8_t* xq,
+              float* xs, int M, int K, int N, bool big, bool int4, cudaStream_t st) {
+  if (int4)
+    launch<T, O, true>(x, wq, ws, out, xq, xs, M, K, N, big, st);
+  else
+    launch<T, O, false>(x, wq, ws, out, xq, xs, M, K, N, big, st);
 }
 
 }  // namespace
 
 // x: (M, K) contiguous, x_dtype 0 = bf16, 1 = f32; wq: (K, N) int8
-// row-major; ws: (N,) f32; out: (M, N), out_dtype 0 = bf16, 1 = f32; xq
+// row-major, or with w_int4 = 1 (K, N / 2) uint8 of packed int4 (low nibble
+// = even column); ws: (N,) f32; out: (M, N), out_dtype 0 = bf16, 1 = f32; xq
 // (M, K) int8 and xs (M,) f32: scratch. big = 0: K6's rounding (x / xs), 1:
 // K7's (x * 127 / absmax). Returns cudaErrorInvalidValue for shapes or
 // pointers the kernels do not take.
 extern "C" int wtt_w8a8_matmul(const void* x, const void* wq, const void* ws, void* out,
                                void* xq, void* xs, int M, int K, int N, int x_dtype,
-                               int out_dtype, int big, void* stream) {
+                               int out_dtype, int big, int w_int4, void* stream) {
   auto misaligned = [](const void* p, unsigned a) {
     return reinterpret_cast<unsigned long long>(p) % a != 0;
   };
@@ -361,14 +404,14 @@ extern "C" int wtt_w8a8_matmul(const void* x, const void* wq, const void* ws, vo
   const float* s = (const float*)ws;
   int8_t* q = (int8_t*)xq;
   float* xsp = (float*)xs;
-  const bool b = big != 0;
+  const bool b = big != 0, i4 = w_int4 != 0;
   if (x_dtype == 0 && out_dtype == 0)
-    launch<__nv_bfloat16, __nv_bfloat16>(x, w, s, out, q, xsp, M, K, N, b, st);
+    launch_w<__nv_bfloat16, __nv_bfloat16>(x, w, s, out, q, xsp, M, K, N, b, i4, st);
   else if (x_dtype == 0)
-    launch<__nv_bfloat16, float>(x, w, s, out, q, xsp, M, K, N, b, st);
+    launch_w<__nv_bfloat16, float>(x, w, s, out, q, xsp, M, K, N, b, i4, st);
   else if (out_dtype == 0)
-    launch<float, __nv_bfloat16>(x, w, s, out, q, xsp, M, K, N, b, st);
+    launch_w<float, __nv_bfloat16>(x, w, s, out, q, xsp, M, K, N, b, i4, st);
   else
-    launch<float, float>(x, w, s, out, q, xsp, M, K, N, b, st);
+    launch_w<float, float>(x, w, s, out, q, xsp, M, K, N, b, i4, st);
   return (int)cudaGetLastError();
 }

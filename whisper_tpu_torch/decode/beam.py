@@ -22,17 +22,17 @@ rule). The cross cache stays at one copy for the window (bf16, or int8 /
 int4 with `kv_quant`), which the decode step reads through the grouped
 kernel (K3g). The self-KV reshuffle by the new beams' parents takes one of
 two routes, as in JAX:
-  * fused (the flash config over an int8 self cache, `self_quant`; JAX's
-    default knobs fused_permute=True and cow=True, so copy-on-write rides
-    every fused reshuffle, beam.py:179): the decode step's fused
-    kernel (K5) reads each lane's parent slab, appends, attends and writes
+  * fused (the flash config over an int8 or int4 self cache,
+    `self_quant`; JAX's default knobs fused_permute=True and cow=True, so
+    copy-on-write rides every fused reshuffle, beam.py:179): the decode
+    step's fused kernel (K5) reads each lane's parent slab, appends, attends and writes
     back in place, with copy-on-write slots from `_cow_assign` -- the
     cache lives in PHYSICAL slot order and `phys` maps each logical lane
     to its slot;
   * separate (bf16 caches, the "xla" config, or `fuse_reshuffle=False`):
     the lane-permute kernel (`ops/kernels/permute.py`, K4) copies the
-    caches into a second buffer pair (an int8 cache with its row scales,
-    only the valid row prefix), the decoder step appends in place, and
+    caches into a second buffer pair (a quantized cache with its row
+    scales, only the valid row prefix), the decoder step appends in place, and
     the pairs swap every step. Both pairs start zeroed (scales at one), so
     rows never written stay finite for the masked einsum path.
 """
@@ -128,9 +128,9 @@ def _topk_lse(x: torch.Tensor, k: int, seg: int = 128):
 
 def _fuse_reshuffle(self_k, cfg: WhisperConfig, allow=None) -> bool:
     """True when the reshuffle rides the fused decode kernel (K5): the
-    flash config over an int8 (QTensor) self cache, unless the caller
-    passes `allow=False` (beam.py:160, with the JAX knob default
-    fused_permute=True)."""
+    flash config over a quantized (QTensor: int8 or packed int4) self
+    cache, unless the caller passes `allow=False` (beam.py:160, with the
+    JAX knob default fused_permute=True)."""
     if allow is False:
         return False
     return cfg.attention == "flash" and isinstance(self_k, QTensor)
@@ -162,9 +162,9 @@ def _cache_gather(self_k, self_v, parents: torch.Tensor, out_k, out_v,
                   valid_len: Optional[int] = None):
     """Beam reshuffle of the batch-major (B, L, C, d) self-KV pair into
     (out_k, out_v): `out[i] = cache[parents[i]]` (beam.py:226-248). bf16
-    caches copy whole slabs; int8 QTensor caches permute their q and
-    row-scale arrays in the same K4 launch and, given `valid_len`, copy
-    only the row prefix [0, ceil(valid_len / 32) * 32) of q (the scales
+    caches copy whole slabs; quantized (int8 or packed int4) QTensor
+    caches permute their q (as bytes) and row-scale arrays in the same K4
+    launch and, given `valid_len`, copy only the row prefix [0, ceil(valid_len / 32) * 32) of q (the scales
     whole; a cache whose length is not a multiple of 32 copies
     everything)."""
     if isinstance(self_k, QTensor):
@@ -214,7 +214,7 @@ def beam_search(
     tensors, plus p(<|nospeech|>) at the SOT position when `nospeech_id`
     is given. The sequence includes the prompt. `kv_quant` / `self_quant`
     pick the cache types (`models/whisper.py::init_cache`);
-    `fuse_reshuffle=False` keeps an int8 self cache off the fused kernel
+    `fuse_reshuffle=False` keeps a quantized self cache off the fused kernel
     (module doc)."""
     k = beam_size
     dec_cfg = cfg.text_decoder_config
@@ -362,10 +362,11 @@ def beam_search_batched(
     masking its result-bearing state; the batch runs until every window
     has stopped, `max_depth` steps, or the context length. The cross cache
     holds one copy per window (lane i reads window i // K); the self cache
-    reshuffles as in `beam_search` (K5 with copy-on-write slots over an
-    int8 self cache on the flash config, else K4 into a spare pair). One
-    host sync per step reads the stop rule; the decoder step whose output
-    JAX computes and never reads after the last expansion is skipped.
+    reshuffles as in `beam_search` (K5 with copy-on-write slots over a
+    quantized self cache on the flash config, else K4 into a spare pair).
+    One host sync per step reads the stop rule; the decoder step whose
+    output JAX computes and never reads after the last expansion is
+    skipped.
 
     Returns (tokens (W, n_text_ctx) int64, lengths (W,), log_probs (W,)),
     plus p(<|nospeech|>) per window when `nospeech_id` is given."""

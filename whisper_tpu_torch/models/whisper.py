@@ -23,8 +23,9 @@ step through the hand-written kernels in `ops/kernels/` on a CUDA device
 Quantization (`quantize.py`): weights may be QTensors (int8 or packed
 int4, dequantized inside the matmul; int8 through the W8A8 kernels with
 `cfg.knobs.int8_impl="pallas"`, see `_matmul`), the cross cache int8/int4 with one
-scale per (layer, channel) (`kv_quant`), and the self cache int8 with one
-f32 scale per row (`self_quant`), appended through `_q8_rows`.
+scale per (layer, channel) (`kv_quant`), and the self cache int8 or
+packed int4 with one f32 scale per row (`self_quant`), appended through
+`_q8_rows`.
 """
 
 from __future__ import annotations
@@ -68,12 +69,14 @@ def _matmul(x: torch.Tensor, w, int8_impl: str = "xla") -> torch.Tensor:
     m = prod(x.shape[:-1]) rows and k, n the weight's in and out widths:
       * int8_impl="pallas", k and n multiples of 128: the W8A8 kernels,
         K6 (`quantized_matmul`) for m <= 1024 and K7
-        (`quantized_matmul_big`) above. The thresholds decide the numerics
-        (the two round the activations differently). JAX takes this branch
-        only on a TPU backend; the port on any device: on CPU tensors the
-        wrappers run their plain versions, so the port on the CPU computes
-        what JAX computes on a TPU. Packed int4 weights have no W8A8
-        kernel and raise;
+        (`quantized_matmul_big`) above, over int8 or packed int4 weights
+        (flattened to (k, n) or (k, n / 2): packing runs along the last
+        axis, so the pairs of a (k, ..., d) weight stay pairs of columns).
+        The thresholds decide the numerics (the two round the activations
+        differently). JAX takes this branch only on a TPU backend; the
+        port on any device: on CPU tensors the wrappers run their plain
+        versions, so the port on the CPU computes what JAX computes on a
+        TPU;
       * otherwise (int8_impl="xla", the default, or widths not multiples of
         128, JAX's own rule): x @ q (int4 unpacked first; the integers are
         exact in bf16) with the product kept in f32, as JAX's
@@ -86,16 +89,11 @@ def _matmul(x: torch.Tensor, w, int8_impl: str = "xla") -> torch.Tensor:
         k = w.q.shape[0]
         n = w.scale.numel()  # out channels (int4 q packs two per byte)
         if int8_impl == "pallas":
-            if w.q.dtype == torch.uint8:
-                raise NotImplementedError(
-                    "int4 weights under int8_impl='pallas' (K6/K7 over "
-                    "packed int4) are ROADMAP queue 2, not ported; use "
-                    "int8_impl='xla' or bits=8")
             lead = x.shape[:-1]
             m = x[..., 0].numel()
             if k % 128 == 0 and n % 128 == 0:
                 mm = quantized_matmul if m <= 1024 else quantized_matmul_big
-                y = mm(x.reshape(m, k).contiguous(), w.q.reshape(k, n),
+                y = mm(x.reshape(m, k).contiguous(), w.q.reshape(k, -1),
                        w.scale.reshape(n), out_dtype=x.dtype)
                 return y.reshape(*lead, *w.scale.shape)
         q = int_values(w.q)
@@ -309,7 +307,8 @@ class DecoderCache(NamedTuple):
     """Fixed-shape decoder state, updated IN PLACE by `decoder_step`.
 
     self_k/self_v: (B, L, cache_len, d), batch-major; with `self_quant`,
-    QTensor(int8 (B, L, C, d), f32 row scales (B, L, C));
+    QTensor(int8 (B, L, C, d) or packed int4 (B, L, C, d / 2), f32 row
+    scales (B, L, C));
     cross_k/cross_v: (L, W, Sa, d), layer-major, computed once per window;
     with `kv_quant`, QTensor(int8 or packed int4, f32 scales (L, d));
     W = B / R when R decode lanes share each window (beam search).
@@ -326,16 +325,21 @@ def _arr(t):
     return t.q if isinstance(t, QTensor) else t
 
 
-def _q8_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-row symmetric int8 quantization: x (..., d) -> (q int8 (..., d),
-    scale f32 (...)), one scale per cache row with no trailing 1
-    (whisper.py:520): scale = max|x| / 127 (1 for an all-zero row), q =
-    round(x / scale) clipped to +-127."""
+def _q8_rows(x: torch.Tensor, qdtype=torch.int8
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-row symmetric quantization: x (..., d) -> (q (..., d) int8, or
+    (..., d / 2) packed int4 for qdtype=torch.uint8 -- the dtype of the
+    cache it is written into --, scale f32 (...)), one scale per cache row
+    with no trailing 1 (whisper.py:521): scale = max|x| / lim (1 for an
+    all-zero row), q = round(x / scale) clipped to +-lim, lim 127 for int8
+    and 7 for int4."""
+    int4 = qdtype == torch.uint8
+    lim = 7.0 if int4 else 127.0
     x32 = x.float()
     a = x32.abs().amax(dim=-1, keepdim=True)
-    scale = torch.where(a > 0, a / 127.0, 1.0)
-    q = torch.clamp(torch.round(x32 / scale), -127, 127).to(torch.int8)
-    return q, scale[..., 0]
+    scale = torch.where(a > 0, a / lim, 1.0)
+    q = torch.clamp(torch.round(x32 / scale), -lim, lim).to(torch.int8)
+    return (pack_int4(q) if int4 else q), scale[..., 0]
 
 
 def _quantize_cross(x: torch.Tensor, bits: int) -> QTensor:
@@ -374,18 +378,14 @@ def init_cache(params: ParamTree, enc_out: torch.Tensor, cfg: WhisperConfig,
     beam case, whisper.py:584-593): lane i reads window i // R.
 
     `kv_quant` (True / "int8" / "int4") quantizes the cross cache with one
-    scale per (layer, channel); `self_quant` (True / "int8") makes the self
-    cache int8 with f32 row scales initialised to 1 (whisper.py:595-647).
-    Other values raise ValueError, as in JAX; self_quant="int4" is not
-    ported (ROADMAP queue 1 item 9) and raises NotImplementedError."""
+    scale per (layer, channel); `self_quant` (True / "int8" / "int4") makes
+    the self cache int8 (B, L, C, d), or packed int4 (B, L, C, d / 2)
+    uint8, with f32 row scales (B, L, C) initialised to 1
+    (whisper.py:595-647). Other values raise ValueError, as in JAX."""
     if kv_quant and kv_quant not in (True, "int8", "int4"):
         raise ValueError(f"unsupported kv_quant: {kv_quant!r}")
     if self_quant and self_quant not in (True, "int8", "int4"):
         raise ValueError(f"unsupported self_quant: {self_quant!r}")
-    if self_quant == "int4":
-        raise NotImplementedError(
-            "the int4 self-KV cache (self_quant='int4') is ROADMAP queue 1 "
-            "item 9, not ported yet")
     dec = params["decoder"]
     dec_cfg = cfg.text_decoder_config
     n_layer, d = dec_cfg.n_text_layer, dec_cfg.n_text_state
@@ -411,9 +411,12 @@ def init_cache(params: ParamTree, enc_out: torch.Tensor, cfg: WhisperConfig,
     c = min(cache_len or dec_cfg.n_text_ctx, dec_cfg.n_text_ctx)
     shape = (b, n_layer, c, d)
     if self_quant:
+        int4 = self_quant == "int4"
+        qshape = (*shape[:3], d // 2) if int4 else shape
+
         def qcache():
-            return QTensor(torch.zeros(shape, dtype=torch.int8,
-                                       device=xa.device),
+            return QTensor(torch.zeros(qshape, dtype=torch.uint8 if int4
+                                       else torch.int8, device=xa.device),
                            torch.ones(shape[:3], dtype=torch.float32,
                                       device=xa.device))
         return DecoderCache(qcache(), qcache(), ck, cv)
@@ -519,11 +522,12 @@ def _decoder_step_fused(params, tokens, pos: int, cache: DecoderCache,
     kernel stays scale-free.
 
     The self cache, by type: bf16/f32, the new row is written in place
-    and K3 attends; int8 (QTensor), the new row is quantized per row
-    (`_q8_rows`) and written with its scale, and K3s attends with the row
-    scales; int8 with `parents` (the beam reshuffle), K5 reads each lane's
-    parent slab, appends the new row, attends and writes the slab to
-    `dests[i]` (copy-on-write slots), all in one pass."""
+    and K3 attends; int8 or packed int4 (QTensor), the new row is
+    quantized per row (`_q8_rows` to the cache's storage) and written with
+    its scale, and K3s attends with the row scales; quantized with
+    `parents` (the beam reshuffle), K5 reads each lane's parent slab,
+    appends the new row, attends and writes the slab to `dests[i]`
+    (copy-on-write slots), all in one pass."""
     dec = params["decoder"]
     dec_cfg = cfg.text_decoder_config
     n_head, eps = dec_cfg.n_text_head, cfg.ln_eps
@@ -546,7 +550,8 @@ def _decoder_step_fused(params, tokens, pos: int, cache: DecoderCache,
         q, k, v = _qkv_proj(hn, p["qkv_w"], p["qkv_b"], ii)
         q1 = q[:, 0] * scale
         if quant_self:  # both new rows quantized in one pass
-            (kq, vq), (ks, vs) = _q8_rows(torch.stack((k[:, 0], v[:, 0])))
+            (kq, vq), (ks, vs) = _q8_rows(torch.stack((k[:, 0], v[:, 0])),
+                                          sk.q.dtype)
         if quant_self and parents is not None:
             attn = decode_attention_permute_fused(
                 q1, sk.q, sv.q, sk.scale, sv.scale, kq, vq, ks, vs, parents,
@@ -594,7 +599,7 @@ def decoder_step(params: ParamTree, tokens: torch.Tensor, pos: int,
 
     `parents` ((B,) int, window-local beam parents) folds the beam
     reshuffle of the self cache into the step: only on the S = 1 flash
-    path over an int8 (QTensor) self cache, where K5 reads, appends,
+    path over a quantized (QTensor) self cache, where K5 reads, appends,
     attends and writes back in one pass. `dests` (copy-on-write slots,
     decode/beam.py::_cow_assign) redirects lane i's write-back to slot
     dests[i]; the cache is then in PHYSICAL slot order and the caller
@@ -637,8 +642,10 @@ def decoder_step(params: ParamTree, tokens: torch.Tensor, pos: int,
         hn = layer_norm(h, p["attn_ln_g"], p["attn_ln_b"], eps)
         q, k, v = _qkv_proj(hn, p["qkv_w"], p["qkv_b"], ii)
         if quant_self:  # in-place append of the quantized rows + scales
-            sk.q[:, l, pos:pos + s], sk.scale[:, l, pos:pos + s] = _q8_rows(k)
-            sv.q[:, l, pos:pos + s], sv.scale[:, l, pos:pos + s] = _q8_rows(v)
+            sk.q[:, l, pos:pos + s], sk.scale[:, l, pos:pos + s] = _q8_rows(
+                k, sk.q.dtype)
+            sv.q[:, l, pos:pos + s], sv.scale[:, l, pos:pos + s] = _q8_rows(
+                v, sv.q.dtype)
         else:  # in-place append
             sk[:, l, pos:pos + s] = k
             sv[:, l, pos:pos + s] = v

@@ -47,9 +47,9 @@ SIGNATURES = {
     "wtt_encoder_mlp": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                         _F, _P],
     "wtt_decode_attention": [_P] * 7 + [_I] * 8 + [_LL] * 10 + [_P],
-    "wtt_permute_attention": [_P] * 17 + [_I] * 4 + [_LL] * 9 + [_P],
+    "wtt_permute_attention": [_P] * 17 + [_I] * 5 + [_LL] * 9 + [_P],
     "wtt_permute_lanes": [_I, _I, _P, _P, _P, _P, _P],
-    "wtt_w8a8_matmul": [_P] * 6 + [_I] * 6 + [_P],
+    "wtt_w8a8_matmul": [_P] * 6 + [_I] * 7 + [_P],
 }
 
 _lock = threading.Lock()

@@ -8,10 +8,11 @@ Replaces four TPU kernels of `whisper_tpu/ops/pallas/decode_attention.py`
   K3g `_decode_attn_stacked_group_kernel`, where kv row j serves the q
       rows [j*kv_rep, (j+1)*kv_rep) -- the beam lanes of one window
       against that window's one cross cache (any kv_rep >= 2);
-  K3s `_decode_attn_stacked_scaled_kernel`, the int8 self cache with one
-      f32 scale per row for K and for V (`k_rowscale`, `v_rowscale`;
-      batch-major, kv_rep = 1): scores times K's row scale before the mask,
-      softmax weights times V's row scale, zero on masked rows;
+  K3s `_decode_attn_stacked_scaled_kernel`, the int8 or packed-int4 self
+      cache with one f32 scale per row for K and for V (`k_rowscale`,
+      `v_rowscale`; batch-major, kv_rep = 1): scores times K's row scale
+      before the mask, softmax weights times V's row scale, zero on masked
+      rows;
   K8  `_decode_attn_kernel`, one query per row over ONE layer's flat
       (B, C, D) cache (entry `decode_attention`): the same `_attend`, so it
       launches the K3 kernel on the one-layer view (B, 1, C, D), layer 0.
@@ -155,7 +156,7 @@ def decode_attention_stacked(
     n_head: int,
     batch_major: bool = False,
     kv_rep: int = 1,
-    k_rowscale: Optional[torch.Tensor] = None,  # (B, L, C) f32, int8 cache
+    k_rowscale: Optional[torch.Tensor] = None,  # (B, L, C) f32, int8/int4
     v_rowscale: Optional[torch.Tensor] = None,
     c_used: Optional[int] = None,  # read only rows [0, c_used)
     splits: Optional[int] = None,  # K3g's cluster size; None: plan_splits
@@ -164,9 +165,10 @@ def decode_attention_stacked(
     cache). CPU tensors take the plain version; CUDA tensors launch the
     Hopper kernel or raise: q bf16 with a bf16/int8/int4 cache, or f32
     with an f32/int8/int4 cache; head dim 64, unit channel stride, 16-byte
-    aligned rows; row scales only with an int8 batch-major cache and
-    kv_rep = 1. kv_rep = 1 is K3 (counted in `.launches`), kv_rep > 1 K3g
-    (`.group_launches`), row scales K3s (`.scaled_launches`). Rows past
+    aligned rows; row scales only with an int8 or int4 batch-major cache
+    and kv_rep = 1. kv_rep = 1 is K3 (counted in `.launches`), kv_rep > 1
+    K3g (`.group_launches`), row scales K3s (`.scaled_launches` over an int8
+    cache, `.scaled_int4_launches` over a packed-int4 one). Rows past
     c_used are never read. `splits` forces K3g's cluster size (1 to 8;
     `tools/sweep_k3g_splits.py` times each): it moves only the order of
     the f32 sums, and K3 and K3s ignore it."""
@@ -177,7 +179,9 @@ def decode_attention_stacked(
             k_rowscale, v_rowscale, c_used)
     out = _launch(q, k_cache, v_cache, pos, layer, n_head, batch_major,
                   kv_rep, k_rowscale, v_rowscale, c_used, splits)
-    if k_rowscale is not None:
+    if k_rowscale is not None and k_cache.dtype == torch.uint8:
+        decode_attention_stacked.scaled_int4_launches += 1
+    elif k_rowscale is not None:
         decode_attention_stacked.scaled_launches += 1
     elif kv_rep == 1:
         decode_attention_stacked.launches += 1
@@ -202,8 +206,9 @@ def _launch(q, k_cache, v_cache, pos, layer, n_head, batch_major, kv_rep,
                         f"bf16/f32 query; got q {q.dtype} k {sd} "
                         f"v {v_cache.dtype}")
     scaled = k_rowscale is not None
-    if scaled and sd != torch.int8:
-        raise TypeError(f"row scales (K3s) take an int8 cache, got {sd}")
+    if scaled and not integer:
+        raise TypeError(f"row scales (K3s) take an int8 or int4 cache, got "
+                        f"{sd}")
     if d != n_head * _HD:
         raise ValueError(f"head dim {d // n_head} != {_HD}")
     if k_cache.shape != v_cache.shape:
@@ -264,6 +269,7 @@ def _launch(q, k_cache, v_cache, pos, layer, n_head, batch_major, kv_rep,
 decode_attention_stacked.launches = 0
 decode_attention_stacked.group_launches = 0
 decode_attention_stacked.scaled_launches = 0
+decode_attention_stacked.scaled_int4_launches = 0
 
 
 def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,

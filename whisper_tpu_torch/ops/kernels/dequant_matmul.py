@@ -1,6 +1,6 @@
-"""W8A8 matrix products (int8 weights times per-row dynamic int8
-activations): Hopper kernels, their plain PyTorch versions, and the
-wrappers that pick between them by device.
+"""W8A8 matrix products (int8 or packed-int4 weights times per-row
+dynamic int8 activations): Hopper kernels, their plain PyTorch versions,
+and the wrappers that pick between them by device.
 
 Replaces two TPU kernels of `whisper_tpu/ops/pallas/dequant_matmul.py`:
   K6 `_w8a8_kernel`, entry `quantized_matmul` (the model sends M <= 1024
@@ -11,6 +11,10 @@ Replaces two TPU kernels of `whisper_tpu/ops/pallas/dequant_matmul.py`:
      zero row) -- a different rounding, so the two are separate functions.
 Both: acc = xq @ wq in exact int32, out = ((acc * xs) * ws) in out_dtype
 (x's dtype by default); round is half to even. The bias is the caller's.
+The weight is int8 (K, N), or packed int4 (K, N / 2) uint8 (quantize.py's
+layout: low nibble = even column), the TPU kernels' `jnp.int4` weight: its
+values are sign-extended to int8 where the kernel stages its weight tile,
+so the products and the epilogue are the int8 path's.
 
 The CUDA source, `csrc/dequant_matmul.cu`, runs a row-quantize pass into
 scratch and then an int8 tensor-core GEMM (mma.sync s8); the two launches
@@ -25,6 +29,7 @@ from typing import Optional
 
 import torch
 
+from ...quantize import int_values
 from ._build import check, library, stream_ptr
 
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
@@ -47,6 +52,7 @@ def quantize_rows_plain(x: torch.Tensor, big: bool):
 
 def _w8a8_plain(x, wq, scale, out_dtype, big: bool) -> torch.Tensor:
     xq, xs = quantize_rows_plain(x, big)
+    wq = int_values(wq)  # packed int4 -> its int8 values
     if x.device.type == "cpu":  # int32 products are exact
         acc = torch.matmul(xq.to(torch.int32), wq.to(torch.int32)).float()
     else:  # no integer matmul there: f64 is exact (|acc| <= 127^2 K < 2^53)
@@ -72,10 +78,11 @@ def _launch(x, wq, scale, out_dtype, big: bool) -> torch.Tensor:
         raise ValueError(f"W8A8 takes x (M, K) and wq (K, N), got "
                          f"{tuple(x.shape)} and {tuple(wq.shape)}")
     m, k = x.shape
-    n = wq.shape[1]
-    if wq.dtype != torch.int8:
-        raise TypeError(f"W8A8 takes int8 weights, got {wq.dtype} (packed "
-                        "int4 has no kernel)")
+    if wq.dtype not in (torch.int8, torch.uint8):
+        raise TypeError(f"W8A8 takes int8 or packed-int4 (uint8) weights, "
+                        f"got {wq.dtype}")
+    int4 = wq.dtype == torch.uint8
+    n = wq.shape[1] * (2 if int4 else 1)
     if x.dtype not in _DTYPES or out_dtype not in _DTYPES:
         raise TypeError(f"W8A8 takes bf16/f32 x and output, got {x.dtype} "
                         f"-> {out_dtype}")
@@ -94,22 +101,31 @@ def _launch(x, wq, scale, out_dtype, big: bool) -> torch.Tensor:
     err = library().wtt_w8a8_matmul(
         x.data_ptr(), wq.data_ptr(), scale.data_ptr(), out.data_ptr(),
         xq.data_ptr(), xs.data_ptr(), m, k, n, _DTYPES[x.dtype],
-        _DTYPES[out_dtype], int(big), stream_ptr(x))
+        _DTYPES[out_dtype], int(big), int(int4), stream_ptr(x))
     check(err, "wtt_w8a8_matmul")
     return out
 
 
+def _count(fn, wq) -> None:
+    """One launch on the wrapper's counter: `.launches` for int8 weights,
+    `.int4_launches` for packed int4."""
+    if wq.dtype == torch.uint8:
+        fn.int4_launches += 1
+    else:
+        fn.launches += 1
+
+
 def quantized_matmul(x: torch.Tensor,  # (M, K) bf16 / f32
-                     wq: torch.Tensor,  # (K, N) int8
+                     wq: torch.Tensor,  # (K, N) int8, or (K, N/2) packed int4
                      scale: torch.Tensor,  # (N,) f32 per output column
                      out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """K6: (M, N) ~= x @ (wq * scale). CPU tensors take the plain version;
-    CUDA tensors launch the Hopper kernel or raise (int8 wq, K and N
-    multiples of 128, contiguous operands, bf16/f32)."""
+    CUDA tensors launch the Hopper kernel or raise (int8 or packed-int4
+    wq, K and N multiples of 128, contiguous operands, bf16/f32)."""
     if x.device.type == "cpu":
         return quantized_matmul_plain(x, wq, scale, out_dtype)
     out = _launch(x, wq, scale, out_dtype, big=False)
-    quantized_matmul.launches += 1
+    _count(quantized_matmul, wq)
     return out
 
 
@@ -121,9 +137,11 @@ def quantized_matmul_big(x: torch.Tensor, wq: torch.Tensor,
     if x.device.type == "cpu":
         return quantized_matmul_big_plain(x, wq, scale, out_dtype)
     out = _launch(x, wq, scale, out_dtype, big=True)
-    quantized_matmul_big.launches += 1
+    _count(quantized_matmul_big, wq)
     return out
 
 
 quantized_matmul.launches = 0
+quantized_matmul.int4_launches = 0
 quantized_matmul_big.launches = 0
+quantized_matmul_big.int4_launches = 0

@@ -1,6 +1,7 @@
 """Fused beam reshuffle + append + single-query self-attention over one
-layer of the int8 self-KV cache (K5): Hopper kernel, its plain PyTorch
-version, and the wrapper that picks between them by device.
+layer of the quantized self-KV cache, int8 or packed int4 (K5): Hopper
+kernel, its plain PyTorch version, and the wrapper that picks between them
+by device.
 
 Replaces the TPU kernel `whisper_tpu/ops/pallas/permute_attention.py::
 _fused_kernel` (entry `decode_attention_permute_fused`): per lane i, read
@@ -9,6 +10,9 @@ scales), append the lane's new quantized row and its scales at `pos`,
 attend with the lane's query (K3s's arithmetic), and write the slab to
 slot `dests[i]` -- reshuffle, append and attention in one cache pass,
 replacing K4's permute, the two appends and K3s's read on the beam path.
+The caches and the new rows are int8 (B, L, C, d) / (B, d), or packed int4
+(uint8, quantize.py's layout) (B, L, C, d / 2) / (B, d / 2): a row of
+d / 2 bytes, copied as bytes and unpacked in registers as K3s unpacks it.
 
 The JAX kernel returns new arrays aliased to its inputs; here the caches
 are updated IN PLACE and returned (the same tensors), as K4's wrapper
@@ -95,12 +99,12 @@ def _vec(t: torch.Tensor, b: int, dev) -> torch.Tensor:
 
 def decode_attention_permute_fused(
     q: torch.Tensor,  # (B, d) single query, PRE-SCALED by hd^-0.5
-    k_cache: torch.Tensor,  # (B, L, C, d) int8, updated in place
-    v_cache: torch.Tensor,  # (B, L, C, d) int8, updated in place
+    k_cache: torch.Tensor,  # (B, L, C, d) int8 or (B, L, C, d/2) packed
+    v_cache: torch.Tensor,  # int4 (uint8), updated in place
     k_scale: torch.Tensor,  # (B, L, C) f32 row scales, updated in place
     v_scale: torch.Tensor,  # (B, L, C) f32, updated in place
-    new_k: torch.Tensor,  # (B, d) int8: this step's quantized rows
-    new_v: torch.Tensor,  # (B, d) int8
+    new_k: torch.Tensor,  # (B, d) int8 or (B, d/2) packed int4: this
+    new_v: torch.Tensor,  # step's quantized rows, the caches' dtype
     new_ks: torch.Tensor,  # (B,) f32: their scales
     new_vs: torch.Tensor,  # (B,) f32
     parents: torch.Tensor,  # (B,) int: window-local beam parents
@@ -117,30 +121,36 @@ def decode_attention_permute_fused(
     (module doc). Pass `pos` as an int for the in-place copy-on-write
     path; a tensor `pos` makes the CUDA wrapper stage its reads. CPU
     tensors take the plain version; CUDA tensors launch the Hopper kernel
-    (counted in `.launches`) or raise: int8 caches of head dim 64 with
-    unit channel stride and 16-byte aligned rows, f32 scales with
-    contiguous rows, a bf16 or f32 query."""
+    (counted in `.launches` over int8 caches, `.int4_launches` over packed
+    int4) or raise: int8 or packed-int4 caches and new rows of one dtype,
+    head dim 64, unit channel stride and 16-byte aligned rows, f32 scales
+    with contiguous rows, a bf16 or f32 query."""
     b, d = q.shape
     _check_window(b, beam_k)
     if q.device.type == "cpu":
         return decode_attention_permute_fused_plain(
             q, k_cache, v_cache, k_scale, v_scale, new_k, new_v, new_ks,
             new_vs, parents, pos, layer, n_head, beam_k, c_used, dests, stage)
-    if (k_cache.dtype != torch.int8 or v_cache.dtype != torch.int8
-            or new_k.dtype != torch.int8 or new_v.dtype != torch.int8
+    sd = k_cache.dtype
+    if (sd not in (torch.int8, torch.uint8)
+            or any(t.dtype != sd for t in (v_cache, new_k, new_v))
             or q.dtype not in (torch.bfloat16, torch.float32)
             or k_scale.dtype != torch.float32
             or v_scale.dtype != torch.float32):
-        raise TypeError(f"the fused kernel takes int8 caches and rows, f32 "
-                        f"scales and a bf16/f32 query; got q {q.dtype} k "
-                        f"{k_cache.dtype} v {v_cache.dtype} scales "
-                        f"{k_scale.dtype} {v_scale.dtype}")
+        raise TypeError(f"the fused kernel takes int8 or packed-int4 (uint8) "
+                        f"caches and rows of one dtype, f32 scales and a "
+                        f"bf16/f32 query; got q {q.dtype} k {sd} v "
+                        f"{v_cache.dtype} new rows {new_k.dtype} "
+                        f"{new_v.dtype} scales {k_scale.dtype} "
+                        f"{v_scale.dtype}")
     if d != n_head * _HD:
         raise ValueError(f"head dim {d // n_head} != {_HD}")
+    int4 = sd == torch.uint8
+    row = d // 2 if int4 else d  # stored elements (bytes) of a row
     shape = k_cache.shape
-    if (v_cache.shape != shape or shape[0] != b or shape[3] != d
+    if (v_cache.shape != shape or shape[0] != b or shape[3] != row
             or k_scale.shape != shape[:3] or v_scale.shape != shape[:3]
-            or new_k.shape != (b, d) or new_v.shape != (b, d)):
+            or new_k.shape != (b, row) or new_v.shape != (b, row)):
         raise ValueError(f"shapes do not match: q {tuple(q.shape)} caches "
                          f"{tuple(shape)} scales {tuple(k_scale.shape)} new "
                          f"rows {tuple(new_k.shape)}")
@@ -148,7 +158,7 @@ def decode_attention_permute_fused(
     if (v_cache.stride() != ks or ks[3] != 1 or any(x % 16 for x in ks[:3])
             or k_scale.stride() != v_scale.stride() or k_scale.stride(2) != 1
             or qs[1] != 1 or qs[0] * q.element_size() % 16
-            or new_k.stride() != (d, 1) or new_v.stride() != (d, 1)
+            or new_k.stride() != (row, 1) or new_v.stride() != (row, 1)
             or (q.data_ptr() | k_cache.data_ptr() | v_cache.data_ptr()
                 | new_k.data_ptr() | new_v.data_ptr()) % 16):
         raise ValueError("caches need unit channel stride, 16-byte aligned "
@@ -179,12 +189,17 @@ def decode_attention_permute_fused(
         vs_src.data_ptr(), k_l.data_ptr(), v_l.data_ptr(), ks_l.data_ptr(),
         vs_l.data_ptr(), new_k.data_ptr(), new_v.data_ptr(), nks.data_ptr(),
         nvs.data_ptr(), par.data_ptr(), dst.data_ptr(), pos_rows.data_ptr(),
-        out.data_ptr(), b, n_head, cu, int(q.dtype == torch.float32), qs[0],
-        k_src.stride(0), k_src.stride(1), ks_src.stride(0), k_l.stride(0),
-        k_l.stride(1), ks_l.stride(0), d, out.stride(0), stream_ptr(q))
+        out.data_ptr(), b, n_head, cu, int(int4), int(q.dtype == torch.float32),
+        qs[0], k_src.stride(0), k_src.stride(1), ks_src.stride(0),
+        k_l.stride(0), k_l.stride(1), ks_l.stride(0), row, out.stride(0),
+        stream_ptr(q))
     check(err, "wtt_permute_attention")
-    decode_attention_permute_fused.launches += 1
+    if int4:
+        decode_attention_permute_fused.int4_launches += 1
+    else:
+        decode_attention_permute_fused.launches += 1
     return out, k_cache, v_cache, k_scale, v_scale
 
 
 decode_attention_permute_fused.launches = 0
+decode_attention_permute_fused.int4_launches = 0

@@ -66,7 +66,7 @@ class DecodeOptions:
     timestamps: bool = False
     max_initial_timestamp: float = 1.0
     kv_quant: bool = False  # cross-KV cache quant: True/"int8", or "int4"
-    self_quant: bool = False  # int8 self-KV cache with per-row scales
+    self_quant: bool = False  # self-KV cache quant: True/"int8", or "int4"
     temperature: object = 0.0
     compression_ratio_threshold: Optional[float] = 2.4
     logprob_threshold: Optional[float] = -1.0
@@ -86,8 +86,6 @@ def _check_supported(opt: DecodeOptions) -> None:
     todo = []
     if opt.strategy not in ("beam", "greedy"):
         todo.append(f"strategy={opt.strategy!r} (ROADMAP queue 1 item 7)")
-    if opt.self_quant == "int4":
-        todo.append("self_quant='int4' (ROADMAP queue 1 item 9)")
     if todo:
         raise NotImplementedError(
             "not ported to whisper_tpu_torch yet: " + "; ".join(todo))
