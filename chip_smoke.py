@@ -68,16 +68,20 @@ Phases, in order; any failure raises and the script exits non-zero:
                 configuration, greedy and beam.
 The kernel phase holds the packed-int4 variants of K3s, K5, K6 and K7
 beside their int8 rows (the *_int4 entries, counted apart). The kernel
-phase also prints, for K1, K9 and K3g (redesigned for Hopper),
-each time over its first version's (FIRST_VERSION_MS) and over SDPA's in
-the same call; the quantized greedy phase holds its logits against an f32
+phase also prints, for the kernels redesigned for Hopper (REDESIGNED: K1,
+K9, K3g, K2, K3, K3s and K8), each time over its first version's
+(FIRST_VERSION_MS) and over SDPA's in the same call (K2: over the
+encoder block's composed path, LN + two cuBLAS GEMMs + GELU + adds, which
+its rows also time as composed_ms); the quantized greedy phase holds its logits against an f32
 reference of the same quantized model (QUANT_F32_RTOL) and one dequant
 matmul against its once-rounded f64 value (DEQUANT_EQUAL_SHARE). Every phase prints
 its seconds. Every kernel but K8 and K9 must be launched by some slice;
 K8 and K9 by their site checks. The line before the last is a JSON object
 with one entry per kernel and int4 variant (launches summed over the
 slices' cold runs and the int4 agreement run, or the site check's); the
-last line is {"ok": true, "device": {...}}.
+last line is {"ok": true, "device": {...}}. K3's launches over cross caches
+(`decode_attention_stacked.cross_launches`) are printed apart from its
+launches over self caches, and stand as launches_cross in its entry.
 """
 
 from __future__ import annotations
@@ -133,14 +137,20 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12,
               torch.int8: 1979e12}
 
 
-# The three kernels redesigned for Hopper (wgmma + TMA for K1/K9, a cluster
-# split for K3g) and the times of their first versions (WMMA K1/K9; K3g
-# with one block per head, kv row and group) at this script's shapes, in
-# ms: the mean of two runs of `tools/compare_attention_kernels.py` on the
-# commit before the redesign, on one card (the f32 row in a later run;
-# PERF.md section 6 names both runs, NVIDIA H100 80GB HBM3, 700 W). Each
-# new time is printed over these and over SDPA's time in the same call;
-# they are never put in the kernels line, which holds this run's numbers.
+# The kernels redesigned for Hopper (wgmma + TMA for K1/K9 and K2; a
+# cluster split over the cache rows for K3g, and for K3 and K8 over a long
+# cache; K3s, on K3's one-block kernel, is timed beside them) and the times of their first versions
+# (WMMA K1/K9 and K2; K3g and K3 with one block per head and kv row) at
+# this script's shapes, in ms: the mean of two runs of
+# `tools/compare_attention_kernels.py` on the commit before each redesign,
+# on one card (PERF.md section 6 names the runs, NVIDIA H100 80GB HBM3,
+# 700 W). Each new time is printed over these and over SDPA's (K2: the
+# composed path's) time in the same call; they are never put in the
+# kernels line, which holds this run's numbers.
+REDESIGNED = ("flash_attention", "flash_attention_legacy",
+              "decode_attention_group", "encoder_mlp", "decode_attention",
+              "decode_attention_scaled", "decode_attention_scaled_int4",
+              "decode_attention_flat")
 FIRST_VERSION_MS = {
     ("flash_attention", "B=1 Sq=750 Sk=750 H=20"): 0.1210,
     ("flash_attention", "B=1 Sq=705 Sk=705 H=20"): 0.1208,
@@ -159,6 +169,34 @@ FIRST_VERSION_MS = {
     ("decode_attention_group", "cross bf16 B=40 R=5 L=32 C=1500"): 0.0655,
     ("decode_attention_group", "cross bf16 B=20 R=5 L=32 C=750"): 0.0198,
     ("decode_attention_group", "cross f32 B=10 R=5 L=4 C=128"): 0.0065,
+    # K2 and K3 (with K3s and K8) before their redesign: the mean of the
+    # two runs of commit a07d64b in one call, in turns with the redesign
+    # (PERF.md section 6 names the call)
+    ("encoder_mlp", "M=750 d=1280 h=5120"): 0.4678,
+    ("encoder_mlp", "M=1500 d=1280 h=5120"): 0.8055,
+    # M=3000: the mean of a07d64b's two runs in a later call (PERF.md)
+    ("encoder_mlp", "M=3000 d=1280 h=5120"): 1.9173,
+    ("encoder_mlp", "M=6000 d=1280 h=5120"): 2.7707,
+    ("decode_attention", "self bf16 B=5 L=32 C=128"): 0.0037,
+    ("decode_attention", "self bf16 B=1 L=32 C=128"): 0.0036,
+    ("decode_attention", "cross bf16 B=1 L=32 C=750"): 0.0112,
+    ("decode_attention", "cross int8 B=1 L=32 C=750"): 0.0134,
+    ("decode_attention", "cross int4 B=1 L=32 C=750"): 0.0119,
+    ("decode_attention", "cross bf16 B=4 L=32 C=750"): 0.0115,
+    ("decode_attention", "self bf16 B=8 L=32 C=128"): 0.0046,
+    ("decode_attention", "cross bf16 B=8 L=32 C=1500"): 0.0483,
+    ("decode_attention", "self f32 B=2 L=2 C=64 c_used=48"): 0.0039,
+    ("decode_attention_scaled", "self int8 B=1 L=32 C=128"): 0.0038,
+    ("decode_attention_scaled", "self int8 B=8 L=32 C=128 mixed pos"): 0.0058,
+    ("decode_attention_scaled_int4", "self int4 B=1 L=32 C=128"): 0.0039,
+    ("decode_attention_scaled_int4",
+     "self int4 B=5 L=32 C=128 mixed pos"): 0.0051,
+    ("decode_attention_flat", "self bf16 B=1 C=448 pos=[60]"): 0.0036,
+    ("decode_attention_flat",
+     "self bf16 B=5 C=448 pos=[60, 3, 200, 447, 0]"): 0.0077,
+    ("decode_attention_flat", "cross bf16 B=1 C=750 all rows"): 0.0112,
+    ("decode_attention_flat", "cross int8 B=1 C=750 all rows"): 0.0134,
+    ("decode_attention_flat", "cross int4 B=1 C=750 all rows"): 0.0120,
 }
 
 
@@ -311,19 +349,28 @@ def phase_kernels() -> dict:
                                                       is_causal=causal,
                                                       scale=1.0))
 
-    # B: weights at the init scale, LN affine away from identity. No single
-    # PyTorch call computes LN + MLP + GELU + residual.
+    # B: weights at the init scale, LN affine away from identity: one
+    # window (750 rows), two (1500), four (3000: the batched greedy slice's
+    # 4 windows, a 56-row tail tile) and eight (6000). No single PyTorch
+    # call computes LN + MLP + GELU + residual; composed_ms times the
+    # encoder block's unfused branch on the same inputs (LN, two cuBLAS
+    # GEMMs, GELU, the bias and residual adds: `models/whisper.py::_mlp`).
+    import whisper_tpu_torch.models.whisper as M
+
     ln_g = (1 + 0.1 * torch.randn(d, generator=gen, device="cuda")).bfloat16()
     ln_b = _randn((d,), gen, 0.1)
     w1, b1 = _randn((d, hidden), gen, 0.02), _randn((hidden,), gen, 0.02)
     w2, b2 = _randn((hidden, d), gen, 0.02), _randn((d,), gen, 0.02)
-    for m in (750, 1500, 6000):
+    mlp_p = {"mlp_ln_g": ln_g, "mlp_ln_b": ln_b, "mlp1_w": w1, "mlp1_b": b1,
+             "mlp2_w": w2, "mlp2_b": b2}
+    for m in (750, 1500, 3000, 6000):
         args = (_randn((m, d), gen), ln_g, ln_b, w1, b1, w2, b2)
         record("encoder_mlp", f"M={m} d={d} h={hidden}",
                lambda: KB.fused_mlp_block(*args),
                lambda: KB.fused_mlp_block_plain(*args), KB.ATOL, KB.RTOL,
                ((2 * m * d + 2 * d * hidden + hidden + 3 * d) * 2,
-                4 * m * d * hidden))
+                4 * m * d * hidden),
+               composed_ms=lambda: M._mlp(args[0], mlp_p, 1e-5))
 
     # C: self caches (B, L, C, d) with mixed pos, cross caches (L, B, Sa, d)
     # with every row visible; the beam path's shape (5 lanes) first, then
@@ -341,6 +388,7 @@ def phase_kernels() -> dict:
             ("decode_attention", "cross", 1, 1, 32, 750, "bf16", None, None),
             ("decode_attention", "cross", 1, 1, 32, 750, "int8", None, None),
             ("decode_attention", "cross", 1, 1, 32, 750, "int4", None, None),
+            ("decode_attention", "cross", 4, 1, 32, 750, "bf16", None, None),
             ("decode_attention", "self", 8, 1, 32, 128, "bf16",
              [0, 5, 17, 63, 64, 100, 126, 127], None),
             ("decode_attention", "cross", 8, 1, 32, 1500, "bf16", None, None),
@@ -654,7 +702,6 @@ def phase_kernels() -> dict:
     # integer GEMM alone, where its shape rules allow: M > 16); dequant:
     # `_matmul` with int8_impl="xla" (the int8 -> bf16 weight conversion
     # inside the matmul), the path K6/K7 replace.
-    import whisper_tpu_torch.models.whisper as M
     from whisper_tpu_torch.ops.kernels import dequant_matmul as KQ
     from whisper_tpu_torch.quantize import QTensor
 
@@ -722,13 +769,14 @@ def phase_kernels() -> dict:
                    else f"{r['library_ms']:.4f} ms")
             deq = (f" dequant path {r['dequant_ms']:.4f} ms"
                    if "dequant_ms" in r else "")
+            if "composed_ms" in r:
+                deq += f" composed {r['composed_ms']:.4f} ms"
             log(f"kernel {name} [{r['shape']}]: max_abs_err {r['max_abs_err']:.3g}"
                 f" (atol {r['atol']}, rtol {r['rtol']}; worst err/tol "
                 f"{r['err_over_tol']:.3f}) kernel {r['ms']:.4f} ms"
                 f" plain {r['plain_ms']:.4f} ms library {lib}{deq}"
                 f" bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
-    for name in ("flash_attention", "flash_attention_legacy",
-                 "decode_attention_group"):
+    for name in REDESIGNED:
         parts = []
         for r in rows[name]:  # read only: the rows feed the kernels line
             first = FIRST_VERSION_MS.get((name, r["shape"]))
@@ -739,7 +787,10 @@ def phase_kernels() -> dict:
                    else f"{r['ms'] / first:.3f} x the first version's "
                         f"{first:.4f}")
                 + ("" if lib is None
-                   else f", {r['ms'] / lib:.2f} x SDPA's {lib:.4f}"))
+                   else f", {r['ms'] / lib:.2f} x SDPA's {lib:.4f}")
+                + ("" if "composed_ms" not in r
+                   else f", {r['ms'] / r['composed_ms']:.2f} x the composed "
+                        f"path's {r['composed_ms']:.4f}"))
         log(f"redesigned {name}: " + "; ".join(parts))
     return rows
 
@@ -809,6 +860,10 @@ def _counters() -> dict:
     return {"flash_attention": (KA.attention_bhsd, "launches"),
             "encoder_mlp": (KB.fused_mlp_block, "launches"),
             "decode_attention": (KC.decode_attention_stacked, "launches"),
+            # the part of K3's launches over a layer-major cross cache (the
+            # rest read a self cache); not a kernel of its own
+            "decode_attention_cross": (KC.decode_attention_stacked,
+                                       "cross_launches"),
             "decode_attention_group": (KC.decode_attention_stacked,
                                        "group_launches"),
             "permute": (KP.permute_lanes_arrays, "launches"),
@@ -891,6 +946,10 @@ def main() -> int:
     if missing:
         raise AssertionError(f"kernels no slice or site check launched: "
                              f"{missing}")
+    k3_cross = sum(sl["launches"]["decode_attention_cross"]
+                   for sl in slices.values())
+    log(f"K3 launches: {launches['decode_attention'] - k3_cross} over self "
+        f"caches, {k3_cross} over cross caches")
     entries = []
     for name, kid, source, replaces in KERNELS:
         first = rows[name][0]
@@ -910,6 +969,10 @@ def main() -> int:
         })
         if "dequant_ms" in first:
             entries[-1]["dequant_ms"] = first["dequant_ms"]
+        if "composed_ms" in first:
+            entries[-1]["composed_ms"] = first["composed_ms"]
+        if name == "decode_attention":
+            entries[-1]["launches_cross"] = k3_cross
     log(json.dumps({"kernels": entries, **slices, "sites": sites,
                     "forced_branches": forced}))
     print(json.dumps({"ok": True, "device": device}), flush=True)

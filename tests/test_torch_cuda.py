@@ -98,12 +98,14 @@ def test_legacy_flash_attention_kernel(gen, b, sq, sk, causal):
         KA.flash_attention(q.float(), k.float(), v.float())
 
 
+@pytest.mark.parametrize("c", [50, 750])
 @pytest.mark.parametrize("storage", ["bf16", "f32", "int8", "int4"])
-def test_flat_decode_attention_kernel(gen, storage):
+def test_flat_decode_attention_kernel(gen, storage, c):
     """K8 on one layer sliced out of a stacked (B, L, C, d) buffer, per-row
-    pos; counted apart from K3. A view without 16-byte aligned rows
-    raises ValueError instead of falling back."""
-    b, c, d = 3, 50, 128
+    pos; counted apart from K3. C = 750 takes the split kernel (a cluster
+    over the rows of the one-layer view). A view without 16-byte aligned
+    rows raises ValueError instead of falling back."""
+    b, d = 3, 128
     lim = {"int8": 127, "int4": 7}.get(storage)
     if lim is None:
         dt = torch.float32 if storage == "f32" else torch.bfloat16
@@ -118,7 +120,7 @@ def test_flat_decode_attention_kernel(gen, storage):
         if storage == "int4":
             kc, vc = pack_int4(kc), pack_int4(vc)
         dt = torch.bfloat16
-    pos = torch.tensor([0, 17, 49], dtype=torch.int32, device="cuda")
+    pos = torch.tensor([0, 17, c - 1], dtype=torch.int32, device="cuda")
     before = (KC.decode_attention.flat_launches,
               KC.decode_attention_stacked.launches)
     got = KC.decode_attention(q, kc[:, 2], vc[:, 2], pos, 2)
@@ -134,17 +136,118 @@ def test_flat_decode_attention_kernel(gen, storage):
         KC.decode_attention(q, odd, odd, pos, 2)
 
 
-@pytest.mark.parametrize("m", [1, 37, 300])
-def test_encoder_mlp_kernel(gen, m):
-    d, h = 384, 1536
+@pytest.mark.parametrize("m", [1, 37, 63, 64, 65, 705, 750, 3000])
+@pytest.mark.parametrize("d", [256, 384, 512, 768, 1024, 1280])
+def test_encoder_mlp_kernel(gen, d, m):
+    """K2 at every Whisper width (h = 4d), at ragged row counts around a
+    64-row consumer tile, at a clip window's 705 rows, one window's 750
+    (GEMM2 split over K in a cluster of 2) and four windows' 3000 (no
+    split); weights at the init scale."""
+    h = 4 * d
     args = (_randn((m, d), gen), _randn((d,), gen, 0.1) + 1,
-            _randn((d,), gen, 0.1), _randn((d, h), gen, 0.05),
-            _randn((h,), gen, 0.05), _randn((h, d), gen, 0.05),
+            _randn((d,), gen, 0.1), _randn((d, h), gen, d ** -0.5),
+            _randn((h,), gen, 0.05), _randn((h, d), gen, h ** -0.5),
             _randn((d,), gen, 0.05))
     before = KB.fused_mlp_block.launches
     got = KB.fused_mlp_block(*args)
     assert KB.fused_mlp_block.launches == before + 1
     _close(got, KB.fused_mlp_block_plain(*args), KB.ATOL, KB.RTOL)
+
+
+@pytest.mark.parametrize("storage", ["bf16", "f32", "int8", "int4"])
+@pytest.mark.parametrize("sa", [1, 7, 192, 750, 1500, 3000])
+@pytest.mark.parametrize("b", [1, 4, 8])
+def test_decode_attention_lane_split_kernel(gen, b, sa, storage):
+    """K3 per lane over a layer-major cross cache at the planner's cluster
+    size (4 heads: one block below 512 rows, a cluster of 8 above), every
+    row visible but for lane 0 (pos 0); counted in `.launches` and
+    `.cross_launches`."""
+    n_layer, d = 3, 256
+    shape = (n_layer, b, sa, d)
+    lim = {"int8": 127, "int4": 7}.get(storage)
+    if lim is None:
+        dt = torch.float32 if storage == "f32" else torch.bfloat16
+        kc = _randn(shape, gen, dtype=dt)
+        vc = (_randn(shape, gen) + 1).to(dt)
+        q = _randn((b, d), gen, 0.125, dtype=dt)
+        atol, rtol = KC.TOL[dt]
+    else:
+        kc = torch.randint(-lim, lim + 1, shape, generator=gen, device="cuda",
+                           dtype=torch.int8)
+        vc = torch.randint(0, lim + 1, shape, generator=gen, device="cuda",
+                           dtype=torch.int8)
+        if storage == "int4":
+            kc, vc = pack_int4(kc), pack_int4(vc)
+        q = _randn((b, d), gen, 0.5 / lim)
+        atol, rtol = KC.TOL[torch.bfloat16]
+    pos = torch.full((b,), sa - 1, dtype=torch.int32, device="cuda")
+    pos[0] = 0
+    before = (KC.decode_attention_stacked.launches,
+              KC.decode_attention_stacked.cross_launches)
+    got = KC.decode_attention_stacked(q, kc, vc, pos, 1, 4)
+    assert (KC.decode_attention_stacked.launches,
+            KC.decode_attention_stacked.cross_launches) == (before[0] + 1,
+                                                            before[1] + 1)
+    want = KC.decode_attention_stacked_plain(q, kc, vc, pos, 1, 4)
+    _close(got, want, atol, rtol)
+
+
+@pytest.mark.parametrize("splits", [None, 1, 2, 4, 8])
+@pytest.mark.parametrize("storage", ["bf16", "int8", "int4"])
+def test_decode_attention_lane_split_self_cache(gen, splits, storage):
+    """K3 per lane over a batch-major self cache read to c_used = 300 of
+    448 rows, mixed pos with 0, c_used - 1 and one past c_used (clamped),
+    at the planner's and at forced cluster sizes; a bf16 cache's rows past
+    c_used hold NaN, which would reach the output if they were read. Not
+    counted as cross launches."""
+    b, n_layer, c, c_used, d = 5, 2, 448, 300, 256
+    shape = (b, n_layer, c, d)
+    if storage == "bf16":
+        kc, vc = _randn(shape, gen), _randn(shape, gen) + 1
+        kc[:, :, c_used:], vc[:, :, c_used:] = float("nan"), float("nan")
+        q = _randn((b, d), gen, 0.125)
+    else:
+        lim = 7 if storage == "int4" else 127
+        kc, vc = (torch.randint(-lim, lim + 1, shape, generator=gen,
+                                device="cuda", dtype=torch.int8)
+                  for _ in "kv")
+        if storage == "int4":
+            kc, vc = pack_int4(kc), pack_int4(vc)
+        q = _randn((b, d), gen, 0.5 / lim)
+    pos = torch.tensor([0, 37, c_used - 1, c_used, 150], dtype=torch.int32,
+                       device="cuda")
+    before = KC.decode_attention_stacked.cross_launches
+    got = KC.decode_attention_stacked(q, kc, vc, pos, 1, 4, batch_major=True,
+                                      c_used=c_used, splits=splits)
+    assert KC.decode_attention_stacked.cross_launches == before
+    want = KC.decode_attention_stacked_plain(q, kc, vc, pos, 1, 4,
+                                             batch_major=True, c_used=c_used)
+    _close(got, want, *KC.TOL[torch.bfloat16])
+
+
+def test_split_kernels_are_deterministic(gen):
+    """Two calls give the same bits: K2 with GEMM2 split over K in a
+    cluster (M = 750), K3 and K8 split over a cluster (their f32 partials
+    are combined in a fixed order, no atomics)."""
+    d, h, m = 1280, 5120, 750
+    args = (_randn((m, d), gen), _randn((d,), gen, 0.1) + 1,
+            _randn((d,), gen, 0.1), _randn((d, h), gen, 0.02),
+            _randn((h,), gen, 0.02), _randn((h, d), gen, 0.02),
+            _randn((d,), gen, 0.02))
+    assert KB.plan_ksplit(m, d, torch.cuda.get_device_properties(0)
+                          .multi_processor_count) == 2
+    assert torch.equal(KB.fused_mlp_block(*args), KB.fused_mlp_block(*args))
+    kc, vc = _randn((4, 1, 750, d), gen), _randn((4, 1, 750, d), gen)
+    q = _randn((1, d), gen, 0.125)
+    once = KC.decode_attention_stacked(q, kc, vc, 749, 2, 20)
+    assert torch.equal(once, KC.decode_attention_stacked(q, kc, vc, 749, 2, 20))
+    kq, vq = (torch.randint(-127, 128, (2, 750, d), generator=gen,
+                            device="cuda", dtype=torch.int8) for _ in "kv")
+    pos = torch.tensor([100, 749], dtype=torch.int32, device="cuda")
+    q = _randn((2, d), gen, 0.125)
+    assert KC.plan_lane_splits(20, 2, 750) == 8
+    twice = [KC.decode_attention(q, kq, vq, pos, 20) for _ in range(2)]
+    assert torch.equal(*twice)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -505,10 +608,31 @@ def test_cuda_wrappers_raise_instead_of_falling_back(gen):
         KB.fused_mlp_block(x, x[0, 0], x[0, 0], _randn((96, 384), gen),
                            _randn((384,), gen), _randn((384, 96), gen),
                            x[0, 0])
+    y = _randn((40 * 96 + 8,), gen)[8:].view(40, 96)  # 16-byte, not 32
+    with pytest.raises(ValueError, match="32-byte"):
+        KB.fused_mlp_block(y, y[0], y[0], _randn((96, 384), gen),
+                           _randn((384,), gen), _randn((384, 96), gen), y[0])
     kc = _randn((2, 1, 16, 128), gen)
     with pytest.raises(ValueError, match="kv_rep"):  # 18 q rows, 2 kv rows
         KC.decode_attention_stacked(_randn((18, 128), gen), kc, kc, 3, 0, 2,
                                     kv_rep=4)
+    with pytest.raises(ValueError, match="splits"):  # clusters of 1..8
+        KC.decode_attention_stacked(_randn((1, 128), gen), kc, kc, 3, 0, 2,
+                                    splits=16)
+    # row scales (K3s) take the one-block kernel only
+    kq = torch.zeros((2, 1, 16, 128), dtype=torch.int8, device="cuda")
+    rs = torch.ones((2, 1, 16), device="cuda")
+    with pytest.raises(ValueError, match="one-block"):
+        KC.decode_attention_stacked(_randn((2, 128), gen), kq, kq, 3, 0, 2,
+                                    batch_major=True, k_rowscale=rs,
+                                    v_rowscale=rs, splits=4)
+    # the split kernel's TMA maps need 16-byte aligned rows and base: a
+    # cache that starts 2 bytes in is refused, never read another way
+    flat = _randn((2 * 800 * 128 + 1,), gen)
+    odd = flat[1:].view(2, 1, 800, 128)
+    with pytest.raises(ValueError, match="16-byte"):
+        KC.decode_attention_stacked(_randn((1, 128), gen), odd, odd, 799, 0,
+                                    2, splits=4)
     par = torch.zeros(2, dtype=torch.int32, device="cuda")
     with pytest.raises(ValueError, match="overlaps"):
         KP.permute_lanes_arrays((kc,), par, (kc,))

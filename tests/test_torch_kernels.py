@@ -255,3 +255,47 @@ def test_k3g_split_plan(n_head, n_kv, rep, c_used, splits):
     """K3g's cluster size: the least power of two that puts 264 blocks in
     flight, capped at 4 and at 96 rows a block."""
     assert KC.plan_splits(n_head, n_kv, rep, c_used) == splits
+
+
+@pytest.mark.parametrize("n_head,n_lane,c_used,splits", [
+    (20, 1, 750, 8),     # large-v2 greedy, cross: 160 blocks
+    (20, 2, 750, 8),     # two lanes: 320 blocks
+    (20, 3, 750, 4),     # three: 240
+    (20, 4, 750, 4),     # batched greedy, four windows: 320
+    (20, 5, 750, 1),     # five: even 4 would put 400 blocks in flight
+    (20, 8, 750, 1),
+    (20, 8, 1500, 2),    # long rows: a pair at any batch
+    (20, 64, 1200, 2),
+    (20, 64, 1199, 1),
+    (20, 1, 1500, 8),
+    (20, 1, 448, 1),     # a full-context self cache never splits
+    (20, 1, 512, 8),
+    (20, 1, 511, 1),
+    (20, 5, 128, 1),     # the beam self cache
+    (20, 1, 1, 1),
+    (4, 16, 3000, 4),    # 64 blocks
+    (4, 1, 192, 1),
+])
+def test_k3_lane_split_plan(n_head, n_lane, c_used, splits):
+    """K3's per-lane cluster size: 8 or 4 blocks a (head, lane), the larger
+    within 320 blocks in flight, from 512 rows on (past the decoder's
+    448-row context); past that a pair from 1200 rows on; else the
+    one-block kernel."""
+    assert KC.plan_lane_splits(n_head, n_lane, c_used) == splits
+
+
+@pytest.mark.parametrize("m,d,n_sm,ksplit", [
+    (750, 1280, 132, 2),    # one large-v2 window: 60 tiles, 120 split
+    (705, 1280, 132, 2),    # a clip window
+    (1500, 1280, 132, 1),   # two windows: 120 tiles, 240 split
+    (3000, 1280, 132, 1),   # four windows: 240 tiles
+    (6000, 1280, 132, 1),   # eight: 470 tiles
+    (48000, 1280, 132, 1),  # 64 windows: 3750 tiles
+    (1, 384, 132, 2),
+    (3000, 768, 132, 1),    # 144 tiles: more than a wave unsplit
+    (1500, 1280, 264, 2),   # twice the SMs: 240 split blocks fit
+])
+def test_k2_ksplit_plan(m, d, n_sm, ksplit):
+    """K2's GEMM2 split over K: 2 only when the split grid fits in one
+    wave of the SMs, else 1."""
+    assert KB.plan_ksplit(m, d, n_sm) == ksplit

@@ -1,5 +1,6 @@
 """Run chip_smoke.py's kernel phase on one checkout of the port and print
-the rows of the kernels redesigned for Hopper (K1, K9, K3g).
+the rows of the kernels redesigned for Hopper (chip_smoke.REDESIGNED: K1,
+K9, K3g, K2, K3 with K3s and K8).
 
     python3 tools/compare_attention_kernels.py [--root DIR] [--label NAME]
 
@@ -8,8 +9,7 @@ kernels (into DIR/build/) and runs this checkout's `chip_smoke.phase_kernels`
 over it: every kernel against its plain version at chip_smoke's shapes,
 with CUDA-event times of the kernel and of SDPA on the same inputs. Prints
 one JSON line {"label", "device", "rows": {kernel: [row, ...]}} with the
-rows of flash_attention, flash_attention_legacy and decode_attention_group
-as chip_smoke records them. To compare two commits on one card, unpack the
+rows of those kernels as chip_smoke records them. To compare two commits on one card, unpack the
 other one (`git archive`) into a directory that .gitignore lists and run
 the script on both, in turns: other, this, this, other. Needs a CUDA card
 and nvcc.
@@ -24,8 +24,6 @@ import subprocess
 import sys
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-REDESIGNED = ("flash_attention", "flash_attention_legacy",
-              "decode_attention_group")
 
 
 def main() -> int:
@@ -45,7 +43,8 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     print(json.dumps({"label": args.label, "device": smi,
-                      "rows": {n: rows[n] for n in REDESIGNED}}), flush=True)
+                      "rows": {n: rows[n] for n in chip_smoke.REDESIGNED}}),
+          flush=True)
     return 0
 
 

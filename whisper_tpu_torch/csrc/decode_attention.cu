@@ -34,15 +34,23 @@
 // reshuffle) cannot reach the output: this is the TPU kernel's sanitising
 // `w * where(row > pos, 0, vs)`. Rows at or past c_used are never read.
 //
-// Bound on the H100: device-memory bandwidth. Every step reads each
-// layer's visible K and V rows once: at large-v2 greedy the cross cache is
-// 2 * Sa * d * 2 B = 3.84 MB per lane per layer in bf16 (Sa = 750), half
-// that in int8 and a quarter in int4; the self cache at most
-// 2 * C * d * 2 B = 0.66 MB per lane per layer (C = 128), 0.33 MB in int8
-// and 0.16 MB in int4, plus 1 KB of row scales; against 2 FLOP per value.
-// Reading only the visible prefix (n = min(pos + 1, c_used) rows) and
-// storing fewer bits are what the design does about it; a split over Sa
-// for B = 1 (only B * 20 blocks) is later work.
+// Bound on the H100: device-memory bandwidth, and at a few lanes latency.
+// Every step reads each layer's visible K and V rows once: at large-v2
+// greedy the cross cache is 2 * Sa * d * 2 B = 3.84 MB per lane per layer
+// in bf16 (Sa = 750), half that in int8 and a quarter in int4, 1.15 us at
+// 3.35 TB/s; the self cache at most 2 * C * d * 2 B = 0.66 MB per lane per
+// layer (C = 128), 0.33 MB in int8 and 0.16 MB in int4, plus 1 KB of row
+// scales; against 2 FLOP per value. Reading only the visible prefix
+// (n = min(pos + 1, c_used) rows) and storing fewer bits are what this
+// one-block kernel does about it. At one greedy lane it runs only 20
+// blocks (one per head) for 132 SMs, each walking 750 rows with one
+// 16-byte load a thread in flight: 0.0111 ms, 10% of the bound. So over a
+// long cache (ops/kernels/decode_attention.py::plan_lane_splits: from 512
+// rows, past the decoder's 448-row context, so never a self cache) the
+// per-lane call takes the split kernel below with one lane a group
+// (G = 1): clusters of 8 blocks at one or two lanes, 4 at three or four,
+// 2 over long rows beyond. K3s (row scales) comes only with a batch-major
+// self cache of at most 448 rows, so it always takes this kernel.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -192,13 +200,16 @@ decode_attention_kernel(const Q* __restrict__ q, const typename Store<S>::E* __r
   }
 }
 
-// K3g: R query lanes share one kv row (the beam lanes of one window against
-// that window's cross cache: kv row j serves q rows [j*R, (j+1)*R)).
+// The split kernel. K3g: R query lanes share one kv row (the beam lanes of
+// one window against that window's cross cache: kv row j serves q rows
+// [j*R, (j+1)*R)). K3 and K8 at splits > 1: R = G = 1, each lane
+// against its own rows. Row scales (K3s) are not taken here.
 //
 // Replaces: whisper_tpu/ops/pallas/decode_attention.py::
 // _decode_attn_stacked_group_kernel (and its `_attend_group`), plus the f32
-// per-lane kv_rep path of _decode_attn_stacked_kernel. Same numerics as the
-// kernel above, lane by lane: exact f32 scores of each pre-scaled query,
+// per-lane kv_rep path of _decode_attn_stacked_kernel, and over long rows
+// _decode_attn_stacked_kernel (K3) and _decode_attn_kernel (K8). Same numerics as the kernel above,
+// lane by lane: exact f32 scores of each pre-scaled query,
 // rows past that lane's pos masked, f32 softmax, each weight
 // round_bf16(exp(s - m) / sum) for a bf16 query (f32 otherwise) with the
 // lane's global max m and sum, f32 value sum, output in the query's type.
@@ -217,17 +228,20 @@ decode_attention_kernel(const Q* __restrict__ q, const typename Store<S>::E* __r
 //     lanes (registers and shared memory bounded for any R); each block
 //     scores its rows against its group's G queries held in registers;
 //   * the visible rows of a (head, kv row, group) are split over a thread
-//     block cluster of `splits` blocks (<= 8; the host's plan takes <= 4,
-//     at least 32 rows a block, until ~264 blocks are in flight: 4 up to
-//     four windows of large-v2, 2 at eight), each taking a contiguous
-//     chunk of ~Sa / splits rows;
+//     block cluster of `splits` blocks (<= 8; K3g's plan takes <= 4, at
+//     least 96 rows a block, until ~264 blocks are in flight: 4 up to six
+//     windows of large-v2, 2 at seven to thirteen), each taking a
+//     contiguous chunk of ~Sa / splits rows;
 //   * a block brings its chunk's K and V rows of its head into shared memory
 //     as one TMA box each (`cp.async.bulk.tensor`, a byte-typed map of the
-//     stacked cache built on the host), both in flight at once, V's while
+//     whole stacked cache over all its layers, encoded on the host once per
+//     cache and reused at every layer and step: `wtt::cached_map`), both in
+//     flight at once, V's while
 //     the scores are computed (a chunk over 256 rows, a box's limit, goes
 //     in boxes: K's for the scores, then V's for the value sums). One copy
 //     per row, tried first, left the TMA unit's per-copy rate as the limit
-//     at 375-row chunks;
+//     at 375-row chunks; staging a long chunk through a ring of two
+//     128-row boxes, or all its boxes at once, ran no faster on the card;
 //   * the cluster combines through distributed shared memory, three
 //     cluster barriers in all: each block stores its G local maxima into
 //     every block, then its G local exp-sums against the global maxima;
@@ -260,7 +274,7 @@ decode_attention_group_kernel(const Q* __restrict__ q, const int* __restrict__ p
     if (splits > 1) cluster.sync();
     else __syncthreads();
   };
-  if (splits > 1) asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  if (splits > 1) wtt::cluster_arrive_relaxed();
 
   extern __shared__ unsigned char dyn_raw[];
   // TMA writes to 128-byte aligned shared memory
@@ -277,6 +291,7 @@ decode_attention_group_kernel(const Q* __restrict__ q, const int* __restrict__ p
   // rank's G x 64 value sums.
   __shared__ float all_max[MAX_SPLITS][G], all_sum[MAX_SPLITS][G];
   __shared__ float gathered[MAX_SPLITS * G * HD];
+  __shared__ float red[WARPS];  // block reductions (one lane a group)
   __shared__ __align__(8) uint64_t bars[2];  // K and V staging
 
   const int h = blockIdx.x;
@@ -354,46 +369,75 @@ decode_attention_group_kernel(const Q* __restrict__ q, const int* __restrict__ p
         for (int e = 0; e < CPT; ++e) dot += qv[g][e] * kv[e];
 #pragma unroll
         for (int o = LPR / 2; o > 0; o >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, o);
-        if (c < n && sub == 0) scores[g * chunk_cap + p0 - rb + c] = dot;
+        if (c < n && sub == 0)
+          scores[g * chunk_cap + p0 - rb + c] = dot;
       }
     }
   }
   __syncthreads();
 
-  // Softmax across the cluster: one warp per lane g; rows past that lane's
-  // pos weigh 0. First the global max, then the global sum against it.
-  if (splits > 1) asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
-  for (int g = warp; g < G; g += WARPS) {
-    const float* sr = scores + g * chunk_cap - rb;
-    const int n = min(re, sn[g]);
+  // Softmax across the cluster; rows past a lane's pos weigh 0. First the
+  // global max, then the global sum against it. One lane (K3, K8): the
+  // whole block takes the chunk's rows; several (K3g): one warp a lane.
+  if (splits > 1) wtt::cluster_wait();
+  if constexpr (G == 1) {
+    float* sr = scores - rb;
+    const int n = min(re, sn[0]);
     float mx = -INFINITY;
-    for (int c = rb + lane; c < n; c += 32) mx = fmaxf(mx, sr[c]);
-    mx = wtt::warp_max(mx);
-    if (lane < splits) *cluster.map_shared_rank(&all_max[rank][g], lane) = mx;
-  }
-  cluster_sync();
-  for (int g = warp; g < G; g += WARPS) {
-    float* sr = scores + g * chunk_cap - rb;
-    const int n = min(re, sn[g]);
+    for (int c = rb + threadIdx.x; c < n; c += THREADS) mx = fmaxf(mx, sr[c]);
+    mx = block_reduce(mx, red, true);
+    if (threadIdx.x < splits) *cluster.map_shared_rank(&all_max[rank][0], threadIdx.x) = mx;
+    cluster_sync();
     float mg = -INFINITY;
-    for (int r = 0; r < splits; ++r) mg = fmaxf(mg, all_max[r][g]);
+    for (int r = 0; r < splits; ++r) mg = fmaxf(mg, all_max[r][0]);
     float sum = 0.f;
-    for (int c = rb + lane; c < n; c += 32) {
+    for (int c = rb + threadIdx.x; c < n; c += THREADS) {
       const float p = expf(sr[c] - mg);
       sr[c] = p;
       sum += p;
     }
-    sum = wtt::warp_sum(sum);
-    if (lane < splits) *cluster.map_shared_rank(&all_sum[rank][g], lane) = sum;
-  }
-  cluster_sync();
-  for (int g = warp; g < G; g += WARPS) {
-    float* sr = scores + g * chunk_cap - rb;
-    const int n = min(re, sn[g]);
-    float sum = 0.f;
-    for (int r = 0; r < splits; ++r) sum += all_sum[r][g];
-    for (int c = rb + lane; c < n; c += 32) sr[c] = weight<Q>(sr[c] / sum);
-    for (int c = max(n, rb) + lane; c < re; c += 32) sr[c] = 0.f;
+    sum = block_reduce(sum, red, false);
+    if (threadIdx.x < splits) *cluster.map_shared_rank(&all_sum[rank][0], threadIdx.x) = sum;
+    cluster_sync();
+    float total = 0.f;
+    for (int r = 0; r < splits; ++r) total += all_sum[r][0];
+    for (int c = rb + threadIdx.x; c < n; c += THREADS)
+      sr[c] = weight<Q>(sr[c] / total);
+    for (int c = max(n, rb) + threadIdx.x; c < re; c += THREADS) sr[c] = 0.f;
+  } else {
+    for (int g = warp; g < G; g += WARPS) {
+      const float* sr = scores + g * chunk_cap - rb;
+      const int n = min(re, sn[g]);
+      float mx = -INFINITY;
+      for (int c = rb + lane; c < n; c += 32) mx = fmaxf(mx, sr[c]);
+      mx = wtt::warp_max(mx);
+      if (lane < splits) *cluster.map_shared_rank(&all_max[rank][g], lane) = mx;
+    }
+    cluster_sync();
+    for (int g = warp; g < G; g += WARPS) {
+      float* sr = scores + g * chunk_cap - rb;
+      const int n = min(re, sn[g]);
+      float mg = -INFINITY;
+      for (int r = 0; r < splits; ++r) mg = fmaxf(mg, all_max[r][g]);
+      float sum = 0.f;
+      for (int c = rb + lane; c < n; c += 32) {
+        const float p = expf(sr[c] - mg);
+        sr[c] = p;
+        sum += p;
+      }
+      sum = wtt::warp_sum(sum);
+      if (lane < splits) *cluster.map_shared_rank(&all_sum[rank][g], lane) = sum;
+    }
+    cluster_sync();
+    for (int g = warp; g < G; g += WARPS) {
+      float* sr = scores + g * chunk_cap - rb;
+      const int n = min(re, sn[g]);
+      float sum = 0.f;
+      for (int r = 0; r < splits; ++r) sum += all_sum[r][g];
+      for (int c = rb + lane; c < n; c += 32)
+        sr[c] = weight<Q>(sr[c] / sum);
+      for (int c = max(n, rb) + lane; c < re; c += 32) sr[c] = 0.f;
+    }
   }
   __syncthreads();
 
@@ -481,50 +525,55 @@ int launch(const void* q, const void* k, const void* v, const int* pos, const vo
   return (int)cudaGetLastError();
 }
 
-// K3g's launch: `splits` blocks of a cluster share the rows of each
-// (head, kv row, group). A block stages its chunk of ceil(c_used / splits)
-// rows (rounded up to 8) as one TMA box of at most 256 rows a tensor; a
-// larger chunk goes in boxes of 256. Dynamic shared memory: the K and V
-// boxes, the G score rows of a chunk, and 128 B of alignment slack.
+// The split launch (K3g, and K3 / K8 at splits > 1): `splits` blocks of a
+// cluster share the rows of each (head, kv row, group). A block stages its
+// chunk of ceil(c_used / splits) rows (rounded up to 8) as one TMA box of
+// at most 256 rows a tensor; a larger chunk goes in boxes of 256. Dynamic
+// shared memory: the K and V boxes, the G score rows of a chunk, and 128 B
+// of alignment slack.
 constexpr int MAX_BOX_ROWS = 256;  // a TMA box dimension's limit
 constexpr int SMEM_LIMIT = 227 * 1024;
-constexpr int GROUP_STATIC = 40 * 1024;  // K3g's static shared memory, rounded up
 
-// A byte-typed 4-D map (row bytes, rows, kv rows, layers) of a stacked
-// cache with the given strides in bytes, and a box of one head's `rows`.
+// A byte-typed 4-D map (row bytes, rows, kv rows, layers) of a whole
+// stacked cache with the given strides in bytes, and a box of one head's
+// `rows`. It covers every layer, so one map serves a cache at every layer
+// and step, and `wtt::cached_map` encodes it once.
 bool cache_map(CUtensorMap* map, const void* base, int H, int row_bytes, int c_used, int n_kv,
-               int layer, long long row, long long lane, long long lay, int rows) {
+               int n_layer, long long row, long long lane, long long lay, int rows) {
   const cuuint64_t dims[4] = {(cuuint64_t)H * row_bytes, (cuuint64_t)c_used, (cuuint64_t)n_kv,
-                              (cuuint64_t)layer + 1};
+                              (cuuint64_t)n_layer};
   const cuuint64_t strides[3] = {(cuuint64_t)row, (cuuint64_t)lane, (cuuint64_t)lay};
   const cuuint32_t box[4] = {(cuuint32_t)row_bytes, (cuuint32_t)rows, 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return wtt::encode_tiled()(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 4, const_cast<void*>(base), dims,
-                             strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                             CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return wtt::cached_map(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 4, base, dims, strides, box,
+                         CU_TENSOR_MAP_SWIZZLE_NONE);
 }
 
 template <typename S, typename Q, int G>
 int launch_group(const void* q, const void* k, const void* v, const int* pos, void* out, int B,
-                 int R, int H, int c_used, int layer, int splits, const Strides& st,
+                 int R, int H, int c_used, int layer, int n_layer, int splits, const Strides& st,
                  cudaStream_t stream) {
   using E = typename Store<S>::E;
   constexpr int es = (int)sizeof(E);
   constexpr int row_bytes = HD / Store<S>::CPE * es;
   auto kernel = decode_attention_group_kernel<S, Q, G>;
+  static int static_smem = -1;  // this instantiation's static shared memory
+  if (static_smem < 0) {
+    cudaFuncAttributes fa;
+    const cudaError_t e = cudaFuncGetAttributes(&fa, kernel);
+    if (e != cudaSuccess) return (int)e;
+    static_smem = (int)fa.sharedSizeBytes;
+  }
   const int chunk_cap = (c_used + splits - 1) / splits;
   const int box_rows = min(MAX_BOX_ROWS, (chunk_cap + 7) / 8 * 8);
   const int smem = 128 + 2 * box_rows * row_bytes + G * chunk_cap * (int)sizeof(float);
-  if (smem > SMEM_LIMIT - GROUP_STATIC || wtt::encode_tiled() == nullptr)
-    return (int)cudaErrorInvalidValue;
+  if (smem > SMEM_LIMIT - static_smem) return (int)cudaErrorInvalidValue;
   CUtensorMap km, vm;
-  if (!cache_map(&km, k, H, row_bytes, c_used, B / R, layer, st.k_row * es, st.k_lane * es,
+  if (!cache_map(&km, k, H, row_bytes, c_used, B / R, n_layer, st.k_row * es, st.k_lane * es,
                  st.k_layer * es, box_rows) ||
-      !cache_map(&vm, v, H, row_bytes, c_used, B / R, layer, st.v_row * es, st.v_lane * es,
+      !cache_map(&vm, v, H, row_bytes, c_used, B / R, n_layer, st.v_row * es, st.v_lane * es,
                  st.v_layer * es, box_rows))
     return (int)cudaErrorInvalidValue;
-  static int opted = 48 * 1024 - GROUP_STATIC;  // this instantiation's dynamic limit so far
+  static int opted = 48 * 1024 - static_smem;  // this instantiation's dynamic limit so far
   if (smem > opted) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -543,23 +592,31 @@ int launch_group(const void* q, const void* k, const void* v, const int* pos, vo
   attr[0].val.clusterDim.z = splits;
   cfg.attrs = attr;
   cfg.numAttrs = splits > 1;  // one block a cluster: a plain launch
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, (const Q*)q, pos, (Q*)out, R, c_used,
-                                             layer, st, km, vm, chunk_cap, box_rows);
+  const cudaError_t err =
+      cudaLaunchKernelEx(&cfg, kernel, (const Q*)q, pos, (Q*)out, R, c_used, layer, st, km, vm,
+                         chunk_cap, box_rows);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
 template <typename S, typename Q>
 int dispatch(int rep, int splits, const void* q, const void* k, const void* v, const int* pos,
-             void* out, int B, int H, int c_used, int layer, const Strides& st, cudaStream_t s) {
-  if (rep == 1)
+             void* out, int B, int H, int c_used, int layer, int n_layer, const Strides& st,
+             cudaStream_t s) {
+  // one q row per kv row (K3, K8): the one-block kernel at splits = 1, the
+  // split kernel with G = 1 above it
+  if (rep == 1 && splits == 1)
     return launch<S, Q, false>(q, k, v, pos, nullptr, nullptr, out, B, H, c_used, layer, st, s);
+  if (rep == 1)
+    return launch_group<S, Q, 1>(q, k, v, pos, out, B, 1, H, c_used, layer, n_layer, splits, st,
+                                 s);
   // R lanes in ceil(R / GROUP) groups of G = ceil(R / groups) <= GROUP
   const int groups = (rep + GROUP - 1) / GROUP;
   const int g = (rep + groups - 1) / groups;
-#define WTT_GROUP(G) \
-  case G:            \
-    return launch_group<S, Q, G>(q, k, v, pos, out, B, rep, H, c_used, layer, splits, st, s);
+#define WTT_GROUP(G)                                                                        \
+  case G:                                                                                   \
+    return launch_group<S, Q, G>(q, k, v, pos, out, B, rep, H, c_used, layer, n_layer, splits, \
+                                 st, s);
   switch (g) {
     WTT_GROUP(2)
     WTT_GROUP(3)
@@ -578,48 +635,52 @@ int dispatch(int rep, int splits, const void* q, const void* k, const void* v, c
 
 // Strides are in stored elements (bytes for int8 and packed int4); the lane
 // strides step over kv rows. B is the number of q rows, rep the q rows per
-// kv row (1: the per-lane K3 kernel, >= 2: the grouped K3g kernel), splits
-// the cluster size K3g splits each kv row's visible rows over (1..8; K3
-// ignores it). storage: 0 bf16, 1 f32, 2 int8, 3 packed int4; q_f32 selects an f32
-// query and output (else bf16). ks/vs (K3s): null, or the int8 / int4
-// cache's f32 row scales with strides s_lane/s_layer (rep must be 1).
+// kv row (1: per lane, K3 / K3s; >= 2: grouped, K3g), splits the cluster
+// size each kv row's visible rows are split over (1..8; per lane, 1 is the
+// one-block kernel), n_layer the layers of the stacked cache (the TMA maps
+// cover them all). storage: 0 bf16, 1 f32, 2 int8, 3 packed int4; q_f32
+// selects an f32 query and output (else bf16). ks/vs (K3s): null, or the
+// int8 / int4 cache's f32 row scales with strides s_lane/s_layer (rep and
+// splits must be 1: K3s takes the one-block kernel).
 extern "C" int wtt_decode_attention(const void* q, const void* k, const void* v,
                                     const void* pos, void* out, const void* ks, const void* vs,
                                     int B, int H, int rep, int splits, int c_used, int layer,
-                                    int storage, int q_f32, long long q_sb, long long k_lane,
-                                    long long k_layer, long long k_row, long long v_lane,
-                                    long long v_layer, long long v_row, long long s_lane,
-                                    long long s_layer, long long o_sb, void* stream) {
+                                    int n_layer, int storage, int q_f32, long long q_sb,
+                                    long long k_lane, long long k_layer, long long k_row,
+                                    long long v_lane, long long v_layer, long long v_row,
+                                    long long s_lane, long long s_layer, long long o_sb,
+                                    void* stream) {
   if (rep < 1 || B % rep || c_used < 1 || B < 1 || B / rep > 65535 || splits < 1 ||
-      splits > MAX_SPLITS)
+      splits > MAX_SPLITS || layer < 0 || layer >= n_layer)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const int* p = (const int*)pos;
   const Strides st{q_sb, k_lane, k_layer, k_row, v_lane, v_layer, v_row, s_lane, s_layer, o_sb};
   using bf16 = __nv_bfloat16;
   if (ks != nullptr || vs != nullptr) {
-    if (ks == nullptr || vs == nullptr || rep != 1 || (storage != 2 && storage != 3))
+    if (ks == nullptr || vs == nullptr || rep != 1 || splits != 1 ||
+        (storage != 2 && storage != 3))
       return (int)cudaErrorInvalidValue;
-    if (storage == 3)
-      return q_f32 ? launch<Int4, float, true>(q, k, v, p, ks, vs, out, B, H, c_used, layer, st, s)
-                   : launch<Int4, bf16, true>(q, k, v, p, ks, vs, out, B, H, c_used, layer, st, s);
-    return q_f32 ? launch<int8_t, float, true>(q, k, v, p, ks, vs, out, B, H, c_used, layer, st, s)
-                 : launch<int8_t, bf16, true>(q, k, v, p, ks, vs, out, B, H, c_used, layer, st, s);
+#define WTT_SCALED(S, Q) launch<S, Q, true>(q, k, v, p, ks, vs, out, B, H, c_used, layer, st, s)
+    if (storage == 3) return q_f32 ? WTT_SCALED(Int4, float) : WTT_SCALED(Int4, bf16);
+    return q_f32 ? WTT_SCALED(int8_t, float) : WTT_SCALED(int8_t, bf16);
+#undef WTT_SCALED
   }
+#define WTT_DISPATCH(S, Q) \
+  dispatch<S, Q>(rep, splits, q, k, v, p, out, B, H, c_used, layer, n_layer, st, s)
   switch (storage) {
     case 0:
       if (q_f32) return (int)cudaErrorInvalidValue;
-      return dispatch<bf16, bf16>(rep, splits, q, k, v, p, out, B, H, c_used, layer, st, s);
+      return WTT_DISPATCH(bf16, bf16);
     case 1:
       if (!q_f32) return (int)cudaErrorInvalidValue;
-      return dispatch<float, float>(rep, splits, q, k, v, p, out, B, H, c_used, layer, st, s);
+      return WTT_DISPATCH(float, float);
     case 2:
-      return q_f32 ? dispatch<int8_t, float>(rep, splits, q, k, v, p, out, B, H, c_used, layer, st, s)
-                   : dispatch<int8_t, bf16>(rep, splits, q, k, v, p, out, B, H, c_used, layer, st, s);
+      return q_f32 ? WTT_DISPATCH(int8_t, float) : WTT_DISPATCH(int8_t, bf16);
     case 3:
-      return q_f32 ? dispatch<Int4, float>(rep, splits, q, k, v, p, out, B, H, c_used, layer, st, s)
-                   : dispatch<Int4, bf16>(rep, splits, q, k, v, p, out, B, H, c_used, layer, st, s);
+      return q_f32 ? WTT_DISPATCH(Int4, float) : WTT_DISPATCH(Int4, bf16);
     default:
       return (int)cudaErrorInvalidValue;
   }
+#undef WTT_DISPATCH
 }

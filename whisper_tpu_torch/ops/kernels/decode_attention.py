@@ -21,23 +21,28 @@ layout of `quantize.py`). An integer cache takes a bf16 or f32 query and
 gives the output in the query's dtype, as the TPU kernels do; the
 per-channel scales of a quantized cross cache are folded into the query
 and the output by the caller (`models/whisper.py`), so K3/K3g stay
-scale-free. The CUDA source, `csrc/decode_attention.cu`, runs one block
-per (head, lane) for K3/K3s; K3g runs a thread-block cluster of `splits`
-blocks per (head, kv row, group of <= 8 lanes), each block scoring a chunk
-of the rows, the cluster combining the softmax statistics and the value
-sums through distributed shared memory in the one launch (`plan_splits`
-picks the cluster size). Both take the base pointer, strides and layer
-index of the WHOLE stacked cache -- no per-layer copy is sliced out before
-the launch. Its notes reckon the bytes that bound each.
+scale-free. The CUDA source, `csrc/decode_attention.cu`, has two kernels.
+The split kernel runs a thread-block cluster of `splits` blocks per (head,
+kv row, group of <= 8 lanes), each block staging a chunk of the rows by
+TMA and scoring it, the cluster combining the softmax statistics and the
+value sums through distributed shared memory in the one launch: K3g always
+(`plan_splits` picks the cluster size), and K3 and K8 over a long cache,
+one lane a group (`plan_lane_splits`: the greedy cross cache). The
+one-block kernel runs one block per (head, lane) for K3 and K8 elsewhere
+(every self cache) and for K3s always: row scales come only with a
+batch-major self cache, at most 448 rows, which never splits. Both take the base pointer, strides and
+layer index of the WHOLE stacked cache -- no per-layer copy is sliced out
+before the launch. Its notes reckon the bytes that bound each.
 
 Tolerance against the plain version: elementwise
 |kernel - plain| <= ATOL + RTOL * |plain| with (ATOL, RTOL) = TOL[dtype of
 the output]. The two compute the same f32 scores and the same
 once-rounded weights round_bf16(exp(s - max) / sum) from the same global
-max; only the order of the f32 sums differs (K3g sums the exp-sum and the
-value sums per block of its cluster, then across the blocks, so it is no
-longer bit-equal to the plain version), which can move a bf16 output by
-one rounding step.
+max; only the order of the f32 sums differs (the split kernel sums the
+exp-sum and the value sums per block of its cluster, then across the
+blocks in rank order, so it is no longer bit-equal to the plain version,
+but gives the same bits on every run), which can move a bf16 output by one
+rounding step.
 """
 
 from __future__ import annotations
@@ -59,6 +64,9 @@ GROUP = 8  # most q lanes one K3g block holds (csrc/decode_attention.cu)
 SMS = 132  # the H100's streaming multiprocessors
 MAX_SPLITS = 4  # K3g clusters of 8 time slower than of 4 (PERF.md)
 MIN_ROWS = 96  # fewest cache rows a K3g block is left (fewer: one block)
+LANE_MIN_ROWS = 512  # fewest cache rows a per-lane cluster of 4 or 8 takes
+LANE_MAX_BLOCKS = 320  # most blocks such a cluster puts in flight
+LANE_PAIR_ROWS = 1200  # from here on a pair of blocks splits at any batch
 
 
 def plan_splits(n_head: int, n_kv: int, kv_rep: int, c_used: int) -> int:
@@ -75,6 +83,32 @@ def plan_splits(n_head: int, n_kv: int, kv_rep: int, c_used: int) -> int:
            and c_used >= 2 * splits * MIN_ROWS):
         splits *= 2
     return splits
+
+
+def plan_lane_splits(n_head: int, n_lane: int, c_used: int) -> int:
+    """The per-lane cluster size (K3, K8): blocks per (head, lane)
+    that split the c_used rows; 1 is the one-block kernel. From
+    LANE_MIN_ROWS rows on, a cluster of 8, else of 4, while
+    n_head * n_lane * splits stays within LANE_MAX_BLOCKS; past that, a
+    pair from LANE_PAIR_ROWS rows on; else 1. Timed by
+    `tools/sweep_k3g_splits.py` (PERF.md section 6), large-v2 (20 heads),
+    ms at 1 / 2 / 4 / 8: one lane over Sa = 750 .0113 / .0110 / .0079 /
+    .0075, two .0114 / .0116 / .0089 / .0085, four .0114 / .0129 /
+    .0109 / .0112, eight .0127 / .0161 / .0193 / .0202; over Sa = 1500
+    one lane .0191 / .0157 / .0117 / .0090, four .0205 / .0186 / .0159 /
+    .0199, eight .0422 / .0300 / .0375 / .0390; below ~400 rows the one
+    block wins (Sa = 300: .0061 / .0073 / .0069 / .0068). LANE_MIN_ROWS
+    lies above the decoder's 448-row context, so a self cache, whose
+    visible rows (pos + 1, on the device) may be far fewer than its
+    c_used, never splits: at pos 60 of 448 rows the one block takes about
+    half the split kernel's time. The greedy cross cache (Sa = 750)
+    splits 8 ways."""
+    blocks = n_head * n_lane
+    if c_used >= LANE_MIN_ROWS:
+        for splits in (8, 4):
+            if blocks * splits <= LANE_MAX_BLOCKS:
+                return splits
+    return 2 if c_used >= LANE_PAIR_ROWS else 1
 
 
 def _layer_view(cache, layer, batch_major):
@@ -159,19 +193,21 @@ def decode_attention_stacked(
     k_rowscale: Optional[torch.Tensor] = None,  # (B, L, C) f32, int8/int4
     v_rowscale: Optional[torch.Tensor] = None,
     c_used: Optional[int] = None,  # read only rows [0, c_used)
-    splits: Optional[int] = None,  # K3g's cluster size; None: plan_splits
+    splits: Optional[int] = None,  # cluster size; None: the planners
 ) -> torch.Tensor:
     """Returns (B, d) in the cache dtype (the query's for an integer
     cache). CPU tensors take the plain version; CUDA tensors launch the
     Hopper kernel or raise: q bf16 with a bf16/int8/int4 cache, or f32
     with an f32/int8/int4 cache; head dim 64, unit channel stride, 16-byte
     aligned rows; row scales only with an int8 or int4 batch-major cache
-    and kv_rep = 1. kv_rep = 1 is K3 (counted in `.launches`), kv_rep > 1
-    K3g (`.group_launches`), row scales K3s (`.scaled_launches` over an int8
+    and kv_rep = 1, and then the one-block kernel. kv_rep = 1 is K3 (counted in `.launches`; those over
+    a layer-major cross cache in `.cross_launches` too), kv_rep > 1 K3g
+    (`.group_launches`), row scales K3s (`.scaled_launches` over an int8
     cache, `.scaled_int4_launches` over a packed-int4 one). Rows past
-    c_used are never read. `splits` forces K3g's cluster size (1 to 8;
+    c_used are never read. `splits` forces the cluster size (1 to 8;
+    None: `plan_lane_splits` for kv_rep = 1, `plan_splits` above;
     `tools/sweep_k3g_splits.py` times each): it moves only the order of
-    the f32 sums, and K3 and K3s ignore it."""
+    the f32 sums. Per lane, 1 is the one-block kernel."""
     _check_scales(k_rowscale, v_rowscale, batch_major, kv_rep)
     if q.device.type == "cpu":
         return decode_attention_stacked_plain(
@@ -185,6 +221,7 @@ def decode_attention_stacked(
         decode_attention_stacked.scaled_launches += 1
     elif kv_rep == 1:
         decode_attention_stacked.launches += 1
+        decode_attention_stacked.cross_launches += not batch_major
     else:
         decode_attention_stacked.group_launches += 1
     return out
@@ -251,14 +288,21 @@ def _launch(q, k_cache, v_cache, pos, layer, n_head, batch_major, kv_rep,
     pos_rows = pos if (isinstance(pos, torch.Tensor) and pos.shape == (b,)
                        and pos.dtype == torch.int32 and pos.is_cuda) \
         else _rows(pos, b, q.device).contiguous()
+    if splits is None:
+        splits = (1 if scaled  # K3s: the one-block kernel
+                  else plan_lane_splits(n_head, b, cu) if kv_rep == 1
+                  else plan_splits(n_head, b // kv_rep, kv_rep, cu))
+    elif not 1 <= splits <= 8:
+        raise ValueError(f"splits {splits} must be in 1..8")
+    elif scaled and splits != 1:
+        raise ValueError(f"splits {splits}: row scales (K3s) take the "
+                         f"one-block kernel only")
     out = torch.empty((b, d), dtype=q.dtype, device=q.device)
     err = library().wtt_decode_attention(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         pos_rows.data_ptr(), out.data_ptr(), sc_ptr[0] or None,
-        sc_ptr[1] or None, b, n_head, kv_rep,
-        1 if kv_rep == 1 else splits or plan_splits(n_head, b // kv_rep,
-                                                    kv_rep, cu),
-        cu, int(layer), STORAGE[sd],
+        sc_ptr[1] or None, b, n_head, kv_rep, splits, cu, int(layer),
+        k_cache.shape[layer_dim], STORAGE[sd],
         int(q.dtype == torch.float32), qs[0], ks[lane_dim], ks[layer_dim],
         ks[2], vs[lane_dim], vs[layer_dim], vs[2], sc_strides[0],
         sc_strides[1], out.stride(0), stream_ptr(q))
@@ -267,6 +311,7 @@ def _launch(q, k_cache, v_cache, pos, layer, n_head, batch_major, kv_rep,
 
 
 decode_attention_stacked.launches = 0
+decode_attention_stacked.cross_launches = 0
 decode_attention_stacked.group_launches = 0
 decode_attention_stacked.scaled_launches = 0
 decode_attention_stacked.scaled_int4_launches = 0

@@ -5,11 +5,13 @@ and the wrapper that picks between them by device.
 
 Replaces the TPU kernel `whisper_tpu/ops/pallas/encoder_block.py::
 _mlp_kernel` (entry `fused_mlp_block` -> `_mlp_call`). The CUDA source,
-`csrc/encoder_mlp.cu`, takes 16-row tiles, keeps their f32 output
-accumulator in registers and walks the hidden dimension in 128-wide
-chunks, so the (M, 4d) hidden activations never reach device memory; its
-note says what bounds it and why it does not copy the TPU kernel's
-(1024, d) accumulator.
+`csrc/encoder_mlp.cu`, runs three launches: a layer-norm row pass, then
+two warp-specialised wgmma + TMA GEMMs, the first with the bias and the
+exact GELU in its epilogue (writing the (M, 4d) bf16 hidden, which stays
+in L2), the second with the bias and the residual in its epilogue and,
+at small M, a split over K combined inside a two-block cluster
+(`plan_ksplit`). Its note says what bounds it and why it does not copy the
+TPU kernel's (1024, d) VMEM accumulator.
 
 Tolerance against the plain version (bf16 in, bf16 out): elementwise
 |kernel - plain| <= ATOL + RTOL * |plain|. Both round in the same places
@@ -53,30 +55,25 @@ def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
-def hidden_splits(m: int, h: int, n_sm: int) -> int:
-    """How many blocks share one 16-row tile's hidden chunks. None when the
-    row tiles alone fill a wave of the SMs; else the split count (at most
-    8, dividing the h/128 chunks) whose block count fills the SMs' waves
-    best, ties going to fewer splits (less partial traffic)."""
-    tiles, chunks = -(-m // 16), h // 128
-    if tiles >= n_sm:
-        return 1
-    best, best_fill = 1, 0.0
-    for s in range(1, 9):
-        if chunks % s:
-            continue
-        blocks = tiles * s
-        fill = blocks / (-(-blocks // n_sm) * n_sm)
-        if fill > best_fill + 1e-9:
-            best, best_fill = s, fill
-    return best
+def plan_ksplit(m: int, d: int, n_sm: int) -> int:
+    """GEMM2's cluster size over K (1 or 2). GEMM2 (hidden @ w2, N = d)
+    has ceil(m / 128) x d / 128 tiles; a split of 2 doubles the blocks and
+    halves each block's work. It is taken only when the split grid still
+    fits in one wave (2 x tiles <= n_sm), the case measured faster: at
+    M = 750, d = 1280 on 132 SMs (60 tiles) the split GEMM2 beat the
+    unsplit one, while at M = 6000 (470 tiles) it was slower (PERF.md
+    section 6). Large-v2 on 132 SMs: 2 at one window, 1 from two."""
+    tiles = -(-m // 128) * (d // 128)
+    return 2 if 2 * tiles <= n_sm else 1
 
 
 def fused_mlp_block(x, ln_g, ln_b, w1, b1, w2, b2, eps: float = 1e-5):
     """x (..., d) + MLP(LN(x)); CPU tensors take the plain version, CUDA
-    tensors launch the Hopper kernel or raise: contiguous bf16 operands,
-    and the widths the C entry `wtt_encoder_mlp` takes (d a Whisper width
-    from 256 to 1280, h a multiple of 128), which it checks itself."""
+    tensors launch the Hopper kernels or raise: contiguous, 32-byte aligned
+    bf16 operands, and the widths the C entry `wtt_encoder_mlp` takes (d a
+    Whisper width from 256 to 1280, h a multiple of 256), which it checks
+    itself. One call is three launches (LN, GEMM1, GEMM2), counted once in
+    `.launches`."""
     if x.device.type == "cpu":
         return fused_mlp_block_plain(x, ln_g, ln_b, w1, b1, w2, b2, eps)
     lead, d = x.shape[:-1], x.shape[-1]
@@ -92,12 +89,13 @@ def fused_mlp_block(x, ln_g, ln_b, w1, b1, w2, b2, eps: float = 1e-5):
     x2 = args[0]
     m = x2.shape[0]
     out = torch.empty_like(x2)
-    splits = hidden_splits(m, h, _sm_count(x.get_device()))
-    partial = (torch.empty((splits, m, d), dtype=torch.float32,
-                           device=x.device) if splits > 1 else out)
+    hn = torch.empty_like(x2)
+    hidden = torch.empty((m, h), dtype=torch.bfloat16, device=x.device)
     err = library().wtt_encoder_mlp(
-        *(t.data_ptr() for t in args), out.data_ptr(), partial.data_ptr(), m,
-        d, h, splits, float(eps), stream_ptr(x))
+        *(t.data_ptr() for t in args), out.data_ptr(), hn.data_ptr(),
+        hidden.data_ptr(), m, d, h,
+        plan_ksplit(m, d, _sm_count(x.get_device())), float(eps),
+        stream_ptr(x))
     check(err, "wtt_encoder_mlp")
     fused_mlp_block.launches += 1
     return out.reshape(*lead, d)
