@@ -69,8 +69,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 The kernel phase holds the packed-int4 variants of K3s, K5, K6 and K7
 beside their int8 rows (the *_int4 entries, counted apart). The kernel
 phase also prints, for the kernels redesigned for Hopper (REDESIGNED: K1,
-K9, K3g, K2, K3, K3s and K8), each time over its first version's
-(FIRST_VERSION_MS) and over SDPA's in the same call (K2: over the
+K9, K3g, K2, K3, K3s, K8, and K6 and K5 with their int4 variants), each
+time over its first version's (FIRST_VERSION_MS) and over its library
+call's (SDPA's; `torch._int_mm`'s for K6) in the same call (K2: over the
 encoder block's composed path, LN + two cuBLAS GEMMs + GELU + adds, which
 its rows also time as composed_ms); the quantized greedy phase holds its logits against an f32
 reference of the same quantized model (QUANT_F32_RTOL) and one dequant
@@ -139,18 +140,23 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12,
 
 # The kernels redesigned for Hopper (wgmma + TMA for K1/K9 and K2; a
 # cluster split over the cache rows for K3g, and for K3 and K8 over a long
-# cache; K3s, on K3's one-block kernel, is timed beside them) and the times of their first versions
-# (WMMA K1/K9 and K2; K3g and K3 with one block per head and kv row) at
+# cache; K3s, on K3's one-block kernel, is timed beside them; K6 at decode
+# rows as one split-K launch, K5 as one launch with one round trip to
+# memory) and the times of their first versions (WMMA K1/K9 and K2; K3g
+# and K3 with one block per head and kv row; K6 as a row-quantize pass
+# and a 32-column GEMM; K5 with three helper launches a call) at
 # this script's shapes, in ms: the mean of two runs of
 # `tools/compare_attention_kernels.py` on the commit before each redesign,
 # on one card (PERF.md section 6 names the runs, NVIDIA H100 80GB HBM3,
-# 700 W). Each new time is printed over these and over SDPA's (K2: the
-# composed path's) time in the same call; they are never put in the
-# kernels line, which holds this run's numbers.
+# 700 W). Each new time is printed over these and over the library
+# call's (K2: the composed path's) time in the same call; they are never
+# put in the kernels line, which holds this run's numbers.
 REDESIGNED = ("flash_attention", "flash_attention_legacy",
               "decode_attention_group", "encoder_mlp", "decode_attention",
               "decode_attention_scaled", "decode_attention_scaled_int4",
-              "decode_attention_flat")
+              "decode_attention_flat", "quantized_matmul",
+              "quantized_matmul_int4", "permute_attention",
+              "permute_attention_int4")
 FIRST_VERSION_MS = {
     ("flash_attention", "B=1 Sq=750 Sk=750 H=20"): 0.1210,
     ("flash_attention", "B=1 Sq=705 Sk=705 H=20"): 0.1208,
@@ -197,6 +203,45 @@ FIRST_VERSION_MS = {
     ("decode_attention_flat", "cross bf16 B=1 C=750 all rows"): 0.0112,
     ("decode_attention_flat", "cross int8 B=1 C=750 all rows"): 0.0134,
     ("decode_attention_flat", "cross int4 B=1 C=750 all rows"): 0.0120,
+    # K6 (M <= 64 before its split-K redesign; M=750, the unchanged tile
+    # kernel, for comparison) and K5 before their redesign: the mean of
+    # the two runs of commit 03b1051 in one call, in turns with the
+    # redesign (PERF.md section 6 names the call)
+    ("quantized_matmul", "M=1 K=1280 N=3840"): 0.0063,
+    ("quantized_matmul", "M=1 K=1280 N=1280"): 0.006,
+    ("quantized_matmul", "M=1 K=1280 N=5120"): 0.008,
+    ("quantized_matmul", "M=1 K=5120 N=1280"): 0.0124,
+    ("quantized_matmul", "M=5 K=1280 N=3840"): 0.0071,
+    ("quantized_matmul", "M=5 K=1280 N=1280"): 0.0066,
+    ("quantized_matmul", "M=5 K=1280 N=5120"): 0.0088,
+    ("quantized_matmul", "M=5 K=5120 N=1280"): 0.0148,
+    ("quantized_matmul", "M=20 K=1280 N=3840"): 0.0092,
+    ("quantized_matmul", "M=20 K=1280 N=1280"): 0.007,
+    ("quantized_matmul", "M=20 K=1280 N=5120"): 0.0115,
+    ("quantized_matmul", "M=20 K=5120 N=1280"): 0.0149,
+    ("quantized_matmul", "M=750 K=1280 N=3840"): 0.0399,
+    ("quantized_matmul_int4", "M=1 K=1280 N=3840"): 0.0068,
+    ("quantized_matmul_int4", "M=1 K=1280 N=1280"): 0.0065,
+    ("quantized_matmul_int4", "M=1 K=1280 N=5120"): 0.0084,
+    ("quantized_matmul_int4", "M=1 K=5120 N=1280"): 0.0143,
+    ("quantized_matmul_int4", "M=5 K=1280 N=3840"): 0.0076,
+    ("quantized_matmul_int4", "M=5 K=1280 N=1280"): 0.0071,
+    ("quantized_matmul_int4", "M=5 K=1280 N=5120"): 0.009,
+    ("quantized_matmul_int4", "M=5 K=5120 N=1280"): 0.0166,
+    ("quantized_matmul_int4", "M=20 K=5120 N=1280"): 0.0168,
+    ("quantized_matmul_int4", "M=750 K=1280 N=3840"): 0.0426,
+    ("permute_attention",
+     "B=5 L=32 C=128 pos=60 random parents COW dests"): 0.008,
+    ("permute_attention",
+     "B=5 L=32 C=128 pos=60 collapsed parents COW dests"): 0.0079,
+    ("permute_attention",
+     "B=5 L=32 C=128 pos=60 identity parents COW dests"): 0.0079,
+    ("permute_attention",
+     "B=5 L=32 C=128 pos=60 random parents dests=None (staged)"): 0.0168,
+    ("permute_attention_int4",
+     "int4 B=5 L=32 C=128 pos=60 random parents COW dests"): 0.008,
+    ("permute_attention_int4",
+     "int4 B=10 (W=2) L=32 C=128 pos=60 random parents COW dests"): 0.0082,
 }
 
 
@@ -680,6 +725,9 @@ def phase_kernels() -> dict:
             a.numel() * a.element_size() if valid is None or a.dim() < 4
             else a.shape[0] * a.shape[1] * -(-valid // 32) * 32 * d
             * a.element_size() for a in arrays)
+        # the least traffic: each distinct parent's slab read once, every
+        # lane's slab written once
+        least = (len(set(par.tolist())) + b) * copied // b
         idx = par.long()
         record("permute",
                f"{len(arrays)} arrays B={b} (W={w}) L=32 C=128 d={d}"
@@ -688,16 +736,18 @@ def phase_kernels() -> dict:
                                                valid_len=valid),
                lambda: KP.permute_lanes_arrays_plain(arrays, par, out_p,
                                                      valid_len=valid),
-               0.0, 0.0, (2 * copied, 0),
+               0.0, 0.0, (least, 0),
                None if valid else lambda: [
                    torch.index_select(a, 0, idx, out=o)
                    for a, o in zip(arrays, out_p)])
         del arrays, out_k, out_p
     # G: K6 / K7 (W8A8) at the shapes of the w8a8 slice: decode steps of
-    # 1, 5 and 20 rows (greedy, one window's beam, 4 windows' beam), a
-    # tail window's encoder (750 rows: K6), the batched encoder (4 x 750
-    # rows: K7) at its three weight shapes, and a ragged M. Each x has a
-    # zero row and a row of exact half quantization steps. Tolerance 0:
+    # 1, 5 and 20 rows (greedy, one window's beam, 4 windows' beam) at the
+    # decoder's four weight shapes (qkv; attn_o, cross_q, cross_o; mlp1;
+    # mlp2), a tail window's encoder (750 rows: K6), the batched encoder
+    # (4 x 750 rows: K7) at its three weight shapes, and a ragged M. Each x
+    # of more than two rows has a zero row and a row of exact half
+    # quantization steps; at M=1 the row is a normal one. Tolerance 0:
     # bit-equal. library: `torch._int_mm` of the pre-quantized int8 x (the
     # integer GEMM alone, where its shape rules allow: M > 16); dequant:
     # `_matmul` with int8_impl="xla" (the int8 -> bf16 weight conversion
@@ -716,20 +766,23 @@ def phase_kernels() -> dict:
             return None
         return lambda: torch._int_mm(xq, wq)
 
+    decode_shapes = ((d, 3 * d), (d, d), (d, hidden), (hidden, d))
     for name, m, k_in, n_out in (
-            ("quantized_matmul", 1, d, 3 * d), ("quantized_matmul", 5, d, hidden),
-            ("quantized_matmul", 20, hidden, d),
+            *[("quantized_matmul", m, k_in, n_out) for m in (1, 5, 20)
+              for k_in, n_out in decode_shapes],
             ("quantized_matmul", 750, d, 3 * d),
             ("quantized_matmul_big", 3000, d, 3 * d),
             ("quantized_matmul_big", 3000, d, hidden),
             ("quantized_matmul_big", 3000, hidden, d),
             ("quantized_matmul_big", 1537, d, 3 * d),
             # packed int4 weights (K, N / 2): the int4 agreement slice's
-            # greedy step, an MLP-out step, a tail window's encoder, its
+            # greedy and beam steps at the four weight shapes, an MLP-out
+            # step of 20 rows, a tail window's encoder, its
             # two-window batched encoder (1500 rows: a tail tile of 92),
             # and the int8 rows' 3000 (a tail of 56). No PyTorch call takes
             # int4 weights.
-            ("quantized_matmul_int4", 1, d, 3 * d),
+            *[("quantized_matmul_int4", m, k_in, n_out) for m in (1, 5)
+              for k_in, n_out in decode_shapes],
             ("quantized_matmul_int4", 20, hidden, d),
             ("quantized_matmul_int4", 750, d, 3 * d),
             ("quantized_matmul_big_int4", 1500, d, 3 * d),
@@ -737,8 +790,8 @@ def phase_kernels() -> dict:
             ("quantized_matmul_big_int4", 3000, d, 3 * d),
             ("quantized_matmul_big_int4", 3000, hidden, d)):
         x = _randn((m, k_in), gen)
-        x[0] = 0
-        if m > 1:
+        if m > 2:  # at one row, a zero row would make any kernel's output 0
+            x[0] = 0
             x[1] = 0
             x[1, 0] = 127
             x[1, 1:41] = torch.arange(40, device="cuda") + 0.5
@@ -787,7 +840,8 @@ def phase_kernels() -> dict:
                    else f"{r['ms'] / first:.3f} x the first version's "
                         f"{first:.4f}")
                 + ("" if lib is None
-                   else f", {r['ms'] / lib:.2f} x SDPA's {lib:.4f}")
+                   else f", {r['ms'] / lib:.2f} x the library call's "
+                        f"{lib:.4f}")
                 + ("" if "composed_ms" not in r
                    else f", {r['ms'] / r['composed_ms']:.2f} x the composed "
                         f"path's {r['composed_ms']:.4f}"))

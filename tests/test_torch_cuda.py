@@ -489,6 +489,60 @@ def test_permute_attention_kernel_bit_equal(gen, kind, cow, per_lane_pos,
         assert torch.equal(g, w)
 
 
+@pytest.mark.parametrize("storage", ["int8", "int4"])
+@pytest.mark.parametrize("b", [5, 10])
+@pytest.mark.parametrize("kind", ["random", "collapse", "identity"])
+@pytest.mark.parametrize("pos", [0, 447])
+def test_permute_attention_kernel_at_the_cache_edges(gen, pos, kind, b,
+                                                     storage):
+    """K5 at the large-v2 width (20 heads) over a 448-row cache, at the
+    first row (pos = 0: only the new row is visible) and the last (pos =
+    447: every row, the most shared memory a block takes), beam 5 over one
+    window or two, COW dests from `_cow_assign` passed as the step passes
+    them (int64) and an int pos: the attention within K3's tolerance and
+    every cache and scale array bit-equal to the plain version."""
+    from whisper_tpu_torch.decode.beam import _cow_assign
+
+    k, n_layer, c, d = 5, 2, 448, 1280
+    nw = b // k
+    int4 = storage == "int4"
+    lim = 7 if int4 else 127
+
+    def ints(shape):
+        t = torch.randint(-lim, lim + 1, shape, generator=gen, device="cuda",
+                          dtype=torch.int8)
+        return pack_int4(t) if int4 else t
+
+    caches = [ints((b, n_layer, c, d)) for _ in "kv"]
+    caches += [0.002 + 0.01 * torch.rand((b, n_layer, c), generator=gen,
+                                         device="cuda") for _ in "kv"]
+    new = [ints((b, d)) for _ in "kv"]
+    new += [0.002 + 0.01 * torch.rand(b, generator=gen, device="cuda")
+            for _ in "kv"]
+    q = _randn((b, d), gen, 0.125)
+    parent = {"random": torch.randint(0, k, (nw, k), generator=gen,
+                                      device="cuda"),
+              "collapse": torch.full((nw, k), 1, device="cuda"),
+              "identity": torch.arange(k, device="cuda").repeat(nw, 1)}[kind]
+    phys = torch.stack([torch.randperm(k, generator=gen, device="cuda")
+                        for _ in range(nw)])
+    src, dest = _cow_assign(parent, phys)
+    offs = (torch.arange(nw, device="cuda") * k)[:, None]
+    parents, dests = (src + offs).reshape(b), (dest + offs).reshape(b)
+    mine = [x.clone() for x in caches]
+    plain = [x.clone() for x in caches]
+    counter = "int4_launches" if int4 else "launches"
+    before = getattr(KF.decode_attention_permute_fused, counter)
+    got = KF.decode_attention_permute_fused(q, *mine, *new, parents, pos, 1,
+                                            20, k, dests=dests)
+    assert getattr(KF.decode_attention_permute_fused, counter) == before + 1
+    want = KF.decode_attention_permute_fused_plain(q, *plain, *new, parents,
+                                                   pos, 1, 20, k, dests=dests)
+    _close(got[0], want[0], *KC.TOL[torch.bfloat16])
+    for g, w in zip(got[1:], want[1:]):
+        assert torch.equal(g, w)
+
+
 @pytest.mark.parametrize("valid_len", [None, 37, 64])
 def test_permute_kernel_bit_exact(gen, valid_len):
     """K4, whole slabs and the prefix mode (2 rank-4 caches + 2 rank-3
@@ -515,16 +569,23 @@ def test_permute_kernel_bit_exact(gen, valid_len):
             assert torch.equal(o, a[idx])
 
 
+def _w8a8_edge_rows(k):
+    """(2, k) f32: a zero row and a row of exact half quantization steps
+    (absmax 127, so the scale is 1)."""
+    x = torch.zeros((2, k), device="cuda")
+    x[1, 0] = 127.0
+    x[1, 1:41] = torch.arange(40, device="cuda") + 0.5
+    return x
+
+
 def _w8a8_operands(gen, m, k, n, dtype, bits=8):
-    """x with a zero row and a row of exact half quantization steps, int8
-    weights (bits=4: values in [-7, 7], packed to (k, n / 2) uint8), f32
-    column scales."""
+    """x of normal rows, the first two `_w8a8_edge_rows` from three rows
+    on (at one or two rows every row is a normal one: a zero row alone
+    gives a zero output whatever the weights), int8 weights (bits=4:
+    values in [-7, 7], packed to (k, n / 2) uint8), f32 column scales."""
     x = _randn((m, k), gen, dtype=torch.float32)
-    x[0] = 0
-    if m > 1:
-        x[1] = 0
-        x[1, 0] = 127.0
-        x[1, 1:41] = torch.arange(40, device="cuda") + 0.5
+    if m > 2:
+        x[:2] = _w8a8_edge_rows(k)
     lim = 2 ** (bits - 1) - 1
     wq = torch.randint(-lim, lim + 1, (k, n), generator=gen, device="cuda",
                        dtype=torch.int8)
@@ -580,6 +641,128 @@ def test_w8a8_big_kernel_bit_equal(gen, dtype, m, bits):
     f32 = KQ.quantized_matmul_big(x, wq, scale, out_dtype=torch.float32)
     assert torch.equal(f32, KQ.quantized_matmul_big_plain(
         x, wq, scale, out_dtype=torch.float32))
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("n", [128, 1280, 3840])
+@pytest.mark.parametrize("m", [1, 5, 16, 17, 20, 64])
+@pytest.mark.parametrize("k", [128, 1280, 5120])
+def test_w8a8_split_kernel_bit_equal_at_the_edges(gen, k, m, n, bits):
+    """K6's one-launch split-K kernel at the edges of its plan (K of 4, 40
+    and 160 steps of 32; row tiles of 8 and the 32-row chunks: M = 1, 5,
+    16, 17, 20 and 64; one, ten and thirty 128-column tiles), over normal
+    rows and (from M = 5, and at M = 1 as x's of their own) a zero row and
+    a row of exact half steps: bit-equal to the plain version under
+    `plan_small`'s plan and under every other split the kernel takes
+    (each cluster size), with the rows' absmax exchanged in the cluster
+    and read whole by every block (where whole rows fit), and with an x
+    whose storage is not 16-byte aligned (the wrapper copies it)."""
+    from whisper_tpu_torch.ops.kernels import dequant_matmul as KQ
+
+    x, wq, scale = _w8a8_operands(gen, m, k, n, torch.bfloat16, bits)
+    want = KQ.quantized_matmul_plain(x, wq, scale)
+    assert want.abs().amax() > 0
+    steps = k // 32
+    splits = [s for s in range(1, KQ.MAX_KSPLIT + 1)
+              if steps % s == 0 and k // s <= KQ.MAX_SLICE]
+    wholes = (False, True) if m * k * 2 <= 65536 else (False,)
+    edges = ([] if m > 2 else
+             list(_w8a8_edge_rows(k).bfloat16().split(1)))
+    for plan in [None] + [(s, w) for s in splits for w in wholes]:
+        got = KQ.quantized_matmul(x, wq, scale, plan=plan)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), plan
+        for row in edges:
+            assert torch.equal(KQ.quantized_matmul(row, wq, scale, plan=plan),
+                               KQ.quantized_matmul_plain(row, wq, scale)), plan
+    odd = torch.empty(m * k + 1, dtype=x.dtype, device="cuda")[1:].view(m, k)
+    odd.copy_(x)
+    assert odd.data_ptr() % 16
+    assert torch.equal(KQ.quantized_matmul(odd, wq, scale), want)
+
+
+def _kernel_names(fn):
+    """{kernel name: launches} of one call of fn on the card (a first,
+    empty profiling session warms the tracer up)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    counts = {}
+    for run in (False, True):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            if run:
+                fn()
+            torch.cuda.synchronize()
+        counts = {e.key: e.count for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA}
+    return counts
+
+
+def test_k6_and_k5_calls_are_one_launch_each(gen):
+    """One K6 call at decode rows launches exactly one kernel (the split
+    GEMM, no row-quantize pass), and so does one K5 call on the in-place
+    path with `_cow_assign`'s int64 parents and dests and an int pos; in a
+    W8A8 beam decoder step over an int8 self cache every K6 call and every
+    K5 call is one kernel and nothing converts the indices."""
+    import dataclasses
+
+    from whisper_tpu_torch.config import KernelKnobs, tiny_test_config
+    from whisper_tpu_torch.decode.beam import _cow_assign
+    from whisper_tpu_torch.ops.kernels import dequant_matmul as KQ
+    from whisper_tpu_torch.params import init_params
+    from whisper_tpu_torch.quantize import quantize_params
+
+    x, wq, scale = _w8a8_operands(gen, 5, 1280, 3840, torch.bfloat16)
+    KQ.quantized_matmul(x, wq, scale)  # builds the library
+    names = _kernel_names(lambda: KQ.quantized_matmul(x, wq, scale))
+    assert len(names) == 1 and sum(names.values()) == 1, names
+    assert "gemm_splitk_kernel" in next(iter(names)), names
+
+    k, d, c = 5, 256, 64
+    caches = [torch.randint(-127, 128, (k, 2, c, d), generator=gen,
+                            device="cuda", dtype=torch.int8) for _ in "kv"]
+    caches += [0.01 + 0.04 * torch.rand((k, 2, c), generator=gen,
+                                        device="cuda") for _ in "kv"]
+    new = [caches[0][:, 0, 0].clone(), caches[1][:, 0, 0].clone(),
+           caches[2][:, 0, 0].clone(), caches[3][:, 0, 0].clone()]
+    parent = torch.randint(0, k, (1, k), generator=gen, device="cuda")
+    src, dest = _cow_assign(parent, torch.randperm(
+        k, generator=gen, device="cuda")[None])
+    assert src.dtype == torch.int64
+    q = _randn((k, d), gen)
+    names = _kernel_names(lambda: KF.decode_attention_permute_fused(
+        q, *caches, *new, src[0], 37, 1, 4, k, dests=dest[0]))
+    assert len(names) == 1 and sum(names.values()) == 1, names
+    assert "permute_attention_kernel" in next(iter(names)), names
+
+    cfg = tiny_test_config(n_state=256, n_head=4, n_layer=2, n_vocab=128,
+                           n_audio_ctx=96, n_text_ctx=48)
+    w8a8 = dataclasses.replace(cfg, attention="flash",
+                               knobs=KernelKnobs(int8_impl="pallas"))
+    params = quantize_params(init_params(cfg, gen, dtype=torch.bfloat16),
+                             bits=8)
+    enc = _randn((1, 48, 256), gen)
+    cache = M.init_cache(params, enc, w8a8, batch=k, kv_quant="int4",
+                         self_quant=True)
+    _, cache = M.decoder_step(params, torch.ones((k, 3), dtype=torch.long,
+                                                 device="cuda"), 0, cache,
+                              w8a8)
+    tok = torch.ones((k, 1), dtype=torch.long, device="cuda")
+    before = (KQ.quantized_matmul.launches,
+              KF.decode_attention_permute_fused.launches)
+    names = _kernel_names(lambda: M.decoder_step(
+        params, tok, 3, cache, w8a8, parents=src[0], dests=dest[0]))
+    k6 = KQ.quantized_matmul.launches - before[0]
+    k5 = KF.decode_attention_permute_fused.launches - before[1]
+    assert k6 == 6 * 2 and k5 == 2
+
+    def launched(part):
+        return sum(c for n, c in names.items() if part in n)
+
+    assert launched("gemm_splitk_kernel") == k6
+    assert launched("quantize_rows_kernel") == 0
+    assert launched("permute_attention_kernel") == k5
 
 
 def test_w8a8_wrappers_raise_on_what_they_do_not_take(gen):

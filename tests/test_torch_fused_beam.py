@@ -44,6 +44,7 @@ from whisper_tpu.text.tokenizer import WhisperTokenizer, build_test_tokenizer_js
 from whisper_tpu_torch import cli as torch_cli
 from whisper_tpu_torch.decode import beam as tbeam
 from whisper_tpu_torch.decode import greedy as tgreedy
+from whisper_tpu_torch.models import whisper as TM
 from whisper_tpu_torch.ops.kernels import decode_attention as KC
 from whisper_tpu_torch.ops.kernels import permute_attention as KF
 from whisper_tpu_torch.params import from_numpy_tree
@@ -301,6 +302,47 @@ def test_fused_beam_search_through_k5(setup, monkeypatch):
     tbeam.beam_search(from_numpy_tree(qparams), enc, prompt, flash, tok.eot,
                       max_depth=4, self_quant=True, fuse_reshuffle=False)
     assert calls == {"fused": 6, "gather": 3}
+
+
+@pytest.mark.parametrize("self_quant", [True, "int4"])
+def test_k5_takes_int64_and_int32_indices_alike(setup, self_quant):
+    """K5's plain version and the fused decoder step give the same result
+    whether the parents and dests come as `_cow_assign` returns them
+    (int64, as the beam loops pass them, and as the kernel reads them) or
+    as int32 (which the kernel's wrapper converts): the attention, the
+    logits and every cache array equal."""
+    params, qparams, cfg, tok, _ = setup
+    flash = dataclasses.replace(cfg, attention="flash")
+    tp = from_numpy_tree(qparams)
+    enc = torch.from_numpy(_enc(params, cfg, 4))
+    k = 5
+    rng = np.random.default_rng(12)
+    src, dest = tbeam._cow_assign(
+        torch.from_numpy(rng.integers(0, k, (1, k))),
+        torch.from_numpy(rng.permutation(k)[None]))
+    assert src.dtype == dest.dtype == torch.int64
+    prompt = torch.tensor(tok.prompt_ids("en"))[None].repeat(k, 1)
+    p = prompt.shape[1]
+    q = torch.from_numpy(rng.standard_normal((k, 32)).astype(
+        np.float32)).to(torch.bfloat16)
+    runs = []
+    for dt in (torch.int64, torch.int32):
+        cache = TM.init_cache(tp, enc, flash, batch=k, cache_len=16,
+                              kv_quant="int4", self_quant=self_quant)
+        _, cache = TM.decoder_step(tp, prompt, 0, cache, flash)
+        arrays = [cache.self_k.q, cache.self_v.q, cache.self_k.scale,
+                  cache.self_v.scale]
+        rows = [a[:, 0, p].clone() for a in arrays]  # layer 0's row p
+        attn = KF.decode_attention_permute_fused(
+            q, *[a.clone() for a in arrays], *rows, src[0].to(dt), p, 0, 2,
+            k, dests=dest[0].to(dt))
+        logits, cache = TM.decoder_step(
+            tp, torch.full((k, 1), 7), p, cache, flash,
+            parents=src[0].to(dt), dests=dest[0].to(dt))
+        runs.append([*attn, logits, cache.self_k.q, cache.self_v.q,
+                     cache.self_k.scale, cache.self_v.scale])
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
 
 
 def test_beam_size_ten_matches_jax(setup):

@@ -127,6 +127,48 @@ def test_w8a8_plain_matches_pallas_interpret(big, m, dtype, bits):
             xq[0, 1:9].numpy(), [0, 2, 2, 4, 4, 6, 6, 8])
 
 
+# large-v2's decoder weights (K x N): qkv, attn_o / cross_q / cross_o,
+# mlp1, mlp2
+DECODE_SHAPES = [(1280, 3840), (1280, 1280), (1280, 5120), (5120, 1280)]
+
+
+@pytest.mark.parametrize("m", [1, 5, 16, 17, 20, 64, 65])
+@pytest.mark.parametrize("k,n", DECODE_SHAPES + [(128, 128), (256, 384),
+                                                 (640, 384), (5376, 256),
+                                                 (10240, 256)])
+def test_k6_plan(m, k, n):
+    """`plan_small`, the plan of K6's one-launch kernel: every split
+    divides K's steps of 32 into whole steps, the cluster is a portable
+    one (<= 8 blocks) whose blocks' shared memory fits with an f32 x read
+    whole where the plan says so (`csrc/dequant_matmul.cu::splitk_smem`),
+    M > 64 and K past 8 x 640 take the two-launch tile path (0), and at
+    the decode shapes half of a block's 8 warps have a step and the grid
+    holds a third of the SMs or more, one block an SM where a split allows
+    it."""
+    ksplit, whole = KQ.plan_small(m, k, n, 4)
+    if m > KQ.SMALL_M or k > KQ.MAX_KSPLIT * KQ.MAX_SLICE:
+        assert (ksplit, whole) == (0, False)
+        return
+    assert 1 <= ksplit <= KQ.MAX_KSPLIT
+    assert whole == (m * k * 4 <= KQ.WHOLE_ROWS_BYTES)
+    steps = k // 32
+    assert steps % ksplit == 0
+    ks = k // ksplit
+    rows = KQ.SPLIT_ROWS
+    xraw = max(rows * ks, rows * k if whole else 0) * 4
+    region = max(xraw + rows * (ks + 16), 8 * rows * 148 * 4)
+    smem = (region + 8 * (rows * 128 // 8 + 4) * 4 + 8 * rows * 4
+            + 2 * rows * 4 + 3 * 8)
+    assert ks <= KQ.MAX_SLICE and smem <= 227 * 1024
+    blocks = (n // KQ.SPLIT_COLS) * ksplit * -(-m // rows)
+    if (k, n) in DECODE_SHAPES:
+        assert steps // ksplit >= 4
+        assert blocks >= KQ.N_SM // 3
+        smallest = min(s for s in range(1, 9)
+                       if steps % s == 0 and k // s <= KQ.MAX_SLICE)
+        assert blocks <= KQ.N_SM or ksplit == smallest
+
+
 def test_the_two_roundings_differ():
     """K6 divides by the row scale, K7 multiplies by 127 / absmax: on
     random rows some element lands on different sides of a midpoint."""

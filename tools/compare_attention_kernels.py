@@ -1,15 +1,16 @@
 """Run chip_smoke.py's kernel phase on one checkout of the port and print
-the rows of the kernels redesigned for Hopper (chip_smoke.REDESIGNED: K1,
-K9, K3g, K2, K3 with K3s and K8).
+its rows: every kernel, the ones redesigned for Hopper
+(chip_smoke.REDESIGNED: K1, K9, K3g, K2, K3 with K3s and K8, K6 and K5)
+first.
 
     python3 tools/compare_attention_kernels.py [--root DIR] [--label NAME]
 
 Imports `whisper_tpu_torch` from DIR (default: this checkout), builds its
 kernels (into DIR/build/) and runs this checkout's `chip_smoke.phase_kernels`
 over it: every kernel against its plain version at chip_smoke's shapes,
-with CUDA-event times of the kernel and of SDPA on the same inputs. Prints
-one JSON line {"label", "device", "rows": {kernel: [row, ...]}} with the
-rows of those kernels as chip_smoke records them. To compare two commits on one card, unpack the
+with CUDA-event times of the kernel, its plain version and its library
+call on the same inputs. Prints one JSON line {"label", "device", "rows":
+{kernel: [row, ...]}} with the rows as chip_smoke records them. To compare two commits on one card, unpack the
 other one (`git archive`) into a directory that .gitignore lists and run
 the script on both, in turns: other, this, this, other. Needs a CUDA card
 and nvcc.
@@ -43,7 +44,8 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     print(json.dumps({"label": args.label, "device": smi,
-                      "rows": {n: rows[n] for n in chip_smoke.REDESIGNED}}),
+                      "rows": {**{n: rows[n] for n in chip_smoke.REDESIGNED},
+                               **rows}}),
           flush=True)
     return 0
 

@@ -16,7 +16,8 @@ chip_smoke's two 35 s streams); last greedy and beam over packed-int4
 weights under int8_impl="pallas" with int4 cross and self caches (K6, K3
 / K3g over int4, K3s and K5 over the int4 self cache). Each decode runs once under the host clock
 alone and once under `torch.profiler`; the profile gives the device time
-per kernel name, the number of kernel launches, and the device's busy
+per kernel name, the number of kernel launches (in all and by kernel
+name), and the device's busy
 share (summed kernel time over the host-clock wall time of the unprofiled
 run; kernels do not overlap on one stream). Prints one JSON line per
 decoder. Needs a CUDA card; it exits non-zero without one.
@@ -141,8 +142,11 @@ def main() -> int:
             "device_ms_per_step": device_us / 1e3 / args.depth,
             "device_busy_share": device_us / 1e6 / wall,
             "kernel_launches": launches,
+            "launches_per_step": launches / args.depth,
             "top_kernels_ms": {e.key[:80]: e.self_device_time_total / 1e3
-                               for e in top}}), flush=True)
+                               for e in top},
+            "launches_by_kernel": {e.key[:80]: e.count for e in sorted(
+                events, key=lambda e: -e.count)}}), flush=True)
     return 0
 
 

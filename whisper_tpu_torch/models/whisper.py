@@ -540,7 +540,9 @@ def _decoder_step_fused(params, tokens, pos: int, cache: DecoderCache,
     quant_self = isinstance(cache.self_k, QTensor)
     sk, sv = cache.self_k, cache.self_v
     c_self = _arr(sk).shape[2]
-    pos_self = torch.full((b,), pos, dtype=torch.int32, device=tokens.device)
+    pos_self = (None if quant_self and parents is not None  # K5 takes pos
+                else torch.full((b,), pos, dtype=torch.int32,
+                                device=tokens.device))
     pos_cross = torch.full((b,), sa - 1, dtype=torch.int32, device=tokens.device)
 
     ii = cfg.knobs.int8_impl

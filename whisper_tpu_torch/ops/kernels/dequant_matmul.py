@@ -16,16 +16,19 @@ layout: low nibble = even column), the TPU kernels' `jnp.int4` weight: its
 values are sign-extended to int8 where the kernel stages its weight tile,
 so the products and the epilogue are the int8 path's.
 
-The CUDA source, `csrc/dequant_matmul.cu`, runs a row-quantize pass into
-scratch and then an int8 tensor-core GEMM (mma.sync s8); the two launches
-are one call of the kernel and count once. Its note reckons the bound.
+The CUDA source, `csrc/dequant_matmul.cu`, has two paths. At M <= 64
+rows (decode) one launch quantizes the rows inside an int8 tensor-core
+GEMM (mma.sync s8) whose K is split over a cluster of blocks; the split is
+`plan_small`'s. Above (the encoder), a row-quantize pass into scratch and
+then a 128 x 128 tile GEMM: two launches that are one call of the kernel
+and count once. Its note reckons the bound.
 Tolerance against the plain version: none, bit-equal (the same xq, an
 exact integer sum and the same f32 epilogue).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -33,6 +36,39 @@ from ...quantize import int_values
 from ._build import check, library, stream_ptr
 
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
+
+N_SM = 132  # streaming multiprocessors of an H100 SXM
+SMALL_M = 64  # rows the one-launch split-K kernel takes
+MAX_KSPLIT = 8  # the portable cluster size
+SPLIT_ROWS = 8  # activation rows a block of the split-K kernel
+SPLIT_COLS = 128  # output columns a block
+MAX_SLICE = 640  # K a block: bounds its shared memory
+WHOLE_ROWS_BYTES = 10240  # x up to this size: every block reads it whole
+
+
+def plan_small(m: int, k: int, n: int, x_bytes: int = 2) -> Tuple[int, bool]:
+    """(ksplit, whole) of the one-launch kernel for m <= 64 rows of an x
+    of `x_bytes`-byte values: the K split (cluster size), and whether
+    each block takes the rows' absmax over the whole rows it reads (a
+    small x) instead of exchanging its slice's maxima with the other
+    ranks; (0, False) for the row-quantize pass + tile kernel (m > 64, or
+    K past 8 x 640). A block has 8 warps and takes 128 columns, 8 rows
+    and K / ksplit in steps of 32 k rows that its warps share round
+    robin. The split is the largest whose grid holds one block an SM
+    while half of a block's warps still have a step, else the smallest
+    that fits (`tools/sweep_k6_plan.py` timed each choice at the decode
+    rows)."""
+    if m > SMALL_M:
+        return 0, False
+    steps = k // 32
+    blocks = (n // SPLIT_COLS) * -(-m // SPLIT_ROWS)
+    fits = [s for s in range(1, MAX_KSPLIT + 1)
+            if steps % s == 0 and k // s <= MAX_SLICE]
+    if not fits:
+        return 0, False
+    wave = [s for s in fits if steps // s >= 4 and blocks * s <= N_SM]
+    return ((max(wave) if wave else min(fits)),
+            m * k * x_bytes <= WHOLE_ROWS_BYTES)
 
 
 def quantize_rows_plain(x: torch.Tensor, big: bool):
@@ -70,9 +106,11 @@ def quantized_matmul_big_plain(x, wq, scale, out_dtype=None) -> torch.Tensor:
     return _w8a8_plain(x, wq, scale, out_dtype, big=True)
 
 
-def _launch(x, wq, scale, out_dtype, big: bool) -> torch.Tensor:
+def _launch(x, wq, scale, out_dtype, big: bool,
+            plan: Optional[Tuple[int, bool]] = None) -> torch.Tensor:
     """Checks what the CUDA entry takes, raising on anything else, and
-    launches it."""
+    launches it; `plan` overrides `plan_small`'s (ksplit 0: the two-launch
+    path)."""
     out_dtype = out_dtype or x.dtype
     if x.dim() != 2 or wq.dim() != 2 or x.shape[1] != wq.shape[0]:
         raise ValueError(f"W8A8 takes x (M, K) and wq (K, N), got "
@@ -95,13 +133,21 @@ def _launch(x, wq, scale, out_dtype, big: bool) -> torch.Tensor:
         raise ValueError("W8A8 takes contiguous CUDA x, 16-byte aligned wq "
                          "and f32 (N,) scales")
     scale = scale.reshape(n)
-    xq = torch.empty((m, k), dtype=torch.int8, device=x.device)
-    xs = torch.empty((m,), dtype=torch.float32, device=x.device)
+    ksplit, whole = plan or plan_small(m, k, n, x.element_size())
+    if ksplit:
+        if x.data_ptr() % 16:  # the kernel reads x 16 bytes at a time
+            x = x.clone()
+        xq = xs = None
+    else:
+        xq = torch.empty((m, k), dtype=torch.int8, device=x.device)
+        xs = torch.empty((m,), dtype=torch.float32, device=x.device)
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     err = library().wtt_w8a8_matmul(
         x.data_ptr(), wq.data_ptr(), scale.data_ptr(), out.data_ptr(),
-        xq.data_ptr(), xs.data_ptr(), m, k, n, _DTYPES[x.dtype],
-        _DTYPES[out_dtype], int(big), int(int4), stream_ptr(x))
+        None if xq is None else xq.data_ptr(),
+        None if xs is None else xs.data_ptr(), m, k, n,
+        _DTYPES[x.dtype], _DTYPES[out_dtype], int(big), int(int4), ksplit,
+        int(whole), stream_ptr(x))
     check(err, "wtt_w8a8_matmul")
     return out
 
@@ -118,13 +164,17 @@ def _count(fn, wq) -> None:
 def quantized_matmul(x: torch.Tensor,  # (M, K) bf16 / f32
                      wq: torch.Tensor,  # (K, N) int8, or (K, N/2) packed int4
                      scale: torch.Tensor,  # (N,) f32 per output column
-                     out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                     out_dtype: Optional[torch.dtype] = None,
+                     plan: Optional[Tuple[int, bool]] = None
+                     ) -> torch.Tensor:
     """K6: (M, N) ~= x @ (wq * scale). CPU tensors take the plain version;
     CUDA tensors launch the Hopper kernel or raise (int8 or packed-int4
-    wq, K and N multiples of 128, contiguous operands, bf16/f32)."""
+    wq, K and N multiples of 128, contiguous operands, bf16/f32).
+    `plan` forces (ksplit, whole) instead of `plan_small`'s (ksplit 0: the
+    two-launch path)."""
     if x.device.type == "cpu":
         return quantized_matmul_plain(x, wq, scale, out_dtype)
-    out = _launch(x, wq, scale, out_dtype, big=False)
+    out = _launch(x, wq, scale, out_dtype, False, plan)
     _count(quantized_matmul, wq)
     return out
 
@@ -136,7 +186,7 @@ def quantized_matmul_big(x: torch.Tensor, wq: torch.Tensor,
     """K7: as `quantized_matmul`, with the large-M kernel's rounding."""
     if x.device.type == "cpu":
         return quantized_matmul_big_plain(x, wq, scale, out_dtype)
-    out = _launch(x, wq, scale, out_dtype, big=True)
+    out = _launch(x, wq, scale, out_dtype, True)
     _count(quantized_matmul_big, wq)
     return out
 

@@ -30,8 +30,12 @@ safe in place under that contract when every lane appends at the same pos
 copy of the layer's caches: `dests=None` (identity slots, where a lane
 may overwrite a slab that another lane reads), and a per-lane `pos`
 tensor (a staying lane's row pos may lie inside the rows another claimant
-of its slot reads). `stage` (the TPU kernel's read dedup) is accepted and
-changes nothing: every block reads its own parent.
+of its slot reads). On the in-place path a call is ONE launch: the kernel
+reads int64 parents and dests (`_cow_assign`'s) as they are and takes the
+int pos as an argument, so the wrapper converts and fills nothing.
+`stage` (the TPU kernel's read dedup) is accepted and changes nothing:
+every block reads its own parent, and lanes that share one find its rows
+in the L2.
 
 Tolerance against the plain version: the attention output as K3s,
 decode_attention.TOL[q.dtype]; the caches and scales bit-equal (copies).
@@ -92,8 +96,13 @@ def decode_attention_permute_fused_plain(
     return attn, k_cache, v_cache, k_scale, v_scale
 
 
-def _vec(t: torch.Tensor, b: int, dev) -> torch.Tensor:
-    return t.to(device=dev, dtype=torch.int32).reshape(-1).expand(b) \
+def _vec(t, b: int, dev) -> torch.Tensor:
+    """(B,) int64 as the kernel reads indices and a per-lane pos: the
+    tensor itself when it already is one (no launch), else a copy."""
+    if (t.device == dev and t.dtype == torch.int64 and t.shape == (b,)
+            and t.is_contiguous()):
+        return t
+    return t.to(device=dev, dtype=torch.int64).reshape(-1).expand(b) \
         .contiguous()
 
 
@@ -167,11 +176,12 @@ def decode_attention_permute_fused(
     c = shape[2]
     cu = c if not c_used else min(int(c_used), c)
     par = _vec(parents, b, dev)
-    dst = (torch.arange(b, dtype=torch.int32, device=dev) if dests is None
+    dst = (torch.arange(b, dtype=torch.int64, device=dev) if dests is None
            else _vec(dests, b, dev))
     per_lane = isinstance(pos, torch.Tensor)
-    pos_rows = (_vec(pos, b, dev) if per_lane else
-                torch.full((b,), int(pos), dtype=torch.int32, device=dev))
+    pos_rows = _vec(pos, b, dev) if per_lane else None
+    if not per_lane and not 0 <= int(pos) < cu:
+        raise ValueError(f"pos {int(pos)} outside [0, c_used={cu})")
     k_l, v_l = k_cache[:, layer], v_cache[:, layer]
     ks_l, vs_l = k_scale[:, layer], v_scale[:, layer]
     if dests is None or per_lane:
@@ -188,8 +198,10 @@ def decode_attention_permute_fused(
         q.data_ptr(), k_src.data_ptr(), v_src.data_ptr(), ks_src.data_ptr(),
         vs_src.data_ptr(), k_l.data_ptr(), v_l.data_ptr(), ks_l.data_ptr(),
         vs_l.data_ptr(), new_k.data_ptr(), new_v.data_ptr(), nks.data_ptr(),
-        nvs.data_ptr(), par.data_ptr(), dst.data_ptr(), pos_rows.data_ptr(),
-        out.data_ptr(), b, n_head, cu, int(int4), int(q.dtype == torch.float32),
+        nvs.data_ptr(), par.data_ptr(), dst.data_ptr(),
+        pos_rows.data_ptr() if per_lane else None, out.data_ptr(), b,
+        n_head, cu, cu if per_lane else int(pos) + 1,
+        0 if per_lane else int(pos), int(int4), int(q.dtype == torch.float32),
         qs[0], k_src.stride(0), k_src.stride(1), ks_src.stride(0),
         k_l.stride(0), k_l.stride(1), ks_l.stride(0), row, out.stride(0),
         stream_ptr(q))
