@@ -69,9 +69,10 @@ Phases, in order; any failure raises and the script exits non-zero:
 The kernel phase holds the packed-int4 variants of K3s, K5, K6 and K7
 beside their int8 rows (the *_int4 entries, counted apart). The kernel
 phase also prints, for the kernels redesigned for Hopper (REDESIGNED: K1,
-K9, K3g, K2, K3, K3s, K8, and K6 and K5 with their int4 variants), each
-time over its first version's (FIRST_VERSION_MS) and over its library
-call's (SDPA's; `torch._int_mm`'s for K6) in the same call (K2: over the
+K9, K3g, K2, K3, K3s, K8, and K6, K7 and K5 with their int4 variants),
+each time over its first version's (FIRST_VERSION_MS), over its library
+call's (SDPA's; `torch._int_mm`'s for K6/K7) and, above 64 rows of K6/K7,
+over a bf16 `torch.mm`'s of the same shape in the same call (K2: over the
 encoder block's composed path, LN + two cuBLAS GEMMs + GELU + adds, which
 its rows also time as composed_ms); the quantized greedy phase holds its logits against an f32
 reference of the same quantized model (QUANT_F32_RTOL) and one dequant
@@ -82,7 +83,9 @@ with one entry per kernel and int4 variant (launches summed over the
 slices' cold runs and the int4 agreement run, or the site check's); the
 last line is {"ok": true, "device": {...}}. K3's launches over cross caches
 (`decode_attention_stacked.cross_launches`) are printed apart from its
-launches over self caches, and stand as launches_cross in its entry.
+launches over self caches, and stand as launches_cross in its entry; K6's
+launches on the large-M route (`quantized_matmul.tile_launches`, int8 and
+int4) apart from those at decode rows, as launches_tiles.
 """
 
 from __future__ import annotations
@@ -140,11 +143,15 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12,
 
 # The kernels redesigned for Hopper (wgmma + TMA for K1/K9 and K2; a
 # cluster split over the cache rows for K3g, and for K3 and K8 over a long
-# cache; K3s, on K3's one-block kernel, is timed beside them; K6 at decode
-# rows as one split-K launch, K5 as one launch with one round trip to
-# memory) and the times of their first versions (WMMA K1/K9 and K2; K3g
-# and K3 with one block per head and kv row; K6 as a row-quantize pass
-# and a 32-column GEMM; K5 with three helper launches a call) at
+# cache; the one-block kernel of K3 and K8 over self caches and of K3s as
+# one load round with per-warp softmax statistics; K6 at decode rows as
+# one split-K launch, K6 above 64 rows and K7 as a prep pass and a TMA +
+# wgmma GEMM; K5 as one launch with one round trip to memory) and the
+# times of the versions before each redesign (WMMA K1/K9 and K2; K3g and
+# K3 with one block per head and kv row; K3's one-block kernel with two
+# rounds of loads; K6 as a row-quantize pass and a 32-column GEMM; K6 and
+# K7 above 64 rows as a row-quantize pass and an mma.sync tile kernel; K5
+# with three helper launches a call) at
 # this script's shapes, in ms: the mean of two runs of
 # `tools/compare_attention_kernels.py` on the commit before each redesign,
 # on one card (PERF.md section 6 names the runs, NVIDIA H100 80GB HBM3,
@@ -155,7 +162,8 @@ REDESIGNED = ("flash_attention", "flash_attention_legacy",
               "decode_attention_group", "encoder_mlp", "decode_attention",
               "decode_attention_scaled", "decode_attention_scaled_int4",
               "decode_attention_flat", "quantized_matmul",
-              "quantized_matmul_int4", "permute_attention",
+              "quantized_matmul_int4", "quantized_matmul_big",
+              "quantized_matmul_big_int4", "permute_attention",
               "permute_attention_int4")
 FIRST_VERSION_MS = {
     ("flash_attention", "B=1 Sq=750 Sk=750 H=20"): 0.1210,
@@ -175,38 +183,25 @@ FIRST_VERSION_MS = {
     ("decode_attention_group", "cross bf16 B=40 R=5 L=32 C=1500"): 0.0655,
     ("decode_attention_group", "cross bf16 B=20 R=5 L=32 C=750"): 0.0198,
     ("decode_attention_group", "cross f32 B=10 R=5 L=4 C=128"): 0.0065,
-    # K2 and K3 (with K3s and K8) before their redesign: the mean of the
-    # two runs of commit a07d64b in one call, in turns with the redesign
-    # (PERF.md section 6 names the call)
+    # K2 and K3 over the cross cache (with K8) before their redesign: the
+    # mean of the two runs of commit a07d64b in one call, in turns with
+    # the redesign (PERF.md section 6 names the call)
     ("encoder_mlp", "M=750 d=1280 h=5120"): 0.4678,
     ("encoder_mlp", "M=1500 d=1280 h=5120"): 0.8055,
     # M=3000: the mean of a07d64b's two runs in a later call (PERF.md)
     ("encoder_mlp", "M=3000 d=1280 h=5120"): 1.9173,
     ("encoder_mlp", "M=6000 d=1280 h=5120"): 2.7707,
-    ("decode_attention", "self bf16 B=5 L=32 C=128"): 0.0037,
-    ("decode_attention", "self bf16 B=1 L=32 C=128"): 0.0036,
     ("decode_attention", "cross bf16 B=1 L=32 C=750"): 0.0112,
     ("decode_attention", "cross int8 B=1 L=32 C=750"): 0.0134,
     ("decode_attention", "cross int4 B=1 L=32 C=750"): 0.0119,
     ("decode_attention", "cross bf16 B=4 L=32 C=750"): 0.0115,
-    ("decode_attention", "self bf16 B=8 L=32 C=128"): 0.0046,
     ("decode_attention", "cross bf16 B=8 L=32 C=1500"): 0.0483,
-    ("decode_attention", "self f32 B=2 L=2 C=64 c_used=48"): 0.0039,
-    ("decode_attention_scaled", "self int8 B=1 L=32 C=128"): 0.0038,
-    ("decode_attention_scaled", "self int8 B=8 L=32 C=128 mixed pos"): 0.0058,
-    ("decode_attention_scaled_int4", "self int4 B=1 L=32 C=128"): 0.0039,
-    ("decode_attention_scaled_int4",
-     "self int4 B=5 L=32 C=128 mixed pos"): 0.0051,
-    ("decode_attention_flat", "self bf16 B=1 C=448 pos=[60]"): 0.0036,
-    ("decode_attention_flat",
-     "self bf16 B=5 C=448 pos=[60, 3, 200, 447, 0]"): 0.0077,
     ("decode_attention_flat", "cross bf16 B=1 C=750 all rows"): 0.0112,
     ("decode_attention_flat", "cross int8 B=1 C=750 all rows"): 0.0134,
     ("decode_attention_flat", "cross int4 B=1 C=750 all rows"): 0.0120,
-    # K6 (M <= 64 before its split-K redesign; M=750, the unchanged tile
-    # kernel, for comparison) and K5 before their redesign: the mean of
-    # the two runs of commit 03b1051 in one call, in turns with the
-    # redesign (PERF.md section 6 names the call)
+    # K6 (M <= 64) and K5 before their redesign: the mean of the two runs
+    # of commit 03b1051 in one call, in turns with the redesign (PERF.md
+    # section 6 names the call)
     ("quantized_matmul", "M=1 K=1280 N=3840"): 0.0063,
     ("quantized_matmul", "M=1 K=1280 N=1280"): 0.006,
     ("quantized_matmul", "M=1 K=1280 N=5120"): 0.008,
@@ -219,7 +214,6 @@ FIRST_VERSION_MS = {
     ("quantized_matmul", "M=20 K=1280 N=1280"): 0.007,
     ("quantized_matmul", "M=20 K=1280 N=5120"): 0.0115,
     ("quantized_matmul", "M=20 K=5120 N=1280"): 0.0149,
-    ("quantized_matmul", "M=750 K=1280 N=3840"): 0.0399,
     ("quantized_matmul_int4", "M=1 K=1280 N=3840"): 0.0068,
     ("quantized_matmul_int4", "M=1 K=1280 N=1280"): 0.0065,
     ("quantized_matmul_int4", "M=1 K=1280 N=5120"): 0.0084,
@@ -229,7 +223,6 @@ FIRST_VERSION_MS = {
     ("quantized_matmul_int4", "M=5 K=1280 N=5120"): 0.009,
     ("quantized_matmul_int4", "M=5 K=5120 N=1280"): 0.0166,
     ("quantized_matmul_int4", "M=20 K=5120 N=1280"): 0.0168,
-    ("quantized_matmul_int4", "M=750 K=1280 N=3840"): 0.0426,
     ("permute_attention",
      "B=5 L=32 C=128 pos=60 random parents COW dests"): 0.008,
     ("permute_attention",
@@ -242,6 +235,36 @@ FIRST_VERSION_MS = {
      "int4 B=5 L=32 C=128 pos=60 random parents COW dests"): 0.008,
     ("permute_attention_int4",
      "int4 B=10 (W=2) L=32 C=128 pos=60 random parents COW dests"): 0.0082,
+    # The one-block kernel (K3 and K8 over self caches, K3s) and the
+    # large-M route (K6 above 64 rows, K7; int8 and int4) before their
+    # redesign: the mean of the two runs of commit 91e0d80 in one call, in
+    # turns with the redesign (PERF.md section 6 names the call)
+    ("decode_attention", "self bf16 B=5 L=32 C=128"): 0.0034,
+    ("decode_attention", "self bf16 B=1 L=32 C=128"): 0.0035,
+    ("decode_attention", "self bf16 B=8 L=32 C=128"): 0.0045,
+    ("decode_attention", "self f32 B=2 L=2 C=64 c_used=48"): 0.0034,
+    ("decode_attention_scaled", "self int8 B=1 L=32 C=128"): 0.0036,
+    ("decode_attention_scaled", "self int8 B=8 L=32 C=128 mixed pos"): 0.0055,
+    ("decode_attention_scaled_int4", "self int4 B=1 L=32 C=128"): 0.0035,
+    ("decode_attention_scaled_int4",
+     "self int4 B=5 L=32 C=128 mixed pos"): 0.0048,
+    ("decode_attention_flat", "self bf16 B=1 C=448 pos=[60]"): 0.0034,
+    ("decode_attention_flat",
+     "self bf16 B=5 C=448 pos=[60, 3, 200, 447, 0]"): 0.0076,
+    ("quantized_matmul", "M=750 K=1280 N=3840"): 0.0397,
+    ("quantized_matmul", "M=750 K=1280 N=1280"): 0.0243,
+    ("quantized_matmul", "M=750 K=1280 N=5120"): 0.0421,
+    ("quantized_matmul", "M=750 K=5120 N=1280"): 0.0776,
+    ("quantized_matmul_int4", "M=750 K=1280 N=3840"): 0.0426,
+    ("quantized_matmul_big", "M=3000 K=1280 N=3840"): 0.1168,
+    ("quantized_matmul_big", "M=3000 K=1280 N=1280"): 0.0458,
+    ("quantized_matmul_big", "M=3000 K=1280 N=5120"): 0.15,
+    ("quantized_matmul_big", "M=3000 K=5120 N=1280"): 0.1495,
+    ("quantized_matmul_big", "M=1537 K=1280 N=3840"): 0.0625,
+    ("quantized_matmul_big_int4", "M=1500 K=1280 N=3840"): 0.0666,
+    ("quantized_matmul_big_int4", "M=1500 K=5120 N=1280"): 0.1006,
+    ("quantized_matmul_big_int4", "M=3000 K=1280 N=3840"): 0.1248,
+    ("quantized_matmul_big_int4", "M=3000 K=5120 N=1280"): 0.161,
 }
 
 
@@ -744,8 +767,10 @@ def phase_kernels() -> dict:
     # G: K6 / K7 (W8A8) at the shapes of the w8a8 slice: decode steps of
     # 1, 5 and 20 rows (greedy, one window's beam, 4 windows' beam) at the
     # decoder's four weight shapes (qkv; attn_o, cross_q, cross_o; mlp1;
-    # mlp2), a tail window's encoder (750 rows: K6), the batched encoder
-    # (4 x 750 rows: K7) at its three weight shapes, and a ragged M. Each x
+    # mlp2), a tail window's encoder (750 rows: K6) and the batched encoder
+    # (4 x 750 rows: K7) at the same four shapes, and a ragged M. Above 64
+    # rows (the large-M route) each row also times a bf16 `torch.mm` of
+    # the same (M, K, N) as mm_bf16_ms (int8 has twice bf16's peak). Each x
     # of more than two rows has a zero row and a row of exact half
     # quantization steps; at M=1 the row is a normal one. Tolerance 0:
     # bit-equal. library: `torch._int_mm` of the pre-quantized int8 x (the
@@ -770,8 +795,10 @@ def phase_kernels() -> dict:
     for name, m, k_in, n_out in (
             *[("quantized_matmul", m, k_in, n_out) for m in (1, 5, 20)
               for k_in, n_out in decode_shapes],
-            ("quantized_matmul", 750, d, 3 * d),
+            *[("quantized_matmul", 750, k_in, n_out)
+              for k_in, n_out in decode_shapes],
             ("quantized_matmul_big", 3000, d, 3 * d),
+            ("quantized_matmul_big", 3000, d, d),
             ("quantized_matmul_big", 3000, d, hidden),
             ("quantized_matmul_big", 3000, hidden, d),
             ("quantized_matmul_big", 1537, d, 3 * d),
@@ -809,19 +836,26 @@ def phase_kernels() -> dict:
         plain = (KQ.quantized_matmul_big_plain if big
                  else KQ.quantized_matmul_plain)
         qt = QTensor(wq, ws)
+        # the large-M route's yardstick: a bf16 GEMM of the same shape
+        yard = {}
+        if m > KQ.SMALL_M:
+            w16 = _randn((k_in, n_out), gen)
+            yard["mm_bf16_ms"] = lambda: torch.mm(x, w16)
         record(name, f"M={m} K={k_in} N={n_out}",
                lambda: kern(x, wq, ws), lambda: plain(x, wq, ws), 0.0, 0.0,
                (m * k_in * 2 + wq.numel() + n_out * 4 + m * n_out * 2,
                 2 * m * k_in * n_out),
                library, dtype=torch.int8,
-               dequant_ms=lambda: M._matmul(x, qt, "xla"))
-        del x, wq, xq, qt, library
+               dequant_ms=lambda: M._matmul(x, qt, "xla"), **yard)
+        del x, wq, xq, qt, library, yard
     for name, rs in rows.items():
         for r in rs:
             lib = ("none" if r["library_ms"] is None
                    else f"{r['library_ms']:.4f} ms")
             deq = (f" dequant path {r['dequant_ms']:.4f} ms"
                    if "dequant_ms" in r else "")
+            if "mm_bf16_ms" in r:
+                deq += f" bf16 mm {r['mm_bf16_ms']:.4f} ms"
             if "composed_ms" in r:
                 deq += f" composed {r['composed_ms']:.4f} ms"
             log(f"kernel {name} [{r['shape']}]: max_abs_err {r['max_abs_err']:.3g}"
@@ -844,7 +878,10 @@ def phase_kernels() -> dict:
                         f"{lib:.4f}")
                 + ("" if "composed_ms" not in r
                    else f", {r['ms'] / r['composed_ms']:.2f} x the composed "
-                        f"path's {r['composed_ms']:.4f}"))
+                        f"path's {r['composed_ms']:.4f}")
+                + ("" if "mm_bf16_ms" not in r
+                   else f", {r['ms'] / r['mm_bf16_ms']:.2f} x a bf16 "
+                        f"torch.mm's {r['mm_bf16_ms']:.4f}"))
         log(f"redesigned {name}: " + "; ".join(parts))
     return rows
 
@@ -920,6 +957,9 @@ def _counters() -> dict:
                                        "cross_launches"),
             "decode_attention_group": (KC.decode_attention_stacked,
                                        "group_launches"),
+            # the part of K6's launches (int8 and int4) above 64 rows, on
+            # the large-M route; not a kernel of its own
+            "quantized_matmul_tiles": (KQ.quantized_matmul, "tile_launches"),
             "permute": (KP.permute_lanes_arrays, "launches"),
             "decode_attention_scaled": (KC.decode_attention_stacked,
                                         "scaled_launches"),
@@ -1004,6 +1044,11 @@ def main() -> int:
                    for sl in slices.values())
     log(f"K3 launches: {launches['decode_attention'] - k3_cross} over self "
         f"caches, {k3_cross} over cross caches")
+    k6_tiles = sum(sl["launches"]["quantized_matmul_tiles"]
+                   for sl in slices.values())
+    k6_all = launches["quantized_matmul"] + launches["quantized_matmul_int4"]
+    log(f"K6 launches (int8 and int4): {k6_all - k6_tiles} at decode rows, "
+        f"{k6_tiles} on the large-M route")
     entries = []
     for name, kid, source, replaces in KERNELS:
         first = rows[name][0]
@@ -1027,6 +1072,8 @@ def main() -> int:
             entries[-1]["composed_ms"] = first["composed_ms"]
         if name == "decode_attention":
             entries[-1]["launches_cross"] = k3_cross
+        if name == "quantized_matmul":
+            entries[-1]["launches_tiles"] = k6_tiles
     log(json.dumps({"kernels": entries, **slices, "sites": sites,
                     "forced_branches": forced}))
     print(json.dumps({"ok": True, "device": device}), flush=True)

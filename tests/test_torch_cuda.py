@@ -683,7 +683,8 @@ def test_w8a8_split_kernel_bit_equal_at_the_edges(gen, k, m, n, bits):
 
 def _kernel_names(fn):
     """{kernel name: launches} of one call of fn on the card (a first,
-    empty profiling session warms the tracer up)."""
+    empty profiling session warms the tracer up). Called only in a
+    process of its own (`_in_own_process`)."""
     from torch.profiler import ProfilerActivity, profile
 
     counts = {}
@@ -699,7 +700,34 @@ def _kernel_names(fn):
     return counts
 
 
+def _in_own_process(check):
+    """Runs `check(gen)`, a function of this module, in a fresh Python
+    process and fails with its output if it fails. The profiler's CUDA
+    events are then counted whatever earlier tests left in this process's
+    tracer: run after the CLI tests, a profiling session here recorded no
+    CUDA events at all, warm-up session or not."""
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    path = os.pathsep.join(p for p in (root, os.environ.get("PYTHONPATH"))
+                           if p)
+    run = subprocess.run([sys.executable, os.path.abspath(__file__),
+                          check.__name__], cwd=root, capture_output=True,
+                         text=True, timeout=600,
+                         env=dict(os.environ, PYTHONPATH=path))
+    assert run.returncode == 0, run.stdout[-3000:] + run.stderr[-6000:]
+
+
 def test_k6_and_k5_calls_are_one_launch_each(gen):
+    """One K6 call at decode rows launches exactly one kernel, and so does
+    one K5 call on the in-place path; in a W8A8 beam decoder step every K6
+    and K5 call is one kernel (`_check_k6_and_k5_launches`, in a process
+    of its own)."""
+    _in_own_process(_check_k6_and_k5_launches)
+
+
+def _check_k6_and_k5_launches(gen):
     """One K6 call at decode rows launches exactly one kernel (the split
     GEMM, no row-quantize pass), and so does one K5 call on the in-place
     path with `_cow_assign`'s int64 parents and dests and an int pos; in a
@@ -761,8 +789,45 @@ def test_k6_and_k5_calls_are_one_launch_each(gen):
         return sum(c for n, c in names.items() if part in n)
 
     assert launched("gemm_splitk_kernel") == k6
-    assert launched("quantize_rows_kernel") == 0
+    assert launched("prep_kernel") == 0
     assert launched("permute_attention_kernel") == k5
+
+
+def test_one_block_and_big_route_launches(gen):
+    """One call of the self-cache kernel is one launch, one call of the
+    large-M route two (`_check_one_block_and_big_route_launches`, in a
+    process of its own)."""
+    _in_own_process(_check_one_block_and_big_route_launches)
+
+
+def _check_one_block_and_big_route_launches(gen):
+    """One call of the self-cache kernel is one launch (K3 over a bf16
+    self cache, K3s over int8 and int4 ones); one call of the large-M
+    route is two (the prep pass and the tile kernel), for K6 at 750 rows
+    (counted in `tile_launches` too) and K7 at 1537: launch counters and
+    profiler events agree."""
+    from whisper_tpu_torch.ops.kernels import dequant_matmul as KQ
+
+    for storage, scaled in (("bf16", False), ("int8", True), ("int4", True)):
+        q, kc, vc, pos, scales = _one_block_operands(
+            gen, storage, torch.bfloat16, scaled, (5, 3, 128, 1280),
+            [40] * 5)
+        call = lambda: KC.decode_attention_stacked(  # noqa: E731
+            q, kc, vc, pos, 2, 20, batch_major=True, **scales)
+        call()
+        names = _kernel_names(call)
+        assert len(names) == 1 and sum(names.values()) == 1, names
+        assert "decode_attention_kernel" in next(iter(names)), names
+    for m, fn in ((750, KQ.quantized_matmul), (1537, KQ.quantized_matmul_big)):
+        x, wq, scale = _w8a8_operands(gen, m, 1280, 3840, torch.bfloat16)
+        before = (fn.launches, KQ.quantized_matmul.tile_launches)
+        fn(x, wq, scale)
+        assert (fn.launches, KQ.quantized_matmul.tile_launches) == (
+            before[0] + 1, before[1] + (fn is KQ.quantized_matmul))
+        names = _kernel_names(lambda: fn(x, wq, scale))
+        assert sum(names.values()) == 2, names
+        assert sum(c for n, c in names.items() if "gemm_big_kernel" in n) == 1
+        assert sum(c for n, c in names.items() if "prep_kernel" in n) == 1
 
 
 def test_w8a8_wrappers_raise_on_what_they_do_not_take(gen):
@@ -1102,3 +1167,166 @@ def test_cli_quant_check_and_eval_on_the_card(cli_dir, monkeypatch, capsys):
     assert rc == 0, err
     doc = json.loads(out.splitlines()[-1])
     assert doc["utterances"] == 1 and doc["words"] == 2
+
+
+# The one-block kernel (K3 and K8 over self caches, K3s): every storage x
+# query type, with and without row scales (integer caches).
+ONE_BLOCK_TYPES = [("bf16", torch.bfloat16, False), ("f32", torch.float32, False),
+                   ("int8", torch.bfloat16, False), ("int8", torch.float32, False),
+                   ("int4", torch.bfloat16, False), ("int4", torch.float32, False),
+                   ("int8", torch.bfloat16, True), ("int8", torch.float32, True),
+                   ("int4", torch.bfloat16, True), ("int4", torch.float32, True)]
+
+
+def _one_block_operands(gen, storage, dtype, scaled, shape, pos):
+    """q, k and v caches of `shape` (B, L, C, d) in the storage type, row
+    scales with a NaN on each lane's first masked row (layer 2) where
+    `scaled`, and pos as an int32 tensor."""
+    lim = {"int8": 127, "int4": 7}.get(storage)
+    b = shape[0]
+    if lim is None:
+        dt = torch.float32 if storage == "f32" else torch.bfloat16
+        kc = _randn(shape, gen, dtype=dt)
+        vc = (_randn(shape, gen, dtype=torch.float32) + 1).to(dt)
+        q = _randn((b, shape[3]), gen, 0.125, dtype=dt)
+    else:
+        kc = torch.randint(-lim, lim + 1, shape, generator=gen, device="cuda",
+                           dtype=torch.int8)
+        vc = torch.randint(0, lim + 1, shape, generator=gen, device="cuda",
+                           dtype=torch.int8)
+        q = _randn((b, shape[3]), gen, 0.5 / lim, dtype=dtype)
+        if storage == "int4":
+            kc, vc = pack_int4(kc), pack_int4(vc)
+    pos_t = torch.tensor(pos, dtype=torch.int32, device="cuda")
+    scales = {}
+    if scaled:
+        ks, vs = (0.01 + 0.04 * torch.rand(shape[:3], generator=gen,
+                                           device="cuda") for _ in "kv")
+        lanes = torch.arange(b, device="cuda")
+        first = (pos_t.long() + 1).clamp(max=shape[2] - 1)
+        masked = pos_t.long() + 1 < shape[2]
+        ks[lanes[masked], 2, first[masked]] = float("nan")
+        vs[lanes[masked], 2, first[masked]] = float("nan")
+        scales = dict(k_rowscale=ks, v_rowscale=vs)
+    return q, kc, vc, pos_t, scales
+
+
+@pytest.mark.parametrize("storage,dtype,scaled", ONE_BLOCK_TYPES)
+def test_one_block_kernel_at_every_row_count(gen, storage, dtype, scaled):
+    """The one-block kernel against its plain version over a 448-row
+    batch-major self cache (f32: past the kernel's shared memory, so the
+    split kernel's one-block launch): lanes that see 1 (pos 0), 32, 61,
+    128 and 448 rows, and one at pos >= c_used (every row read); row scales with a NaN
+    on the first masked row stay harmless. Then one int pos for every
+    lane, the kernel argument the decoder step passes: 0 (every NaN row
+    masked) and 300 (over the scales without their NaNs). One launch a
+    call, counted on its counter."""
+    q, kc, vc, pos, scales = _one_block_operands(
+        gen, storage, dtype, scaled, (6, 3, 448, 256),
+        [0, 31, 60, 127, 447, 500])
+    counter = ("scaled_int4_launches" if scaled and storage == "int4"
+               else "scaled_launches" if scaled else "launches")
+    clean = {n: torch.nan_to_num(t, nan=0.02) for n, t in scales.items()}
+    for p, sc in ((pos, scales), (0, scales), (300, clean)):
+        before = getattr(KC.decode_attention_stacked, counter)
+        got = KC.decode_attention_stacked(q, kc, vc, p, 2, 4,
+                                          batch_major=True, **sc)
+        assert getattr(KC.decode_attention_stacked, counter) == before + 1
+        want = KC.decode_attention_stacked_plain(q, kc, vc, p, 2, 4,
+                                                 batch_major=True, **sc)
+        assert bool(torch.isfinite(got).all())
+        _close(got, want, *KC.TOL[dtype])
+
+
+@pytest.mark.parametrize("storage", ["bf16", "f32", "int8", "int4"])
+def test_one_block_route_past_its_rows(gen, storage):
+    """A per-lane call at splits = 1 over more rows than the one-block
+    kernel holds (a layer-major cache of 1500 rows) takes the split
+    kernel's one-block launch: against the plain version at 1, 361, 1000
+    and 1500 visible rows, with c_used = 1200, and with an int pos."""
+    dtype = torch.float32 if storage == "f32" else torch.bfloat16
+    q, kc, vc, pos, _ = _one_block_operands(gen, storage, dtype, False,
+                                            (4, 2, 1500, 128),
+                                            [0, 360, 999, 1499])
+    kc, vc = kc.transpose(0, 1).contiguous(), vc.transpose(0, 1).contiguous()
+    for p, cu in ((pos, None), (pos, 1200), (1100, None)):
+        got = KC.decode_attention_stacked(q, kc, vc, p, 1, 2, c_used=cu,
+                                          splits=1)
+        want = KC.decode_attention_stacked_plain(q, kc, vc, p, 1, 2,
+                                                 c_used=cu)
+        _close(got, want, *KC.TOL[dtype])
+
+
+def test_one_block_kernel_raises_on_what_it_does_not_take(gen):
+    """Row scales (K3s, which only the one-block kernel takes) over more
+    rows than it holds, and a negative int pos raise ValueError: nothing
+    falls back to the plain version."""
+    kc = _randn((2, 1, 16, 128), gen)
+    long = torch.zeros((1, 1, 600, 128), dtype=torch.int8, device="cuda")
+    rs = torch.ones((1, 1, 600), device="cuda")
+    with pytest.raises(ValueError, match="shapes the kernel does not take"):
+        KC.decode_attention_stacked(_randn((1, 128), gen), long, long, 3, 0,
+                                    2, batch_major=True, k_rowscale=rs,
+                                    v_rowscale=rs)
+    with pytest.raises(ValueError, match="pos -1"):
+        KC.decode_attention_stacked(_randn((2, 128), gen), kc, kc, -1, 0, 2,
+                                    batch_major=True)
+
+
+# The large-M W8A8 route: K6 above 64 rows and K7, (M, K, N) with a ragged
+# last row tile (65: one tile; 750: 110 rows of 128; 1025 and 1537: one
+# row; 3000: 56 rows).
+BIG_SHAPES = [(65, 1280, 1280), (750, 1280, 3840), (750, 5120, 1280),
+              (1025, 1280, 1280), (1537, 640, 384), (3000, 1280, 1280)]
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("m,k,n", BIG_SHAPES)
+def test_w8a8_big_route_bit_equal_under_every_plan(gen, monkeypatch, m, k, n,
+                                                   bits):
+    """The prep pass and the wgmma tile kernel, with K6's rounding up to
+    1024 rows and K7's above, over normal rows, a zero row and a row of
+    exact half steps: bit-equal to the plain version under `plan_big`'s
+    tile and both widths the kernel takes (`plan_big` patched), with a
+    bf16 and an f32 output."""
+    from whisper_tpu_torch.ops.kernels import dequant_matmul as KQ
+
+    x, wq, scale = _w8a8_operands(gen, m, k, n, torch.bfloat16, bits)
+    fn = KQ.quantized_matmul if m <= 1024 else KQ.quantized_matmul_big
+    plain = KQ.quantized_matmul_plain if m <= 1024 else \
+        KQ.quantized_matmul_big_plain
+    want = plain(x, wq, scale)
+    assert want.abs().amax() > 0
+    plan_big = KQ.plan_big
+    for tile in (None, 256, 128):
+        if tile and n % tile:
+            continue
+        monkeypatch.setattr(KQ, "plan_big",
+                            lambda m, n: tile or plan_big(m, n))
+        got = fn(x, wq, scale)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), tile
+    monkeypatch.setattr(KQ, "plan_big", plan_big)
+    f32 = fn(x, wq, scale, out_dtype=torch.float32)
+    assert torch.equal(f32, plain(x, wq, scale, out_dtype=torch.float32))
+
+
+def test_w8a8_big_route_raises_on_tiles_it_does_not_take(gen, monkeypatch):
+    """A tile width that does not divide N, or that the kernel has no
+    instance for (`plan_big` patched to give it), raises ValueError:
+    nothing falls back."""
+    from whisper_tpu_torch.ops.kernels import dequant_matmul as KQ
+
+    x, wq, scale = _w8a8_operands(gen, 200, 128, 384, torch.bfloat16)
+    monkeypatch.setattr(KQ, "plan_big", lambda m, n: 256)
+    with pytest.raises(ValueError, match="shapes the kernel does not take"):
+        KQ.quantized_matmul(x, wq, scale)
+    monkeypatch.setattr(KQ, "plan_big", lambda m, n: 64)
+    with pytest.raises(ValueError, match="shapes the kernel does not take"):
+        KQ.quantized_matmul_big(x, wq, scale)
+
+
+if __name__ == "__main__":  # `_in_own_process`'s child: one check
+    import sys
+
+    globals()[sys.argv[1]](torch.Generator(device="cuda").manual_seed(0))

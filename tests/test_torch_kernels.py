@@ -232,6 +232,27 @@ def test_build_keys_library_by_source_hash(tmp_path, monkeypatch):
     assert _build.library_path() != first
 
 
+@pytest.mark.parametrize("name", sorted(_build.SIGNATURES))
+def test_entry_signatures_match_the_sources(name):
+    """Each C entry's ctypes argtypes are its declaration in csrc/, one
+    parameter at a time: a pointer is c_void_p, int c_int, long long
+    c_longlong, float c_float (a stale list passes a shifted argument list
+    or fails only on the card)."""
+    import re
+
+    text = "\n".join(p.read_text() for p in _build.CSRC.glob("*.cu"))
+    decl = re.search(r'extern "C" int ' + name + r"\(([^)]*)\)", text)
+    assert decl, name
+    kinds = {"int": _build._I, "long long": _build._LL,
+             "float": _build._F}
+    want = []
+    for param in decl.group(1).split(","):
+        words = param.replace("const ", "").split()
+        want.append(_build._P if "*" in param
+                    else kinds[" ".join(words[:-1])])
+    assert _build.SIGNATURES[name] == want
+
+
 def test_missing_nvcc_raises(monkeypatch):
     monkeypatch.setenv("CUDA_HOME", "/nonexistent")
     monkeypatch.setenv("PATH", "/nonexistent")

@@ -169,6 +169,56 @@ def test_k6_plan(m, k, n):
         assert blocks <= KQ.N_SM or ksplit == smallest
 
 
+@pytest.mark.parametrize("m,n,tile", [
+    (3000, 3840, 256),  # four windows' qkv: 360 wide tiles, 3 waves at 91%
+    (3000, 1280, 256),  # attn_o, mlp2: 120 wide tiles
+    (3000, 5120, 256),  # mlp1
+    (750, 3840, 256),   # one window: 90 wide or 180 narrow, both 68%
+    (750, 1280, 128),   # 30 wide tiles, 60 narrow
+    (750, 5120, 256),
+    (1500, 3840, 128),  # two windows: 180 wide (68%), 360 narrow (91%)
+    (1500, 1280, 128),
+    (1500, 5120, 256),
+    (65, 384, 128),     # N = 384: no 256-wide tile
+    (65, 256, 128),     # one wide tile, two narrow
+])
+def test_k7_plan(m, n, tile):
+    """`plan_big`, the tile width of the large-M route: 256 (a divisor of
+    N) unless 128-wide tiles keep more than 1.05 times the share of the
+    SMs busy in the grid's waves."""
+    assert KQ.plan_big(m, n) == tile
+    assert n % tile == 0
+
+
+@pytest.mark.parametrize("lead,route", [
+    ((64,), "split"), ((2, 32), "split"), ((65,), "tiles"), ((1024,), "tiles"),
+    ((1025,), "k7"), ((5, 205), "k7")])
+def test_w8a8_route_at_the_row_boundaries(lead, route, monkeypatch):
+    """`_matmul` under int8_impl="pallas" sends up to 1024 rows to K6 and
+    more to K7; K6 plans its one-launch split-K kernel up to 64 rows and
+    the two-launch tile route (ksplit 0, then `plan_big`'s tiles) above."""
+    calls = []
+    for name in ("quantized_matmul", "quantized_matmul_big"):
+        fn = getattr(TM, name)
+        monkeypatch.setattr(TM, name, lambda *a, _f=fn, _n=name, **kw: (
+            calls.append(_n), _f(*a, **kw))[1])
+    m = int(np.prod(lead))
+    k, n = 128, 256
+    rng = np.random.default_rng(m)
+    w = TQ.QTensor(torch.from_numpy(rng.integers(-127, 128, (k, n),
+                                                 dtype=np.int8)),
+                   torch.full((n,), 0.01))
+    x = torch.from_numpy(rng.standard_normal((*lead, k)).astype(np.float32))
+    y = TM._matmul(x, w, "pallas")
+    assert y.shape == (*lead, n)
+    assert calls == (["quantized_matmul_big"] if route == "k7"
+                     else ["quantized_matmul"])
+    ksplit, _ = KQ.plan_small(m, k, n, 4)
+    assert (ksplit > 0) == (route == "split")
+    if route != "split":
+        assert KQ.plan_big(m, n) in (128, 256)
+
+
 def test_the_two_roundings_differ():
     """K6 divides by the row scale, K7 multiplies by 127 / absmax: on
     random rows some element lands on different sides of a midpoint."""

@@ -1,6 +1,6 @@
 """Where a decode step's time goes on the card, for the PyTorch port.
 
-    python3 tools/profile_torch_decode.py [--depth 30]
+    python3 tools/profile_torch_decode.py [--depth 30] [--root DIR]
 
 Large-v2 bf16 with random weights from a seed, one 14.9 s window of
 synthetic audio (the chip_smoke slice's first window): the encoder once,
@@ -20,7 +20,13 @@ per kernel name, the number of kernel launches (in all and by kernel
 name), and the device's busy
 share (summed kernel time over the host-clock wall time of the unprofiled
 run; kernels do not overlap on one stream). Prints one JSON line per
-decoder. Needs a CUDA card; it exits non-zero without one.
+decoder. Then the encoder alone, once under the host clock and once
+profiled the same way: one window and the 4 full windows batched, bf16
+and W8A8 (int8 weights, int8_impl="pallas": K6 at one window's 750 rows,
+K7 at four windows' 3000), one JSON line each with its device ms and
+launches per window. `--root` imports `whisper_tpu_torch` from another
+checkout (default: this one), so two commits can be profiled by the same
+script in one call. Needs a CUDA card; it exits non-zero without one.
 """
 
 from __future__ import annotations
@@ -40,10 +46,13 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--depth", type=int, default=30)
+    ap.add_argument("--root", default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_decode: no CUDA device", file=sys.stderr)
         return 1
+    if args.root:  # the package under test; chip_smoke's helpers import it
+        sys.path.insert(0, os.path.abspath(args.root))
 
     from torch.profiler import ProfilerActivity, profile
 
@@ -116,7 +125,9 @@ def main() -> int:
             "beam5_w4a8_int4kv_int4self": lambda: beam_search(
                 w4params, enc, prompt, w8a8, beam_size=5, kv_quant="int4",
                 self_quant="int4", **common)}
-    for name, fn in runs.items():
+    def measure(fn):
+        """(wall s of an unprofiled run, device events of a profiled one),
+        after a warm-up run."""
         with torch.inference_mode():
             fn()  # warm-up
             torch.cuda.synchronize()
@@ -130,8 +141,11 @@ def main() -> int:
                 torch.cuda.synchronize()
         # the device-side rows: kernels, copies and sets themselves (an
         # aten op's row also carries its kernels' time, so it is left out)
-        events = [e for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        return wall, [e for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA]
+
+    for name, fn in runs.items():
+        wall, events = measure(fn)
         device_us = sum(e.self_device_time_total for e in events)
         launches = sum(e.count for e in events)
         top = sorted(events, key=lambda e: -e.self_device_time_total)[:12]
@@ -147,6 +161,21 @@ def main() -> int:
                                for e in top},
             "launches_by_kernel": {e.key[:80]: e.count for e in sorted(
                 events, key=lambda e: -e.count)}}), flush=True)
+    with torch.inference_mode():
+        mel4 = _window_mel(_full_windows(waves, cfg, DecodeOptions()), cfg,
+                           DecodeOptions())
+    for name, p, c in (("bf16", params, cfg), ("w8a8", wparams, w8a8)):
+        for windows, m in ((1, mel), (4, mel4)):
+            wall, events = measure(lambda: encoder_forward(p, m, c))
+            device_us = sum(e.self_device_time_total for e in events)
+            top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
+            print(json.dumps({
+                "encoder": name, "windows": windows, "wall_ms": wall * 1e3,
+                "device_ms": device_us / 1e3,
+                "device_ms_per_window": device_us / 1e3 / windows,
+                "kernel_launches": sum(e.count for e in events),
+                "top_kernels_ms": {e.key[:80]: e.self_device_time_total / 1e3
+                                   for e in top}}), flush=True)
     return 0
 
 

@@ -41,16 +41,21 @@
 // 3.35 TB/s; the self cache at most 2 * C * d * 2 B = 0.66 MB per lane per
 // layer (C = 128), 0.33 MB in int8 and 0.16 MB in int4, plus 1 KB of row
 // scales; against 2 FLOP per value. Reading only the visible prefix
-// (n = min(pos + 1, c_used) rows) and storing fewer bits are what this
-// one-block kernel does about it. At one greedy lane it runs only 20
-// blocks (one per head) for 132 SMs, each walking 750 rows with one
-// 16-byte load a thread in flight: 0.0111 ms, 10% of the bound. So over a
-// long cache (ops/kernels/decode_attention.py::plan_lane_splits: from 512
-// rows, past the decoder's 448-row context, so never a self cache) the
-// per-lane call takes the split kernel below with one lane a group
-// (G = 1): clusters of 8 blocks at one or two lanes, 4 at three or four,
-// 2 over long rows beyond. K3s (row scales) comes only with a batch-major
-// self cache of at most 448 rows, so it always takes this kernel.
+// (n = min(pos + 1, c_used) rows) and storing fewer bits are what both
+// kernels do about it. Over a self cache (a few hundred rows at most) the
+// bytes take well under a microsecond, so a call is bound by its chain of
+// dependent steps: the one-block kernel issues every row it reads in one
+// round of cp.async copies and keeps the softmax statistics per warp, with
+// two block barriers (the first version: two dependent rounds of loads and
+// seven barriers). At one greedy lane over a long cross cache it would run
+// only 20 blocks (one per head) for 132 SMs, each walking 750 rows: 0.0111
+// ms, 10% of the bound. So over a long cache (ops/kernels/
+// decode_attention.py::plan_lane_splits: from 512 rows, past the decoder's
+// 448-row context, so never a self cache) the per-lane call takes the
+// split kernel below with one lane a group (G = 1): clusters of 8 blocks
+// at one or two lanes, 4 at three or four, 2 over long rows beyond. K3s
+// (row scales) comes only with a batch-major self cache of at most 448
+// rows, so it always takes the one-block kernel.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -60,7 +65,8 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int HD = 64;
-constexpr int WARPS = 8;  // 256 threads: more rows in flight for a small batch
+constexpr int WARPS = 8;     // the split kernel's warps
+constexpr int OB_WARPS = 4;  // the one-block kernel's warps
 constexpr int THREADS = WARPS * 32;
 constexpr int CPT = 8;             // channels of a row per thread
 constexpr int LPR = HD / CPT;      // threads per row of one head
@@ -97,105 +103,252 @@ struct Strides {
   long long q_sb, k_lane, k_layer, k_row, v_lane, v_layer, v_row, s_lane, s_layer, o_sb;
 };
 
-// K3 (SCALED = false) and K3s (SCALED = true: ks/vs are the (B, L, C) f32
-// row scales, s_lane/s_layer their strides, rows contiguous).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(wtt::smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(wtt::smem_u32(dst)), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Values of one 32-bit word of stored row bytes, as floats: 2 bf16, 1 f32,
+// 4 int8 or 8 packed int4 (sign-extended).
+template <typename S>
+struct Word;
+template <>
+struct Word<__nv_bfloat16> {
+  static constexpr int N = 2;
+  __device__ __forceinline__ static void get(unsigned w, float* v) {
+    v[0] = __uint_as_float(w << 16);
+    v[1] = __uint_as_float(w & 0xFFFF0000u);
+  }
+};
+template <>
+struct Word<float> {
+  static constexpr int N = 1;
+  __device__ __forceinline__ static void get(unsigned w, float* v) { v[0] = __uint_as_float(w); }
+};
+template <>
+struct Word<int8_t> {
+  static constexpr int N = 4;
+  __device__ __forceinline__ static void get(unsigned w, float* v) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) v[i] = (float)((int)(w << (24 - 8 * i)) >> 24);
+  }
+};
+template <>
+struct Word<Int4> {
+  static constexpr int N = 8;
+  __device__ __forceinline__ static void get(unsigned w, float* v) {
+    Store<Int4>::unpack8(w, v);
+  }
+};
+
+// A float max over the warp in one instruction: the float's bits mapped to
+// an int of the same order, `redux.sync`, mapped back.
+__device__ __forceinline__ float warp_max_redux(float v) {
+  const int i = __float_as_int(v);
+  const int r = __reduce_max_sync(0xffffffffu, i >= 0 ? i : i ^ 0x7fffffff);
+  return __int_as_float(r >= 0 ? r : r ^ 0x7fffffff);
+}
+
+// Bytes of one head's shared memory in the one-block kernel: c_used rows
+// of K (each padded by 16 bytes: one lane reads one row, and the pad puts
+// neighbouring lanes' 16-byte reads on different banks) and of V (and of
+// both row scales for K3s), then the weights of all rows; rounded up to 16
+// so the next head's rows stay aligned.
+template <typename S, bool SCALED>
+__host__ __device__ constexpr int head_smem(int c_used) {
+  return (c_used * (2 * (HD / Store<S>::CPE) * (int)sizeof(typename Store<S>::E) + 16 +
+                    (SCALED ? 2 * (int)sizeof(float) : 0) + (int)sizeof(float)) +
+          15) / 16 * 16;
+}
+
+constexpr int ROWS_PER_LANE = 4;  // the most rows a lane of the one-block kernel takes
+
+// The one-block kernel: K3 and K8 over every self cache (and over a cross
+// cache the planner leaves whole, where its rows fit), and K3s (SCALED:
+// ks/vs are the (B, L, C) f32 row scales, s_lane/s_layer their strides,
+// rows contiguous) always. One block per (head, lane) of OB_WARPS warps;
+// each warp owns a contiguous chunk of at most 32 x ROWS_PER_LANE of the
+// visible rows, so everything up to the softmax merge is the warp's
+// own (no block barrier), and a lane owns a row wherever a step is per
+// row:
+//   1. one load round: each warp issues its chunk's K rows, V rows and row
+//      scales and its own copy of the query at once with cp.async into
+//      shared memory (16 bytes a copy, 4 for a scale), then waits for its
+//      own copies (cp.async.wait_all and __syncwarp). With one pos for
+//      every lane of the batch (pos == nullptr: pos_all, as the decoder
+//      step passes it) the copies start without a load of pos;
+//   2. a lane takes the query into registers and its rows' whole dot
+//      products (no shuffles), times K's row scale, into registers; the
+//      warp's max m_w (one redux) and exp-sum l_w = sum exp(s - m_w);
+//   3. one merge (block barrier): each warp takes the block's pairs, one
+//      lane a pair: M = max m_w, L = sum l_w exp(m_w - M);
+//   4. one lane a row, each weight round(exp(s - M) / L [* vs]) with the
+//      global M and L, the once-rounded weight of the plain version
+//      (partial weights rescaled afterwards would round differently), into
+//      shared memory; then the warp's value sum over its rows, a lane two
+//      channels;
+//   5. the second merge (block barrier): the warps' value sums added and
+//      written.
+// Two heads a block, and 8 warps, were measured slower (PERF.md section 6).
 template <typename S, typename Q, bool SCALED>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(OB_WARPS * 32)
 decode_attention_kernel(const Q* __restrict__ q, const typename Store<S>::E* __restrict__ k,
                         const typename Store<S>::E* __restrict__ v, const int* __restrict__ pos,
-                        const float* __restrict__ ks, const float* __restrict__ vs,
-                        Q* __restrict__ out, int c_used, int layer, const Strides st) {
+                        int pos_all, const float* __restrict__ ks,
+                        const float* __restrict__ vs, Q* __restrict__ out, int c_used,
+                        int layer, const Strides st) {
   using ST = Store<S>;
   using E = typename ST::E;
+  using WD = Word<S>;
+  constexpr int RB = HD / ST::CPE * (int)sizeof(E);  // bytes of one head's row
+  constexpr int KB = RB + 16;                         // K's padded row stride
+  constexpr int CH = RB / 16;                         // 16-byte copies a row
+  constexpr int QB = HD * (int)sizeof(Q);             // bytes of one head's query
+  constexpr int VB2 = 2 * RB / HD;                    // bytes of two channels: 4, 8, 2 or 1
+  extern __shared__ __align__(16) unsigned char dyn[];
+  __shared__ float stat_m[OB_WARPS], stat_l[OB_WARPS];
+  __shared__ float part[OB_WARPS * HD];
+  __shared__ __align__(16) unsigned char qbuf[OB_WARPS][HD * sizeof(float)];
 
-  extern __shared__ float scores[];  // [c_used]
-  __shared__ float sq[HD];
-  __shared__ float red[WARPS];
-  __shared__ float part[WARPS * HD];  // one HD-vector per warp
-
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int sub = lane % LPR;   // which 8 channels of the row
-  const int rin = lane / LPR;   // which row of the warp's group
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
 
-  if (threadIdx.x < HD) sq[threadIdx.x] = wtt::to_f32(q[b * st.q_sb + h * HD + threadIdx.x]);
-  const int n = min(pos[b] + 1, c_used);  // visible rows
-  const int choff = (h * HD + sub * CPT) / ST::CPE;
-  const E* kb = k + b * st.k_lane + layer * st.k_layer + choff;
-  const E* vb = v + b * st.v_lane + layer * st.v_layer + choff;
-  const float* ksb = SCALED ? ks + b * st.s_lane + layer * st.s_layer : nullptr;
-  const float* vsb = SCALED ? vs + b * st.s_lane + layer * st.s_layer : nullptr;
-  __syncthreads();
+  unsigned char* kbuf = dyn;                                        // [c_used][KB]
+  unsigned char* vbuf = kbuf + c_used * KB;                         // [c_used][RB]
+  float* kss = reinterpret_cast<float*>(vbuf + c_used * RB);        // [c_used] (SCALED)
+  float* vss = kss + (SCALED ? c_used : 0);                         // [c_used] (SCALED)
+  float* wgt = vss + (SCALED ? c_used : 0);                         // [c_used]
 
-  float qv[CPT];
+  // 1. this warp's rows [a, e) of the n visible ones, all copies at once
+  const int n = min((pos ? pos[b] : pos_all) + 1, c_used);
+  const int per = (n + OB_WARPS - 1) / OB_WARPS;
+  const int a = min(n, warp * per), e = min(n, a + per);
+  const long long choff = (long long)h * (HD / ST::CPE);
+  const unsigned char* kb =
+      reinterpret_cast<const unsigned char*>(k + b * st.k_lane + layer * st.k_layer + choff);
+  const unsigned char* vb =
+      reinterpret_cast<const unsigned char*>(v + b * st.v_lane + layer * st.v_layer + choff);
+  const long long krow = st.k_row * (long long)sizeof(E), vrow = st.v_row * (long long)sizeof(E);
+  if (lane < QB / 16)
+    cp_async16(qbuf[warp] + 16 * lane,
+               reinterpret_cast<const unsigned char*>(q + b * st.q_sb + h * HD) + 16 * lane);
+  for (int i = lane; i < (e - a) * CH; i += 32) {
+    const int c = a + i / CH, o = (i % CH) * 16;
+    cp_async16(kbuf + c * KB + o, kb + c * krow + o);
+    cp_async16(vbuf + c * RB + o, vb + c * vrow + o);
+  }
+  if (SCALED) {
+    const float* ksb = ks + b * st.s_lane + layer * st.s_layer;
+    const float* vsb = vs + b * st.s_lane + layer * st.s_layer;
+    for (int c = a + lane; c < e; c += 32) {
+      cp_async4(kss + c, ksb + c);
+      cp_async4(vss + c, vsb + c);
+    }
+  }
+  cp_async_wait_all();
+  __syncwarp();
+
+  // 2. a lane's rows c = a + lane + 32 j: dot products, max, exp-sum
+  float qv[HD];
 #pragma unroll
-  for (int e = 0; e < CPT; ++e) qv[e] = sq[sub * CPT + e];
-
-  // Scores (exact f32 dot products, times K's row scale), masked rows are
-  // never touched.
+  for (int i = 0; i < HD; i += 8)
+    Store<Q>::load8(reinterpret_cast<const Q*>(qbuf[warp]) + i, qv + i);
+  float s[ROWS_PER_LANE];
   float mx = -INFINITY;
-  for (int base = 0; base < n; base += RPB) {
-    const int c = base + warp * RPW + rin;
-    float dot = 0.f;
-    if (c < n) {
-      float kv[CPT];
-      ST::load8(kb + c * st.k_row, kv);
 #pragma unroll
-      for (int e = 0; e < CPT; ++e) dot += qv[e] * kv[e];
-    }
+  for (int j = 0; j < ROWS_PER_LANE; ++j) {
+    const int c = a + lane + 32 * j;
+    s[j] = -INFINITY;
+    if (c < e) {
+      const unsigned char* kr = kbuf + c * KB;
+      float d[4] = {0.f, 0.f, 0.f, 0.f};  // four short chains of products
 #pragma unroll
-    for (int o = LPR / 2; o > 0; o >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, o);
-    if (c < n && sub == 0) {
-      if (SCALED) dot *= ksb[c];
-      scores[c] = dot;
-      mx = fmaxf(mx, dot);
+      for (int x = 0; x < CH; ++x) {
+        const uint4 u = *reinterpret_cast<const uint4*>(kr + 16 * x);
+        const unsigned w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          float kv[WD::N];
+          WD::get(w[t], kv);
+#pragma unroll
+          for (int i = 0; i < WD::N; ++i) d[t] += qv[(4 * x + t) * WD::N + i] * kv[i];
+        }
+      }
+      const float dot = (d[0] + d[1]) + (d[2] + d[3]);
+      s[j] = SCALED ? dot * kss[c] : dot;
+      mx = fmaxf(mx, s[j]);
     }
   }
-  mx = block_reduce(mx, red, true);
-
+  mx = warp_max_redux(mx);
   float sum = 0.f;
-  for (int c = threadIdx.x; c < n; c += THREADS) {
-    const float p = expf(scores[c] - mx);
-    scores[c] = p;
-    sum += p;
-  }
-  sum = block_reduce(sum, red, false);
-  for (int c = threadIdx.x; c < n; c += THREADS) {
-    float w = scores[c] / sum;
-    if (SCALED) w *= vsb[c];
-    scores[c] = weight<Q>(w);
+#pragma unroll
+  for (int j = 0; j < ROWS_PER_LANE; ++j)
+    if (a + lane + 32 * j < e) sum += expf(s[j] - mx);
+  sum = wtt::warp_sum(sum);
+
+  // 3. the merge of the warps' (max, exp-sum) pairs
+  if (lane == 0) {
+    stat_m[warp] = mx;
+    stat_l[warp] = sum;
   }
   __syncthreads();
+  const float mi = lane < OB_WARPS ? stat_m[lane] : -INFINITY;
+  const float m_all = warp_max_redux(mi);
+  const float l_all = wtt::warp_sum(mi > -INFINITY ? stat_l[lane] * expf(mi - m_all) : 0.f);
 
-  // Weighted value sum: each thread accumulates 8 channels over its rows.
-  float acc[CPT];
+  // 4. the weights, one lane a row; the value sums, a lane channels
+  //    2 lane and 2 lane + 1
 #pragma unroll
-  for (int e = 0; e < CPT; ++e) acc[e] = 0.f;
-  for (int c = warp * RPW + rin; c < n; c += RPB) {
-    float vv[CPT];
-    ST::load8(vb + c * st.v_row, vv);
-    const float w = scores[c];
-#pragma unroll
-    for (int e = 0; e < CPT; ++e) acc[e] += w * vv[e];
+  for (int j = 0; j < ROWS_PER_LANE; ++j) {
+    const int c = a + lane + 32 * j;
+    if (c < e) {
+      const float w = expf(s[j] - m_all) / l_all;
+      wgt[c] = weight<Q>(SCALED ? w * vss[c] : w);
+    }
   }
-  // Reduce over the RPW rows of the warp (lanes with the same `sub`)...
-#pragma unroll
-  for (int o = LPR; o < 32; o <<= 1) {
-#pragma unroll
-    for (int e = 0; e < CPT; ++e) acc[e] += __shfl_xor_sync(0xffffffffu, acc[e], o);
+  __syncwarp();
+  float acc0 = 0.f, acc1 = 0.f;
+#pragma unroll 4
+  for (int c = a; c < e; ++c) {
+    const float w = wgt[c];
+    const unsigned char* vr = vbuf + c * RB + VB2 * lane;
+    float v2[2];
+    if constexpr (VB2 == 8) {
+      const float2 f = *reinterpret_cast<const float2*>(vr);
+      v2[0] = f.x;
+      v2[1] = f.y;
+    } else if constexpr (VB2 == 4) {
+      WD::get(*reinterpret_cast<const unsigned*>(vr), v2);
+    } else if constexpr (VB2 == 2) {
+      const unsigned u = *reinterpret_cast<const unsigned short*>(vr);
+      v2[0] = (float)(int8_t)(u & 0xFF);
+      v2[1] = (float)(int8_t)(u >> 8);
+    } else {
+      const int u = (int)*reinterpret_cast<const int8_t*>(vr);
+      v2[0] = (float)((u << 28) >> 28);
+      v2[1] = (float)(u >> 4);
+    }
+    acc0 += w * v2[0];
+    acc1 += w * v2[1];
   }
-  // ...then over the warps through shared memory.
-  if (rin == 0) {
-#pragma unroll
-    for (int e = 0; e < CPT; ++e) part[warp * HD + sub * CPT + e] = acc[e];
-  }
+  part[warp * HD + 2 * lane] = acc0;
+  part[warp * HD + 2 * lane + 1] = acc1;
+  // 5. ...then over the warps
   __syncthreads();
   if (threadIdx.x < HD) {
     float r = 0.f;
 #pragma unroll
-    for (int w = 0; w < WARPS; ++w) r += part[w * HD + threadIdx.x];
+    for (int i = 0; i < OB_WARPS; ++i) r += part[i * HD + threadIdx.x];
     out[b * st.o_sb + h * HD + threadIdx.x] = wtt::from_f32<Q>(r);
   }
 }
@@ -254,7 +407,7 @@ decode_attention_kernel(const Q* __restrict__ q, const typename Store<S>::E* __r
 // max -inf, sum 0 and value 0 for it.
 template <typename S, typename Q, int G>
 __global__ void __launch_bounds__(THREADS)
-decode_attention_group_kernel(const Q* __restrict__ q, const int* __restrict__ pos,
+decode_attention_group_kernel(const Q* __restrict__ q, const int* __restrict__ pos, int pos_all,
                               Q* __restrict__ out, int R, int c_used, int layer, const Strides st,
                               const __grid_constant__ CUtensorMap k_map,
                               const __grid_constant__ CUtensorMap v_map, int chunk_cap,
@@ -332,7 +485,8 @@ decode_attention_group_kernel(const Q* __restrict__ q, const int* __restrict__ p
                    : 0.f;
   }
   if (threadIdx.x < G)
-    sn[threadIdx.x] = threadIdx.x < ng ? min(pos[j * R + r0 + threadIdx.x] + 1, c_used) : 0;
+    sn[threadIdx.x] =
+        threadIdx.x < ng ? min((pos ? pos[j * R + r0 + threadIdx.x] : pos_all) + 1, c_used) : 0;
   __syncthreads();
 
   int n_max = 0;
@@ -501,27 +655,36 @@ decode_attention_group_kernel(const Q* __restrict__ q, const int* __restrict__ p
   }
 }
 
-// Static plus dynamic shared memory above 48 KB needs the opt-in. The K3
-// kernel holds under 3 KB statically, so a dynamic size up to 16 KB never
-// does; above it, opt in to exactly that size.
-int set_smem(const void* kernel, size_t bytes) {
-  if (bytes <= 16 * 1024) return (int)cudaSuccess;
-  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   (int)bytes);
+// The one-block launch: a block per (head, lane) of OB_WARPS warps, whose
+// shared memory holds all c_used rows of its head (one round of copies).
+// It takes a cache whose rows fit ONE_BLOCK_SMEM and ROWS_PER_LANE rows a
+// lane (every self cache, and K3s always: 448 rows of int8 take 69 KB);
+// `one_block_fits` says whether it does.
+constexpr int ONE_BLOCK_SMEM = 160 * 1024;
+
+template <typename S, bool SCALED>
+bool one_block_fits(int c_used) {
+  return head_smem<S, SCALED>(c_used) <= ONE_BLOCK_SMEM && c_used <= 32 * ROWS_PER_LANE * OB_WARPS;
 }
 
 template <typename S, typename Q, bool SCALED>
 int launch(const void* q, const void* k, const void* v, const int* pos, const void* ks,
-           const void* vs, void* out, int B, int H, int c_used, int layer, const Strides& st,
-           cudaStream_t stream) {
+           const void* vs, void* out, int B, int H, int c_used, int layer, int pos_all,
+           const Strides& st, cudaStream_t stream) {
   using E = typename Store<S>::E;
+  if (!one_block_fits<S, SCALED>(c_used)) return (int)cudaErrorInvalidValue;
   auto kernel = decode_attention_kernel<S, Q, SCALED>;
-  const size_t smem = (size_t)c_used * sizeof(float);
-  const int err = set_smem((const void*)kernel, smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<dim3(H, B), THREADS, smem, stream>>>((const Q*)q, (const E*)k, (const E*)v, pos,
-                                                (const float*)ks, (const float*)vs, (Q*)out,
-                                                c_used, layer, st);
+  const int smem = head_smem<S, SCALED>(c_used);
+  static int opted = 48 * 1024 - (int)((2 + 2 * HD) * OB_WARPS * sizeof(float));  // dynamic limit
+  if (smem > opted) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    opted = smem;
+  }
+  kernel<<<dim3(H, B), OB_WARPS * 32, smem, stream>>>((const Q*)q, (const E*)k, (const E*)v, pos,
+                                                      pos_all, (const float*)ks, (const float*)vs,
+                                                      (Q*)out, c_used, layer, st);
   return (int)cudaGetLastError();
 }
 
@@ -549,7 +712,8 @@ bool cache_map(CUtensorMap* map, const void* base, int H, int row_bytes, int c_u
 }
 
 template <typename S, typename Q, int G>
-int launch_group(const void* q, const void* k, const void* v, const int* pos, void* out, int B,
+int launch_group(const void* q, const void* k, const void* v, const int* pos, int pos_all,
+                 void* out, int B,
                  int R, int H, int c_used, int layer, int n_layer, int splits, const Strides& st,
                  cudaStream_t stream) {
   using E = typename Store<S>::E;
@@ -593,7 +757,8 @@ int launch_group(const void* q, const void* k, const void* v, const int* pos, vo
   cfg.attrs = attr;
   cfg.numAttrs = splits > 1;  // one block a cluster: a plain launch
   const cudaError_t err =
-      cudaLaunchKernelEx(&cfg, kernel, (const Q*)q, pos, (Q*)out, R, c_used, layer, st, km, vm,
+      cudaLaunchKernelEx(&cfg, kernel, (const Q*)q, pos, pos_all, (Q*)out, R, c_used, layer, st,
+                         km, vm,
                          chunk_cap, box_rows);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
@@ -601,22 +766,26 @@ int launch_group(const void* q, const void* k, const void* v, const int* pos, vo
 
 template <typename S, typename Q>
 int dispatch(int rep, int splits, const void* q, const void* k, const void* v, const int* pos,
-             void* out, int B, int H, int c_used, int layer, int n_layer, const Strides& st,
-             cudaStream_t s) {
-  // one q row per kv row (K3, K8): the one-block kernel at splits = 1, the
-  // split kernel with G = 1 above it
-  if (rep == 1 && splits == 1)
-    return launch<S, Q, false>(q, k, v, pos, nullptr, nullptr, out, B, H, c_used, layer, st, s);
+             void* out, int B, int H, int c_used, int layer, int n_layer, int pos_all,
+             const Strides& st, cudaStream_t s) {
+  // one q row per kv row (K3, K8): the one-block kernel at splits = 1 where
+  // the rows fit it, else the split kernel with G = 1 (a cluster of splits
+  // blocks, one plain block at splits = 1: a cross cache of 512 to 1199
+  // rows that plan_lane_splits leaves whole, as large-v2's Sa = 750 under
+  // a greedy batch of five windows or more, or an f32 cache past ~300 rows)
+  if (rep == 1 && splits == 1 && one_block_fits<S, false>(c_used))
+    return launch<S, Q, false>(q, k, v, pos, nullptr, nullptr, out, B, H, c_used, layer, pos_all,
+                               st, s);
   if (rep == 1)
-    return launch_group<S, Q, 1>(q, k, v, pos, out, B, 1, H, c_used, layer, n_layer, splits, st,
-                                 s);
+    return launch_group<S, Q, 1>(q, k, v, pos, pos_all, out, B, 1, H, c_used, layer, n_layer,
+                                 splits, st, s);
   // R lanes in ceil(R / GROUP) groups of G = ceil(R / groups) <= GROUP
   const int groups = (rep + GROUP - 1) / GROUP;
   const int g = (rep + groups - 1) / groups;
-#define WTT_GROUP(G)                                                                        \
-  case G:                                                                                   \
-    return launch_group<S, Q, G>(q, k, v, pos, out, B, rep, H, c_used, layer, n_layer, splits, \
-                                 st, s);
+#define WTT_GROUP(G)                                                                      \
+  case G:                                                                                 \
+    return launch_group<S, Q, G>(q, k, v, pos, pos_all, out, B, rep, H, c_used, layer,      \
+                                 n_layer, splits, st, s);
   switch (g) {
     WTT_GROUP(2)
     WTT_GROUP(3)
@@ -641,17 +810,19 @@ int dispatch(int rep, int splits, const void* q, const void* k, const void* v, c
 // cover them all). storage: 0 bf16, 1 f32, 2 int8, 3 packed int4; q_f32
 // selects an f32 query and output (else bf16). ks/vs (K3s): null, or the
 // int8 / int4 cache's f32 row scales with strides s_lane/s_layer (rep and
-// splits must be 1: K3s takes the one-block kernel).
+// splits must be 1: K3s takes the one-block kernel). pos: device (B,)
+// int32, or null with every lane at pos_all (>= 0).
 extern "C" int wtt_decode_attention(const void* q, const void* k, const void* v,
-                                    const void* pos, void* out, const void* ks, const void* vs,
-                                    int B, int H, int rep, int splits, int c_used, int layer,
-                                    int n_layer, int storage, int q_f32, long long q_sb,
+                                    const void* pos, int pos_all, void* out, const void* ks,
+                                    const void* vs, int B, int H, int rep, int splits,
+                                    int c_used, int layer, int n_layer, int storage, int q_f32,
+                                    long long q_sb,
                                     long long k_lane, long long k_layer, long long k_row,
                                     long long v_lane, long long v_layer, long long v_row,
                                     long long s_lane, long long s_layer, long long o_sb,
                                     void* stream) {
   if (rep < 1 || B % rep || c_used < 1 || B < 1 || B / rep > 65535 || splits < 1 ||
-      splits > MAX_SPLITS || layer < 0 || layer >= n_layer)
+      splits > MAX_SPLITS || layer < 0 || layer >= n_layer || (pos == nullptr && pos_all < 0))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const int* p = (const int*)pos;
@@ -661,13 +832,14 @@ extern "C" int wtt_decode_attention(const void* q, const void* k, const void* v,
     if (ks == nullptr || vs == nullptr || rep != 1 || splits != 1 ||
         (storage != 2 && storage != 3))
       return (int)cudaErrorInvalidValue;
-#define WTT_SCALED(S, Q) launch<S, Q, true>(q, k, v, p, ks, vs, out, B, H, c_used, layer, st, s)
+#define WTT_SCALED(S, Q) \
+  launch<S, Q, true>(q, k, v, p, ks, vs, out, B, H, c_used, layer, pos_all, st, s)
     if (storage == 3) return q_f32 ? WTT_SCALED(Int4, float) : WTT_SCALED(Int4, bf16);
     return q_f32 ? WTT_SCALED(int8_t, float) : WTT_SCALED(int8_t, bf16);
 #undef WTT_SCALED
   }
 #define WTT_DISPATCH(S, Q) \
-  dispatch<S, Q>(rep, splits, q, k, v, p, out, B, H, c_used, layer, n_layer, st, s)
+  dispatch<S, Q>(rep, splits, q, k, v, p, out, B, H, c_used, layer, n_layer, pos_all, st, s)
   switch (storage) {
     case 0:
       if (q_f32) return (int)cudaErrorInvalidValue;

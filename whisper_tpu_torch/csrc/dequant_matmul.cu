@@ -19,24 +19,28 @@
 //     up to 8 blocks that exchange their partial row maxima and their int32
 //     sums through distributed shared memory (no scratch, no atomics in
 //     device memory);
-//   * M > 64 (the encoder: M = 750 a window, W x 750 batched): one block
-//     per row quantizes every row into scratch the wrapper allocates, then
-//     `gemm_big_kernel` runs 128 x 128 output tiles: two launches that
-//     count as one call. (Quantizing inside each tile, one launch, was
-//     measured slower there: every block of a row tile repeats the row's
-//     IEEE divisions.) The two functions differ only in the rounding (a
-//     flag of the quantize step).
+//   * M > 64 (the encoder: M = 750 a window, W x 750 batched): a prep
+//     pass quantizes every row into scratch the wrapper allocates and, in
+//     the same grid, copies the weight K-major (int4 unpacked) on every
+//     call, then `gemm_big_kernel` runs 128 x 256 (or 128) output tiles
+//     as a persistent warp-specialised TMA + wgmma kernel: two launches
+//     that count as one call. (Quantizing inside each tile, one launch,
+//     was measured slower there: every block of a row tile repeats the
+//     row's IEEE divisions.) The two functions differ only in the
+//     rounding (a flag of the prep pass).
 //
-// The products are mma.sync.m16n8k32 s8 x s8 -> s32 on the tensor cores.
-// The weight is (K, N) row-major int8 (N contiguous, the QTensor layout),
-// but the instruction wants four consecutive k of one column in a register:
-// a thread loads 4 (k) x 4 (n) byte blocks as four 32-bit words along N
-// (neighbouring threads on neighbouring addresses) and transposes them with
-// __byte_perm. Packed int4 weights (template flag INT4): (K, N / 2) uint8,
-// two two's-complement nibbles a byte, the low nibble the even column
-// (quantize.py's layout); `expand4` sign-extends four nibbles into the four
-// bytes of the word the int8 load would have given, so the products and the
-// epilogue are the int8 path's, bit-equal over the unpacked weight.
+// The split-K kernel's products are mma.sync.m16n8k32 s8 x s8 -> s32, the
+// tile kernel's wgmma.mma_async m64nNk32 s32.s8.s8. The weight is (K, N)
+// row-major int8 (N contiguous, the QTensor layout), but both instructions
+// want consecutive k of one column together: 4 (k) x 4 (n) byte blocks are
+// loaded as four 32-bit words along N and transposed with __byte_perm (in
+// registers for the split-K kernel, into the K-major scratch copy by the
+// prep pass for the tile kernel). Packed int4 weights (template flag INT4):
+// (K, N / 2) uint8, two two's-complement nibbles a byte, the low nibble the
+// even column (quantize.py's layout); `expand4` sign-extends four nibbles
+// into the four bytes of the word the int8 load would have given, so the
+// products and the epilogue are the int8 path's, bit-equal over the
+// unpacked weight.
 //
 // Bound on the H100. At decode M (1, 5, 20 rows) the weight stream bounds
 // it: 1280 x 3840 int8 is 4.9 MB, ~1.5 us at 3.35 TB/s (int4: 2.5 MB,
@@ -46,9 +50,13 @@
 // of 32 k rows x 128 columns into registers at the start, later steps
 // during a step's products), with 80-240 blocks at the path's shapes.
 // At M = 3000, K = 1280, N = 3840 the 29.5 G integer operations take
-// ~15 us at 1979 TOP/s; the big-M kernel has no wgmma, TMA or cp.async
-// pipeline, so it reaches a fraction of that (later PRs).
+// ~15 us at 1979 TOP/s, against 4.9 MB of weight and 3.8 MB of xq: the
+// tensor cores bound the tile kernel, and the prep pass adds its read of x
+// and the weight and its writes of xq and wt (7.7 + 4.9 + 3.8 + 4.9 MB
+// there, ~6.3 us at 3.35 TB/s).
 #include <cooperative_groups.h>
+
+#include <climits>
 
 #include "common.cuh"
 
@@ -57,12 +65,6 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int BK = 64;           // K bytes per step
-constexpr int A_STRIDE = BK + 16;  // 80 bytes: 16-byte aligned rows, no conflicts on reads
-constexpr int B_STRIDE = BK + 4;   // 68 bytes: n-major rows of k, 32-bit reads
-
-template <typename T>
-__device__ __forceinline__ float load_f32(const T* p) { return wtt::to_f32(*p); }
 
 // A row's scale (1 for a zero row) and the inverse K7 multiplies by; the
 // constant (float)(1.0 / 127.0) is the one JAX and PyTorch take from a
@@ -86,28 +88,100 @@ __device__ __forceinline__ int quantize(float v, float scale, float inv) {
 // half-integer (or is not finite: a reciprocal that overflowed); there the
 // quotient is taken. Bit-equal to quantize<false>.
 
-// One block per row: absmax, the row scale and the int8 row.
+// Row quantization for the M > 64 path: `tpr` threads a row (32 to 256,
+// a power of two), THREADS / tpr rows for block `blk`. A thread holds up to
+// QV vectors of 8 values of its row in registers (16-byte loads, all in
+// flight at once; vector c of the row is thread c % tpr's): the row's
+// absmax (the warps of a row meet in shared memory), the row scale, then
+// the vectors quantized to 8 int8 bytes, one 8-byte store each. Vectors
+// past QV a thread (K > 32 * QV * tpr) are read again. K is a multiple of
+// 128, so a row is a whole number of vectors.
+constexpr int QV = 4;
+
 template <typename T, bool MUL_INV>
-__global__ void __launch_bounds__(THREADS)
-quantize_rows_kernel(const T* __restrict__ x, int8_t* __restrict__ xq,
-                     float* __restrict__ xs, int K) {
+__device__ __forceinline__ void quantize_rows(const T* __restrict__ x, int8_t* __restrict__ xq,
+                                              float* __restrict__ xs, int M, int K, int blk,
+                                              int tpr) {
+  constexpr int W = 8 * (int)sizeof(T) / 16;  // 16-byte loads a vector
   __shared__ float red[THREADS / 32];
-  const long long row = blockIdx.x;
-  const T* xr = x + row * K;
-  float m = 0.f;
-  for (int i = threadIdx.x; i < K; i += THREADS) m = fmaxf(m, fabsf(load_f32(xr + i)));
-  m = wtt::warp_max(m);
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = m;
-  __syncthreads();
-  float absmax = red[0];
+  const int row = blk * (THREADS / tpr) + threadIdx.x / tpr;
+  const int t = threadIdx.x % tpr;
+  const bool live = row < M;
+  const T* xr = x + (long long)row * K;
+  int8_t* qr = xq + (long long)row * K;
+  const int nv = K / 8;
+  auto load = [&](int c, uint4* r) {
 #pragma unroll
-  for (int w = 1; w < THREADS / 32; ++w) absmax = fmaxf(absmax, red[w]);
+    for (int j = 0; j < W; ++j)
+      r[j] = *reinterpret_cast<const uint4*>(xr + 8 * c + j * 16 / (int)sizeof(T));
+  };
+  auto unpack = [](const uint4* r, float* v) {
+    const unsigned w[8] = {r[0].x, r[0].y, r[0].z, r[0].w, r[W - 1].x, r[W - 1].y, r[W - 1].z,
+                           r[W - 1].w};
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      if constexpr (W == 1)
+        v[e] = __uint_as_float(e % 2 ? w[e / 2] & 0xFFFF0000u : w[e / 2] << 16);
+      else
+        v[e] = __uint_as_float(w[e]);
+    }
+  };
+  uint4 r[QV][W];
+  float m = 0.f;
+#pragma unroll
+  for (int i = 0; i < QV; ++i) {
+    const int c = t + tpr * i;
+    if (live && c < nv) load(c, r[i]);
+  }
+  for (int c = t + tpr * QV; live && c < nv; c += tpr) {
+    uint4 u[W];
+    float v[8];
+    load(c, u);
+    unpack(u, v);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) m = fmaxf(m, fabsf(v[e]));
+  }
+#pragma unroll
+  for (int i = 0; i < QV; ++i) {
+    if (live && t + tpr * i < nv) {
+      float v[8];
+      unpack(r[i], v);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) m = fmaxf(m, fabsf(v[e]));
+    }
+  }
+  m = wtt::warp_max(m);
+  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = m;
+  __syncthreads();
+  const int w0 = (threadIdx.x / tpr) * (tpr / 32);
+  for (int i = 1; i < tpr / 32; ++i) m = fmaxf(m, red[w0 + i]);
+  m = fmaxf(m, red[w0]);
   float scale, inv;
-  row_scale(absmax, scale, inv);
-  int8_t* qr = xq + row * K;
-  for (int i = threadIdx.x; i < K; i += THREADS)
-    qr[i] = (int8_t)quantize<MUL_INV>(load_f32(xr + i), scale, inv);
-  if (threadIdx.x == 0) xs[row] = scale;
+  row_scale(m, scale, inv);
+  auto store = [&](const float* v, int c) {
+    unsigned w[2] = {0u, 0u};
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      w[e / 4] |= (unsigned)(quantize<MUL_INV>(v[e], scale, inv) & 0xFF) << (8 * (e % 4));
+    *reinterpret_cast<uint2*>(qr + 8 * c) = make_uint2(w[0], w[1]);
+  };
+#pragma unroll
+  for (int i = 0; i < QV; ++i) {
+    const int c = t + tpr * i;
+    if (live && c < nv) {
+      float v[8];
+      unpack(r[i], v);
+      store(v, c);
+    }
+  }
+  for (int c = t + tpr * QV; live && c < nv; c += tpr) {
+    uint4 u[W];
+    float v[8];
+    load(c, u);
+    unpack(u, v);
+    store(v, c);
+  }
+  if (live && t == 0) xs[row] = scale;
 }
 
 __device__ __forceinline__ void mma_s8(int* c, const unsigned* a, unsigned b0, unsigned b1) {
@@ -127,18 +201,6 @@ __device__ __forceinline__ unsigned expand4(unsigned h) {
   const unsigned x = (h & 0xFu) | ((h & 0xF0u) << 4) | ((h & 0xF00u) << 8) | ((h & 0xF000u) << 12);
   const unsigned s = x & 0x08080808u;
   return x | (s * 0x1Eu);
-}
-
-// The 4 int8 weights of columns [col, col + 4) of k row `row` as one
-// 32-bit word (byte j = column col + j); INT4 reads them from the packed
-// (K, N / 2) layout (col is a multiple of 4, so the load is 2-byte aligned).
-template <bool INT4>
-__device__ __forceinline__ unsigned load_w4(const int8_t* wq, long long row, int col, int N) {
-  if constexpr (INT4) {
-    const uint8_t* p = reinterpret_cast<const uint8_t*>(wq) + row * (N / 2) + col / 2;
-    return expand4(__ldg(reinterpret_cast<const unsigned short*>(p)));
-  }
-  return __ldg(reinterpret_cast<const unsigned*>(wq + row * N + col));
 }
 
 // rows r[0..3] hold 4 bytes (n0..n3) of k0..k3; w[j] = the 4 k bytes of n_j.
@@ -433,7 +495,7 @@ gemm_splitk_kernel(const T* __restrict__ x, const int8_t* __restrict__ wq,
   //    they are: their products land in outputs no one stores. K7's
   //    rounding is rint(x * inv); K6's is rint(x / scale) with the IEEE
   //    quotient, taken from x * (1 / scale) as the note above
-  //    `quantize_rows_kernel` argues, the quotient itself only where a
+  //    `quantize_rows` argues, the quotient itself only where a
   //    lane needs it (a vote keeps the division off the warps that do not)
   const int gpr = ks / 8;
   const int xoff = whole ? k0 : 0;
@@ -552,95 +614,268 @@ gemm_splitk_kernel(const T* __restrict__ x, const int8_t* __restrict__ wq,
 }
 
 // ---------------------------------------------------------------- M > 64
-// grid (N / 128, ceil(M / 128)); 8 warps as 2 (m) x 4 (n), each 64 x 32.
-constexpr int BG_BM = 128, BG_BN = 128;
+// Two launches. `prep_kernel` runs two jobs side by side in one grid: its
+// first blocks quantize the rows (`quantize_rows`, held in registers) into the scratch xq (M, K) int8 and xs (M,) f32; the others transpose the
+// weight, 64 k x 64 columns a block, into the scratch wt (N, K) int8:
+// K-major, the layout wgmma takes for 8-bit operands (packed int4 is
+// sign-extended on the way, so the GEMM reads int8 either way). Then
+// `gemm_big_kernel`, a warp-specialised wgmma GEMM over 128 x BN output
+// tiles (BN = 256 or 128, whole K), int8 x int8 -> int32 on the tensor
+// cores (`wgmma.mma_async ... .s32.s8.s8`):
+//   * a persistent grid, a block an SM, walks the output tiles (tile
+//     blockIdx.x, then every gridDim.x-th), so a block's loads of its next
+//     tile overlap its epilogue of the last one;
+//   * one producer thread issues every TMA copy into a ring of STAGES
+//     stages: the xq tile (128 rows x 128 k bytes) and the wt tile (BN rows
+//     x 128 k bytes), both with the 128-byte swizzle, the A and B operands
+//     as they land;
+//   * two consumer warpgroups (64 rows each) issue 4 wgmma of k = 32 a
+//     stage, keep one group in flight and release the previous stage;
+//   * epilogue: ((float)acc * xs[m]) * ws[n] in the output type, rows past
+//     M masked (TMA fills them with zeros).
+// Transposing the weight inside the GEMM instead (every block its tiles,
+// by three warps of the producer warpgroup, a stage at a time) was measured
+// slower: each weight tile was transposed once for every row tile (24 times
+// at M = 3000), and the transposing warps, not the tensor cores, set the
+// pace; so was splitting K over a cluster of two blocks once the ring had
+// four to six stages (PERF.md section 6). The tile width is the wrapper's
+// (`ops/kernels/dequant_matmul.py::plan_big`, from
+// `tools/sweep_k7_plan.py`).
+constexpr int BG_BM = 128;        // rows of a tile: two consumer warpgroups of 64
+constexpr int BG_BK = 128;        // k of a stage: one 128-byte swizzle row of int8
+constexpr int BG_THREADS = 384;   // producer warpgroup + two consumers
+constexpr int BG_REGS = 168;      // 65536 / 384, rounded down to a multiple of 8
+constexpr int BG_PRODUCER_REGS = 40;
+constexpr int BG_CONSUMER_REGS = 232;
+static_assert((BG_REGS - BG_PRODUCER_REGS) * 128 >= (BG_CONSUMER_REGS - BG_REGS) * 256,
+              "setmaxnreg: the consumers would wait for registers no one frees");
+constexpr int TP = 64;            // k rows and columns of a transpose block
 
-template <typename O, bool INT4>
+// Shared memory of one block: the A and B stages, then the mbarriers.
+template <int BN>
+struct Big {
+  static constexpr int STAGES = BN == 256 ? 4 : 6;
+  static constexpr int A_BYTES = BG_BM * BG_BK;
+  static constexpr int B_BYTES = BN * BG_BK;
+  static constexpr int STAGE = A_BYTES + B_BYTES;
+  static constexpr int ACC = BN / 2;  // int32 sums of a consumer thread
+  static constexpr int BARS = STAGES * STAGE;
+  static constexpr int SMEM = 1024 /* alignment slack */ + BARS + 2 * STAGES * 8;
+};
+
+// The first `qblocks` blocks quantize THREADS / tpr rows each; every other
+// block transposes one 64 x 64 tile of the weight: a thread reads a 4 (k)
+// x 4 (column) byte block (int4: four 16-bit halves, expand4), transposes
+// it with __byte_perm into shared memory, and the block writes the tile's
+// 64 rows of wt 16 bytes a thread.
+template <typename T, bool MUL_INV, bool INT4>
 __global__ void __launch_bounds__(THREADS)
-gemm_big_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xs,
-                const int8_t* __restrict__ wq, const float* __restrict__ ws,
-                O* __restrict__ out, int M, int K, int N) {
-  __shared__ __align__(16) unsigned char as[BG_BM * A_STRIDE];
-  __shared__ __align__(16) unsigned char bs[BG_BN * B_STRIDE];
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = warp >> 2, wn = warp & 3;
-  const int n0 = blockIdx.x * BG_BN, m0 = blockIdx.y * BG_BM;
-  const int steps = K / BK;
-
-  int acc[4][4][4] = {};
-  uint4 ra[2];
-  unsigned rb[2][4];
-  auto load = [&](int s) {
-    const int k0 = s * BK;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {  // 128 rows x 4 chunks of 16 bytes
-      const int idx = tid + THREADS * i, r = idx >> 2, c = idx & 3;
-      ra[i] = m0 + r < M ? *reinterpret_cast<const uint4*>(xq + (long long)(m0 + r) * K + k0 + c * 16)
-                         : make_uint4(0, 0, 0, 0);
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {  // 16 k-blocks x 32 n-blocks of 4 x 4 bytes
-      const int kb = (tid >> 5) + 8 * i, nb = tid & 31;
-#pragma unroll
-      for (int r = 0; r < 4; ++r) rb[i][r] = load_w4<INT4>(wq, k0 + 4 * kb + r, n0 + 4 * nb, N);
-    }
-  };
-
-  load(0);
-  for (int s = 0; s < steps; ++s) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int idx = tid + THREADS * i, r = idx >> 2, c = idx & 3;
-      *reinterpret_cast<uint4*>(as + r * A_STRIDE + c * 16) = ra[i];
-      const int kb = (tid >> 5) + 8 * i, nb = tid & 31;
-      unsigned w[4];
-      transpose4x4(rb[i], w);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        *reinterpret_cast<unsigned*>(bs + (4 * nb + j) * B_STRIDE + 4 * kb) = w[j];
-    }
-    __syncthreads();
-    if (s + 1 < steps) load(s + 1);  // in flight during the products below
-#pragma unroll
-    for (int ks = 0; ks < BK; ks += 32) {
-      unsigned b[4][2];
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const unsigned char* bp = bs + (wn * 32 + nt * 8 + g) * B_STRIDE + ks + 4 * t;
-        b[nt][0] = *reinterpret_cast<const unsigned*>(bp);
-        b[nt][1] = *reinterpret_cast<const unsigned*>(bp + 16);
-      }
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
-        const unsigned char* ap = as + (wm * 64 + mt * 16 + g) * A_STRIDE + ks + 4 * t;
-        unsigned a[4];
-        a[0] = *reinterpret_cast<const unsigned*>(ap);
-        a[1] = *reinterpret_cast<const unsigned*>(ap + 8 * A_STRIDE);
-        a[2] = *reinterpret_cast<const unsigned*>(ap + 16);
-        a[3] = *reinterpret_cast<const unsigned*>(ap + 8 * A_STRIDE + 16);
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) mma_s8(acc[mt][nt], a, b[nt][0], b[nt][1]);
-      }
-    }
-    __syncthreads();
+prep_kernel(const T* __restrict__ x, int8_t* __restrict__ xq, float* __restrict__ xs,
+            const int8_t* __restrict__ wq, int8_t* __restrict__ wt, int M, int K, int N,
+            int qblocks, int tpr) {
+  if ((int)blockIdx.x < qblocks) {
+    quantize_rows<T, MUL_INV>(x, xq, xs, M, K, blockIdx.x, tpr);
+    return;
   }
+  __shared__ unsigned tile[TP][TP / 4 + 1];  // [column][k word], padded
+  const int t = blockIdx.x - qblocks;
+  const int k0 = (t % (K / TP)) * TP, n0 = (t / (K / TP)) * TP;
+  const int kb = threadIdx.x / 16, nb = threadIdx.x % 16;  // a 4 x 4 block
+  unsigned r[4], w[4];
 #pragma unroll
-  for (int nt = 0; nt < 4; ++nt) {
-    const int c = n0 + wn * 32 + nt * 8 + 2 * t;
-    const float w0 = ws[c], w1 = ws[c + 1];
+  for (int i = 0; i < 4; ++i) {
+    const long long k = k0 + 4 * kb + i;
+    if constexpr (INT4)
+      r[i] = expand4(*reinterpret_cast<const unsigned short*>(
+          reinterpret_cast<const uint8_t*>(wq) + k * (N / 2) + (n0 + 4 * nb) / 2));
+    else
+      r[i] = *reinterpret_cast<const unsigned*>(wq + k * N + n0 + 4 * nb);
+  }
+  transpose4x4(r, w);  // w[j]: k 4 kb..4 kb + 3 of column 4 nb + j
 #pragma unroll
-    for (int mt = 0; mt < 4; ++mt) {
+  for (int j = 0; j < 4; ++j) tile[4 * nb + j][kb] = w[j];
+  __syncthreads();
+  const int n = threadIdx.x / 4, q = threadIdx.x % 4;  // a row of wt, 16 bytes
+  *reinterpret_cast<uint4*>(wt + (long long)(n0 + n) * K + k0 + 16 * q) =
+      make_uint4(tile[n][4 * q], tile[n][4 * q + 1], tile[n][4 * q + 2], tile[n][4 * q + 3]);
+}
+
+// D(64 x 128, s32) += A(64 x 32, smem, K-major) * B(32 x 128, smem, K-major)
+__device__ __forceinline__ void wgmma_s8_n128(int* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(1)
+      : "memory");
+}
+
+// D(64 x 256, s32) += A(64 x 32, smem, K-major) * B(32 x 256, smem, K-major)
+__device__ __forceinline__ void wgmma_s8_n256(int* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]),
+        "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+        "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
+        "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]), "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]),
+        "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]),
+        "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]), "+r"(d[100]), "+r"(d[101]), "+r"(d[102]), "+r"(d[103]),
+        "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]), "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]),
+        "+r"(d[112]), "+r"(d[113]), "+r"(d[114]), "+r"(d[115]), "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
+        "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
+      : "l"(da), "l"(db), "r"(1)
+      : "memory");
+}
+
+template <int BN>
+__device__ __forceinline__ void wgmma_s8(int* d, uint64_t da, uint64_t db) {
+  if constexpr (BN == 256) wgmma_s8_n256(d, da, db);
+  else wgmma_s8_n128(d, da, db);
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs_s32(int* r) {
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = m0 + wm * 64 + mt * 16 + g + 8 * h;
-        if (r >= M) continue;
-        const float x_s = xs[r];
-        store_pair<O>(out + (long long)r * N + c,
-                      ((float)acc[mt][nt][2 * h] * x_s) * w0,
-                      ((float)acc[mt][nt][2 * h + 1] * x_s) * w1);
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// A consumer thread's outputs of a tile: rows m and m + 8 (m past the
+// tile's first row by the thread's fragment row), columns n + 8 j and
+// n + 8 j + 1: ((float)acc * xs[m]) * ws[n] in the output type, rows past
+// M masked.
+template <typename O, int BN>
+__device__ __forceinline__ void epilogue(const int* acc, const float* __restrict__ xs,
+                                         const float* __restrict__ ws, O* __restrict__ out,
+                                         int M, int N, int m, int n) {
+  float x_s[2];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) x_s[half] = m + 8 * half < M ? xs[m + 8 * half] : 0.f;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const float w0 = ws[n + 8 * j], w1 = ws[n + 8 * j + 1];
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      if (m + 8 * half >= M) continue;
+      store_pair<O>(out + (long long)(m + 8 * half) * N + n + 8 * j,
+                    ((float)acc[4 * j + 2 * half] * x_s[half]) * w0,
+                    ((float)acc[4 * j + 2 * half + 1] * x_s[half]) * w1);
+    }
+  }
+}
+
+template <typename O, int BN>
+__global__ void __launch_bounds__(BG_THREADS, 1)
+gemm_big_kernel(const __grid_constant__ CUtensorMap a_map,
+                const __grid_constant__ CUtensorMap b_map, const float* __restrict__ xs,
+                const float* __restrict__ ws, O* __restrict__ out, int M, int N, int K) {
+  using L = Big<BN>;
+  constexpr int S = L::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  // the 128-byte swizzle repeats every 1024 B: align the tiles to it
+  unsigned char* smem = smem_raw + ((1024 - (wtt::smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* sA = smem;                 // [S][128 rows][128 B]
+  unsigned char* sB = sA + S * L::A_BYTES;  // [S][BN rows][128 B]
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BARS);  // [S]
+  uint64_t* empty = full + S;                                     // [S]
+
+  const int tiles_n = N / BN;
+  const int tiles = tiles_n * ((M + BG_BM - 1) / BG_BM);
+  const int k_tiles = K / BG_BK;
+  const int wg = threadIdx.x / 128;  // 0 producer, 1-2 consumers
+  const int lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      wtt::mbar_init(&full[s], 1);
+      wtt::mbar_init(&empty[s], 8);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(BG_PRODUCER_REGS));
+    if (threadIdx.x == 0) {
+      int g = 0;  // stages issued by this block, over all its tiles
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int n0 = (tile % tiles_n) * BN, m0 = (tile / tiles_n) * BG_BM;
+        for (int t = 0; t < k_tiles; ++t, ++g) {
+          const int s = g % S;
+          if (g >= S) wtt::mbar_wait(&empty[s], ((g / S) & 1) ^ 1);
+          wtt::mbar_expect_tx(&full[s], L::STAGE);
+          wtt::tma_load_2d(sA + s * L::A_BYTES, &a_map, &full[s], t * BG_BK, m0);
+          wtt::tma_load_2d(sB + s * L::B_BYTES, &b_map, &full[s], t * BG_BK, n0);
+        }
       }
     }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(BG_CONSUMER_REGS));
+  const int c = wg - 1;  // consumer: tile rows [c*64, c*64 + 64)
+  const int t128 = threadIdx.x % 128;
+  const int cw = t128 / 32;
+
+  // This thread's rows of the accumulator fragment (within the 64) and the
+  // first of its two columns in every 8-column block.
+  const int r_lo = cw * 16 + lane / 4;
+  const int col = 2 * (lane % 4);
+  int g = 0;  // stages consumed, over all this block's tiles
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int n0 = (tile % tiles_n) * BN, m0 = (tile / tiles_n) * BG_BM;
+    int acc[L::ACC];
+#pragma unroll
+    for (int i = 0; i < L::ACC; ++i) acc[i] = 0;
+    for (int t = 0; t < k_tiles; ++t, ++g) {
+      const int s = g % S;
+      wtt::mbar_wait(&full[s], (g / S) & 1);
+      const uint64_t da = wtt::sw128_desc(sA + s * L::A_BYTES + c * 64 * 128);
+      const uint64_t db = wtt::sw128_desc(sB + s * L::B_BYTES);
+      wtt::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BG_BK / 32; ++kk) wgmma_s8<BN>(acc, da + 2 * kk, db + 2 * kk);
+      wtt::wgmma_commit();
+      // the previous stage's products are done: release it
+      wtt::wgmma_wait1();
+      if (t > 0 && lane == 0) wtt::mbar_arrive(&empty[(g - 1) % S]);
+    }
+    wtt::wgmma_wait0();
+    fence_regs_s32<L::ACC>(acc);
+    if (lane == 0) wtt::mbar_arrive(&empty[(g - 1) % S]);  // the tile's last stage
+    epilogue<O, BN>(acc, xs, ws, out, M, N, m0 + c * 64 + r_lo, n0 + col);
   }
 }
 
@@ -673,25 +908,108 @@ int launch_splitk(const void* x, const int8_t* wq, const float* ws, void* out, i
                                  (int)big, (int)whole);
 }
 
+// A 2-D byte map (cols, rows) of a row-major matrix, a (128, box_rows) box
+// with the 128-byte swizzle. xq and wt are fresh scratch each call, so the
+// map is encoded directly (not kept by `wtt::cached_map`).
+bool byte_map(CUtensorMap* map, const void* base, int rows, int cols, int box_rows) {
+  const wtt::EncodeTiled encode = wtt::encode_tiled();
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols};
+  const cuuint32_t box[2] = {(cuuint32_t)BG_BK, (cuuint32_t)box_rows};
+  const cuuint32_t unit[2] = {1, 1};
+  return encode != nullptr &&
+         encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base), dims, strides,
+                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Once per instantiation: the register count the setmaxnreg split assumes
+// (the consumers' setmaxnreg.inc would otherwise wait forever) and the
+// dynamic shared memory opt-in.
+template <typename O, int BN>
+int configure_big() {
+  static int state = -1;
+  if (state < 0) {
+    auto kernel = gemm_big_kernel<O, BN>;
+    cudaFuncAttributes attr;
+    cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+    if (err != cudaSuccess) return (int)err;
+    if (attr.numRegs != BG_REGS) return (int)cudaErrorInvalidConfiguration;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               Big<BN>::SMEM);
+    if (err != cudaSuccess) return (int)err;
+    state = 0;
+  }
+  return state;
+}
+
+template <typename O, int BN>
+int launch_big(const int8_t* xq, const float* xs, const int8_t* wt, const float* ws, void* out,
+               int M, int K, int N, cudaStream_t st) {
+  const int err = configure_big<O, BN>();
+  if (err != cudaSuccess) return err;
+  CUtensorMap am, bm;
+  if (!byte_map(&am, xq, M, K, BG_BM) || !byte_map(&bm, wt, N, K, BN))
+    return (int)cudaErrorInvalidValue;
+  static int n_sm = 0;
+  if (n_sm == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  }
+  const int tiles = (N / BN) * ((M + BG_BM - 1) / BG_BM);
+  gemm_big_kernel<O, BN><<<min(tiles, n_sm), BG_THREADS, Big<BN>::SMEM, st>>>(am, bm, xs, ws,
+                                                                            (O*)out, M, N, K);
+  return (int)cudaGetLastError();
+}
+
+// How a call runs: the split-K kernel (ksplit > 0, with `whole`), or the
+// prep pass and the tile kernel (ksplit = 0) over bn-wide tiles; `big`
+// picks K7's rounding.
+struct Plan {
+  int ksplit, bn;
+  bool whole, big, int4;
+};
+
+// Scratch of the M > 64 path: xq (M, K) int8, xs (M,) f32, wt (N, K) int8.
+struct Scratch {
+  int8_t* xq;
+  float* xs;
+  int8_t* wt;
+};
+
 template <typename T, typename O, bool INT4>
-int launch(const void* x, const int8_t* wq, const float* ws, void* out, int8_t* xq, float* xs,
-           int M, int K, int N, int ksplit, bool big, bool whole, cudaStream_t st) {
-  if (ksplit > 0) return launch_splitk<T, O, INT4>(x, wq, ws, out, M, K, N, ksplit, big, whole, st);
-  if (big)
-    quantize_rows_kernel<T, true><<<M, THREADS, 0, st>>>((const T*)x, xq, xs, K);
+int launch(const void* x, const int8_t* wq, const float* ws, void* out, const Scratch& sc,
+           int M, int K, int N, const Plan& p, cudaStream_t st) {
+  if (p.ksplit > 0)
+    return launch_splitk<T, O, INT4>(x, wq, ws, out, M, K, N, p.ksplit, p.big, p.whole, st);
+  // threads a row: the fewest (a power of two, 32 to 256) that hold the
+  // row's vectors QV a thread
+  int tpr = 32;
+  while (tpr < THREADS && tpr * QV * 8 < K) tpr *= 2;
+  const int qblocks = (M + THREADS / tpr - 1) / (THREADS / tpr);
+  // the one limit of the two launches' 1-D grids: the prep pass's blocks
+  if ((long long)qblocks + (long long)(K / TP) * (N / TP) > INT_MAX)
+    return (int)cudaErrorInvalidValue;
+  const int blocks = qblocks + (K / TP) * (N / TP);
+  if (p.big)
+    prep_kernel<T, true, INT4><<<blocks, THREADS, 0, st>>>((const T*)x, sc.xq, sc.xs, wq, sc.wt,
+                                                           M, K, N, qblocks, tpr);
   else
-    quantize_rows_kernel<T, false><<<M, THREADS, 0, st>>>((const T*)x, xq, xs, K);
-  dim3 grid(N / BG_BN, (M + BG_BM - 1) / BG_BM);
-  gemm_big_kernel<O, INT4><<<grid, THREADS, 0, st>>>(xq, xs, wq, ws, (O*)out, M, K, N);
-  return (int)cudaSuccess;
+    prep_kernel<T, false, INT4><<<blocks, THREADS, 0, st>>>((const T*)x, sc.xq, sc.xs, wq, sc.wt,
+                                                            M, K, N, qblocks, tpr);
+  const int err = (int)cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  if (p.bn == 256) return launch_big<O, 256>(sc.xq, sc.xs, sc.wt, ws, out, M, K, N, st);
+  return launch_big<O, 128>(sc.xq, sc.xs, sc.wt, ws, out, M, K, N, st);
 }
 
 template <typename T, typename O>
-int launch_w(const void* x, const int8_t* wq, const float* ws, void* out, int8_t* xq, float* xs,
-             int M, int K, int N, int ksplit, bool big, bool whole, bool int4,
-             cudaStream_t st) {
-  if (int4) return launch<T, O, true>(x, wq, ws, out, xq, xs, M, K, N, ksplit, big, whole, st);
-  return launch<T, O, false>(x, wq, ws, out, xq, xs, M, K, N, ksplit, big, whole, st);
+int launch_w(const void* x, const int8_t* wq, const float* ws, void* out, const Scratch& sc,
+             int M, int K, int N, const Plan& p, cudaStream_t st) {
+  if (p.int4) return launch<T, O, true>(x, wq, ws, out, sc, M, K, N, p, st);
+  return launch<T, O, false>(x, wq, ws, out, sc, M, K, N, p, st);
 }
 
 }  // namespace
@@ -702,45 +1020,49 @@ int launch_w(const void* x, const int8_t* wq, const float* ws, void* out, int8_t
 // bf16, 1 = f32. big = 0: K6's rounding (x / xs), 1: K7's (x * 127 /
 // absmax). ksplit > 0 (M <= 64): the one-launch split-K kernel over a
 // cluster of ksplit blocks (K / ksplit a multiple of 32), 8 rows a block;
-// xq and xs are unused. ksplit = 0: the row-quantize pass
-// into the scratch xq (M, K) int8 and xs (M,) f32, then the 128 x 128 tile
-// kernel. whole = 1 (split-K
-// only): every block takes each row's absmax over the whole row (read from
-// the L2) instead of exchanging slice maxima in the cluster. Returns
-// cudaErrorInvalidValue for shapes, plans or pointers the kernels do not
-// take.
+// the scratch and bn are unused. whole = 1 (split-K only): every
+// block takes each row's absmax over the whole row (read from the L2)
+// instead of exchanging slice maxima in the cluster. ksplit = 0: the prep
+// pass into the scratch xq (M, K) int8, xs (M,) f32 and wt (N, K) int8
+// (all 16-byte aligned), then the wgmma tile kernel over 128 x bn tiles
+// (bn 128 or 256, a divisor of N). Returns cudaErrorInvalidValue for
+// shapes, plans or pointers the kernels do not take,
+// cudaErrorInvalidConfiguration if the tile kernel was not compiled to the
+// register count its setmaxnreg split assumes.
 extern "C" int wtt_w8a8_matmul(const void* x, const void* wq, const void* ws, void* out,
-                               void* xq, void* xs, int M, int K, int N, int x_dtype,
+                               void* xq, void* xs, void* wt, int M, int K, int N, int x_dtype,
                                int out_dtype, int big, int w_int4, int ksplit, int whole,
-                               void* stream) {
+                               int bn, void* stream) {
   auto misaligned = [](const void* p, unsigned a) {
     return reinterpret_cast<unsigned long long>(p) % a != 0;
   };
-  if (M < 1 || M > 65535 * BG_BM || K < 128 || K % 128 || N < 128 || N % 128 ||
+  if (M < 1 || K < 128 || K % 128 || N < 128 || N % 128 ||
       x_dtype < 0 || x_dtype > 1 || out_dtype < 0 || out_dtype > 1 || misaligned(wq, 16) ||
-      misaligned(out, 8) || ksplit < 0 || ksplit > SK_MAX_SPLIT)
+      misaligned(x, 16) || misaligned(out, 8) || ksplit < 0 || ksplit > SK_MAX_SPLIT)
     return (int)cudaErrorInvalidValue;
   if (ksplit > 0 &&
-      (M > SMALL_M || K % (32 * ksplit) || misaligned(x, 16) ||
+      (M > SMALL_M || K % (32 * ksplit) ||
        splitk_smem(SK_ROWS, K / ksplit, K, whole ? SK_ROWS : 0, x_dtype == 0 ? 2 : 4) >
            227 * 1024))
     return (int)cudaErrorInvalidValue;
-  if (ksplit == 0 && (misaligned(xq, 16) || xs == nullptr)) return (int)cudaErrorInvalidValue;
+  if (ksplit == 0 &&
+      (misaligned(xq, 16) || misaligned(wt, 16) || xs == nullptr || (bn != 128 && bn != 256) ||
+       N % bn))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const int8_t* w = (const int8_t*)wq;
   const float* s = (const float*)ws;
-  int8_t* q = (int8_t*)xq;
-  float* xsp = (float*)xs;
-  const bool b = big != 0, i4 = w_int4 != 0, wh = whole != 0;
+  const Scratch sc{(int8_t*)xq, (float*)xs, (int8_t*)wt};
+  const Plan p{ksplit, bn, whole != 0, big != 0, w_int4 != 0};
   int err;
   if (x_dtype == 0 && out_dtype == 0)
-    err = launch_w<__nv_bfloat16, __nv_bfloat16>(x, w, s, out, q, xsp, M, K, N, ksplit, b, wh, i4, st);
+    err = launch_w<__nv_bfloat16, __nv_bfloat16>(x, w, s, out, sc, M, K, N, p, st);
   else if (x_dtype == 0)
-    err = launch_w<__nv_bfloat16, float>(x, w, s, out, q, xsp, M, K, N, ksplit, b, wh, i4, st);
+    err = launch_w<__nv_bfloat16, float>(x, w, s, out, sc, M, K, N, p, st);
   else if (out_dtype == 0)
-    err = launch_w<float, __nv_bfloat16>(x, w, s, out, q, xsp, M, K, N, ksplit, b, wh, i4, st);
+    err = launch_w<float, __nv_bfloat16>(x, w, s, out, sc, M, K, N, p, st);
   else
-    err = launch_w<float, float>(x, w, s, out, q, xsp, M, K, N, ksplit, b, wh, i4, st);
+    err = launch_w<float, float>(x, w, s, out, sc, M, K, N, p, st);
   if (err != (int)cudaSuccess) return err;
   return (int)cudaGetLastError();
 }

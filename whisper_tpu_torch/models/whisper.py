@@ -519,7 +519,8 @@ def _decoder_step_fused(params, tokens, pos: int, cache: DecoderCache,
     [0, pos] anyway). With R lanes per window the cross call passes
     kv_rep = R (the grouped kernel). A quantized cross cache folds K's
     per-channel scale into the query and V's into the output, so the
-    kernel stays scale-free.
+    kernel stays scale-free. Both calls pass pos as an int, which the
+    kernels take as an argument (no pos tensor a step).
 
     The self cache, by type: bf16/f32, the new row is written in place
     and K3 attends; int8 or packed int4 (QTensor), the new row is
@@ -540,10 +541,6 @@ def _decoder_step_fused(params, tokens, pos: int, cache: DecoderCache,
     quant_self = isinstance(cache.self_k, QTensor)
     sk, sv = cache.self_k, cache.self_v
     c_self = _arr(sk).shape[2]
-    pos_self = (None if quant_self and parents is not None  # K5 takes pos
-                else torch.full((b,), pos, dtype=torch.int32,
-                                device=tokens.device))
-    pos_cross = torch.full((b,), sa - 1, dtype=torch.int32, device=tokens.device)
 
     ii = cfg.knobs.int8_impl
     h = _embed(dec, tokens, pos)  # (B, 1, d)
@@ -563,13 +560,13 @@ def _decoder_step_fused(params, tokens, pos: int, cache: DecoderCache,
             sk.q[:, l, pos], sk.scale[:, l, pos] = kq, ks  # in-place append
             sv.q[:, l, pos], sv.scale[:, l, pos] = vq, vs
             attn = decode_attention_stacked(
-                q1, sk.q, sv.q, pos_self, l, n_head, batch_major=True,
+                q1, sk.q, sv.q, pos, l, n_head, batch_major=True,
                 k_rowscale=sk.scale, v_rowscale=sv.scale, c_used=c_self)
         else:
             sk[:, l, pos] = k[:, 0]  # in-place append
             sv[:, l, pos] = v[:, 0]
             attn = decode_attention_stacked(
-                q1, sk, sv, pos_self, l, n_head, batch_major=True,
+                q1, sk, sv, pos, l, n_head, batch_major=True,
                 c_used=c_self)
         h = h + _linear(attn[:, None], p["attn_o_w"], p["attn_o_b"], ii)
 
@@ -580,7 +577,7 @@ def _decoder_step_fused(params, tokens, pos: int, cache: DecoderCache,
         else:
             q1 = (q[:, 0].float() * scale * ck_scale[l]).to(q.dtype)
         cross = decode_attention_stacked(
-            q1, ck_arr, cv_arr, pos_cross, l, n_head, kv_rep=kv_rep)
+            q1, ck_arr, cv_arr, sa - 1, l, n_head, kv_rep=kv_rep)
         if cv_scale is not None:
             cross = (cross.float() * cv_scale[l]).to(h.dtype)
         h = h + _linear(cross[:, None], p["cross_o_w"], p["cross_o_b"], ii)

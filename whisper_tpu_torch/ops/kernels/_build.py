@@ -45,10 +45,10 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_flo
 SIGNATURES = {
     "wtt_flash_attention": [_P] * 4 + [_I] * 5 + [_LL] * 12 + [_F, _P],
     "wtt_encoder_mlp": [_P] * 10 + [_I] * 4 + [_F, _P],
-    "wtt_decode_attention": [_P] * 7 + [_I] * 9 + [_LL] * 10 + [_P],
+    "wtt_decode_attention": [_P, _P, _P, _P, _I, _P, _P, _P] + [_I] * 9 + [_LL] * 10 + [_P],
     "wtt_permute_attention": [_P] * 17 + [_I] * 7 + [_LL] * 9 + [_P],
     "wtt_permute_lanes": [_I, _I, _P, _P, _P, _P, _P],
-    "wtt_w8a8_matmul": [_P] * 6 + [_I] * 9 + [_P],
+    "wtt_w8a8_matmul": [_P] * 7 + [_I] * 10 + [_P],
 }
 
 _lock = threading.Lock()

@@ -29,8 +29,11 @@ value sums through distributed shared memory in the one launch: K3g always
 (`plan_splits` picks the cluster size), and K3 and K8 over a long cache,
 one lane a group (`plan_lane_splits`: the greedy cross cache). The
 one-block kernel runs one block per (head, lane) for K3 and K8 elsewhere
-(every self cache) and for K3s always: row scales come only with a
-batch-major self cache, at most 448 rows, which never splits. Both take the base pointer, strides and
+(every self cache) and for K3s always: row scales come only
+with a batch-major self cache, at most 448 rows, which never splits. Its
+warps each bring a contiguous chunk of the visible rows (K, V and row
+scales) into shared memory in one round of copies and keep their own
+softmax statistics, merged once. Both take the base pointer, strides and
 layer index of the WHOLE stacked cache -- no per-layer copy is sliced out
 before the launch. Its notes reckon the bytes that bound each.
 
@@ -41,8 +44,9 @@ once-rounded weights round_bf16(exp(s - max) / sum) from the same global
 max; only the order of the f32 sums differs (the split kernel sums the
 exp-sum and the value sums per block of its cluster, then across the
 blocks in rank order, so it is no longer bit-equal to the plain version,
-but gives the same bits on every run), which can move a bf16 output by one
-rounding step.
+but gives the same bits on every run; the one-block kernel adds its warps'
+exp-sums each rescaled to the head's max), which can move a bf16 output
+by one rounding step.
 """
 
 from __future__ import annotations
@@ -185,7 +189,8 @@ def decode_attention_stacked(
     q: torch.Tensor,  # (B, d) single query, PRE-SCALED by hd^-0.5
     k_cache: torch.Tensor,  # (L, B, C, d), or (B, L, C, d) if batch_major
     v_cache: torch.Tensor,
-    pos: Union[int, torch.Tensor],  # highest visible row: int or (B,) i32
+    pos: Union[int, torch.Tensor],  # highest visible row: int (one for
+    # every lane, a kernel argument) or (B,) i32
     layer: int,
     n_head: int,
     batch_major: bool = False,
@@ -200,8 +205,12 @@ def decode_attention_stacked(
     Hopper kernel or raise: q bf16 with a bf16/int8/int4 cache, or f32
     with an f32/int8/int4 cache; head dim 64, unit channel stride, 16-byte
     aligned rows; row scales only with an int8 or int4 batch-major cache
-    and kv_rep = 1, and then the one-block kernel. kv_rep = 1 is K3 (counted in `.launches`; those over
-    a layer-major cross cache in `.cross_launches` too), kv_rep > 1 K3g
+    and kv_rep = 1, and then the one-block kernel, which takes a cache
+    whose rows fit its shared memory and 512 rows (else ValueError; K3
+    and K8 take the split kernel at splits = 1 there: a cross cache that
+    `plan_lane_splits` leaves whole, or an f32 cache past ~300 rows).
+    kv_rep = 1 is K3 (counted in `.launches`; those over a layer-major
+    cross cache in `.cross_launches` too), kv_rep > 1 K3g
     (`.group_launches`), row scales K3s (`.scaled_launches` over an int8
     cache, `.scaled_int4_launches` over a packed-int4 one). Rows past
     c_used are never read. `splits` forces the cluster size (1 to 8;
@@ -285,9 +294,6 @@ def _launch(q, k_cache, v_cache, pos, layer, n_head, batch_major, kv_rep,
                              f"{k_rowscale.dtype}")
         sc_ptr = (k_rowscale.data_ptr(), v_rowscale.data_ptr())
         sc_strides = k_rowscale.stride()[:2]
-    pos_rows = pos if (isinstance(pos, torch.Tensor) and pos.shape == (b,)
-                       and pos.dtype == torch.int32 and pos.is_cuda) \
-        else _rows(pos, b, q.device).contiguous()
     if splits is None:
         splits = (1 if scaled  # K3s: the one-block kernel
                   else plan_lane_splits(n_head, b, cu) if kv_rep == 1
@@ -297,10 +303,20 @@ def _launch(q, k_cache, v_cache, pos, layer, n_head, batch_major, kv_rep,
     elif scaled and splits != 1:
         raise ValueError(f"splits {splits}: row scales (K3s) take the "
                          f"one-block kernel only")
+    pos_all, pos_rows = 0, None
+    if not isinstance(pos, torch.Tensor):
+        pos_all = int(pos)  # a kernel argument: no tensor, no load of it
+        if pos_all < 0:
+            raise ValueError(f"pos {pos_all} must be >= 0")
+    elif (pos.shape == (b,) and pos.dtype == torch.int32 and pos.is_cuda):
+        pos_rows = pos
+    else:  # kept alive (a local) until the launch is enqueued
+        pos_rows = _rows(pos, b, q.device).contiguous()
     out = torch.empty((b, d), dtype=q.dtype, device=q.device)
     err = library().wtt_decode_attention(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        pos_rows.data_ptr(), out.data_ptr(), sc_ptr[0] or None,
+        None if pos_rows is None else pos_rows.data_ptr(), pos_all,
+        out.data_ptr(), sc_ptr[0] or None,
         sc_ptr[1] or None, b, n_head, kv_rep, splits, cu, int(layer),
         k_cache.shape[layer_dim], STORAGE[sd],
         int(q.dtype == torch.float32), qs[0], ks[lane_dim], ks[layer_dim],

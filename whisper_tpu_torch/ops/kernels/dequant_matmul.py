@@ -19,9 +19,12 @@ so the products and the epilogue are the int8 path's.
 The CUDA source, `csrc/dequant_matmul.cu`, has two paths. At M <= 64
 rows (decode) one launch quantizes the rows inside an int8 tensor-core
 GEMM (mma.sync s8) whose K is split over a cluster of blocks; the split is
-`plan_small`'s. Above (the encoder), a row-quantize pass into scratch and
-then a 128 x 128 tile GEMM: two launches that are one call of the kernel
-and count once. Its note reckons the bound.
+`plan_small`'s. Above (the encoder), a prep pass (the rows quantized
+into scratch, and the weight copied K-major into scratch on every call,
+the layout wgmma takes for 8-bit operands) and then a warp-specialised TMA + wgmma
+GEMM over 128 x 256 or 128 x 128 tiles: two launches that are one call
+of the kernel and count once; the tile width is `plan_big`'s.
+Its note reckons the bound.
 Tolerance against the plain version: none, bit-equal (the same xq, an
 exact integer sum and the same f32 epilogue).
 """
@@ -44,6 +47,7 @@ SPLIT_ROWS = 8  # activation rows a block of the split-K kernel
 SPLIT_COLS = 128  # output columns a block
 MAX_SLICE = 640  # K a block: bounds its shared memory
 WHOLE_ROWS_BYTES = 10240  # x up to this size: every block reads it whole
+BIG_ROWS = 128  # rows of a tile of the large-M kernel
 
 
 def plan_small(m: int, k: int, n: int, x_bytes: int = 2) -> Tuple[int, bool]:
@@ -69,6 +73,24 @@ def plan_small(m: int, k: int, n: int, x_bytes: int = 2) -> Tuple[int, bool]:
     wave = [s for s in fits if steps // s >= 4 and blocks * s <= N_SM]
     return ((max(wave) if wave else min(fits)),
             m * k * x_bytes <= WHOLE_ROWS_BYTES)
+
+
+def plan_big(m: int, n: int) -> int:
+    """bn, the tile width of the large-M tile kernel (m > 64 rows): 128 x
+    bn output tiles over the whole of K, bn 256 or 128 (a divisor of n). A
+    block fills an SM (its ring takes 192 KB of shared memory), so a
+    grid's last wave may leave SMs idle: the wide tile unless the narrow
+    one's waves keep more than 1.05 times the share of the SMs busy.
+    Large-v2's batched encoder (m = 3000) takes the wide tile at every
+    weight shape;
+    one window (m = 750) and two (1500) the narrow one where n = 1280,
+    two windows also at n = 3840. `tools/sweep_k7_plan.py` times both
+    (patching this function)."""
+    def fill(bn):
+        blocks = -(-m // BIG_ROWS) * (n // bn)
+        return blocks / (-(-blocks // N_SM) * N_SM)
+
+    return 128 if n % 256 or fill(128) > 1.05 * fill(256) else 256
 
 
 def quantize_rows_plain(x: torch.Tensor, big: bool):
@@ -107,10 +129,12 @@ def quantized_matmul_big_plain(x, wq, scale, out_dtype=None) -> torch.Tensor:
 
 
 def _launch(x, wq, scale, out_dtype, big: bool,
-            plan: Optional[Tuple[int, bool]] = None) -> torch.Tensor:
+            plan: Optional[Tuple[int, bool]] = None
+            ) -> Tuple[torch.Tensor, bool]:
     """Checks what the CUDA entry takes, raising on anything else, and
     launches it; `plan` overrides `plan_small`'s (ksplit 0: the two-launch
-    path)."""
+    path, over `plan_big`'s tile width). Returns the output and whether
+    the call took the two-launch large-M route."""
     out_dtype = out_dtype or x.dtype
     if x.dim() != 2 or wq.dim() != 2 or x.shape[1] != wq.shape[0]:
         raise ValueError(f"W8A8 takes x (M, K) and wq (K, N), got "
@@ -134,22 +158,23 @@ def _launch(x, wq, scale, out_dtype, big: bool,
                          "and f32 (N,) scales")
     scale = scale.reshape(n)
     ksplit, whole = plan or plan_small(m, k, n, x.element_size())
-    if ksplit:
-        if x.data_ptr() % 16:  # the kernel reads x 16 bytes at a time
-            x = x.clone()
-        xq = xs = None
-    else:
-        xq = torch.empty((m, k), dtype=torch.int8, device=x.device)
-        xs = torch.empty((m,), dtype=torch.float32, device=x.device)
+    bn = 0
+    if x.data_ptr() % 16:  # the kernels read x 16 bytes at a time
+        x = x.clone()
+    scratch = (None, None, None)
+    if not ksplit:  # the row-quantized x, its scales, the K-major weight
+        bn = plan_big(m, n)
+        scratch = (torch.empty((m, k), dtype=torch.int8, device=x.device),
+                   torch.empty((m,), dtype=torch.float32, device=x.device),
+                   torch.empty((n, k), dtype=torch.int8, device=x.device))
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     err = library().wtt_w8a8_matmul(
         x.data_ptr(), wq.data_ptr(), scale.data_ptr(), out.data_ptr(),
-        None if xq is None else xq.data_ptr(),
-        None if xs is None else xs.data_ptr(), m, k, n,
+        *(None if t is None else t.data_ptr() for t in scratch), m, k, n,
         _DTYPES[x.dtype], _DTYPES[out_dtype], int(big), int(int4), ksplit,
-        int(whole), stream_ptr(x))
+        int(whole), bn, stream_ptr(x))
     check(err, "wtt_w8a8_matmul")
-    return out
+    return out, not ksplit
 
 
 def _count(fn, wq) -> None:
@@ -171,11 +196,13 @@ def quantized_matmul(x: torch.Tensor,  # (M, K) bf16 / f32
     CUDA tensors launch the Hopper kernel or raise (int8 or packed-int4
     wq, K and N multiples of 128, contiguous operands, bf16/f32).
     `plan` forces (ksplit, whole) instead of `plan_small`'s (ksplit 0: the
-    two-launch path)."""
+    two-launch path). Calls that take the two-launch route (above 64 rows)
+    are also counted in `.tile_launches`."""
     if x.device.type == "cpu":
         return quantized_matmul_plain(x, wq, scale, out_dtype)
-    out = _launch(x, wq, scale, out_dtype, False, plan)
+    out, tiled = _launch(x, wq, scale, out_dtype, False, plan)
     _count(quantized_matmul, wq)
+    quantized_matmul.tile_launches += tiled
     return out
 
 
@@ -186,12 +213,13 @@ def quantized_matmul_big(x: torch.Tensor, wq: torch.Tensor,
     """K7: as `quantized_matmul`, with the large-M kernel's rounding."""
     if x.device.type == "cpu":
         return quantized_matmul_big_plain(x, wq, scale, out_dtype)
-    out = _launch(x, wq, scale, out_dtype, True)
+    out, _ = _launch(x, wq, scale, out_dtype, True)
     _count(quantized_matmul_big, wq)
     return out
 
 
 quantized_matmul.launches = 0
 quantized_matmul.int4_launches = 0
+quantized_matmul.tile_launches = 0
 quantized_matmul_big.launches = 0
 quantized_matmul_big.int4_launches = 0
