@@ -65,7 +65,28 @@ Phases, in order; any failure raises and the script exits non-zero:
                 over the int4 self cache; the report printed (not gated:
                 random weights), every int4 variant launched, then the
                 kernel path against the plain path on one window of that
-                configuration, greedy and beam.
+                configuration, greedy and beam;
+ 14. batched timestamps + ladder -- bf16 `BatchTranscriber(batch_size=4)
+                .transcribe_many_with_timestamps` over the two 35 s streams
+                with beam 5, temperatures (0, 0.2, 0.4) and
+                no_speech_threshold 0.6, cold and warm with equal segments:
+                monotone segment times in [0, 35] s per stream, every window
+                accepted at a rung or as silence, the accepted temperature
+                per window and the windows each batched pass decoded; K1,
+                K2, K3, K3g and K4 launched; whether each stream's segments
+                equal `transcribe_with_timestamps`'s at temperature 0
+                (reported, not asserted);
+ 15. words  -- greedy `transcribe_with_timestamps(word_timestamps=True)`
+                over the 3-window stream: every segment with text has words
+                (unless a word of an earlier segment aligned with it took its
+                tokens), word times monotone within a segment and in [0, 35]
+                s, the alignment's seconds beside the decode's; then one
+                window's cross-attention weights (`align.
+                cross_attention_weights`, plain torch) from the kernel
+                path's encoder output against the plain path's, within
+                PATH_RTOL;
+ 16. waveform_to_text -- the one-shot entry, greedy on the card over the
+                35 s stream: its text must equal phase 4's.
 The kernel phase holds the packed-int4 variants of K3s, K5, K6 and K7
 beside their int8 rows (the *_int4 entries, counted apart). The kernel
 phase also prints, for the kernels redesigned for Hopper (REDESIGNED: K1,
@@ -1027,6 +1048,11 @@ def main() -> int:
                    waves)
     slices["int4_agreement"] = timed("int4 agreement",
                                      phase_int4_agreement, params, tr, wave)
+    slices["batched_timestamps_ladder"] = timed(
+        "batched timestamps + ladder", phase_batched_timestamps, tr, waves)
+    slices["words"] = timed("words", phase_words, params, tr, wave)
+    slices["waveform_to_text"] = timed(
+        "waveform_to_text", phase_waveform_to_text, tr, wave, text["greedy"])
     # every kernel must run on some slice's main path, K8 and K9 at their
     # call sites
     launches = {n: sum(sl["launches"][n] for sl in slices.values())
@@ -1254,6 +1280,235 @@ def phase_timestamps_ladder(tr, wave) -> dict:
                 language_p=dist[code], detect_seconds=detect_s,
                 segments=[dict(start=s, end=e, chars=len(t))
                           for s, e, t in cold])
+
+
+def _check_segment_times(label: str, segs, audio_s: float) -> None:
+    starts = [s.start for s in segs]
+    if (starts != sorted(starts)
+            or not all(0.0 <= s.start <= s.end <= audio_s for s in segs)):
+        raise AssertionError(f"{label}: segment times not monotone in "
+                             f"[0, {audio_s}] s: "
+                             f"{[(s.start, s.end) for s in segs]}")
+
+
+def phase_batched_timestamps(tr, waves) -> dict:
+    """`transcribe_many_with_timestamps` over the two streams in batches of
+    4 windows with beam 5, the ladder and the no-speech gate, cold and
+    warm; the launch counts are set to 0 just before the cold run and read
+    just after it."""
+    from whisper_tpu_torch.pipeline.batch import BatchTranscriber
+    from whisper_tpu_torch.pipeline.transcribe import DecodeOptions
+
+    sr = 16000
+    opts = DecodeOptions(temperature=(0.0, 0.2, 0.4), no_speech_threshold=0.6)
+    if opts.strategy != "beam" or opts.beam_size != 5:
+        raise AssertionError(f"default options are not beam 5: {opts}")
+    bt = BatchTranscriber(tr.params, tr.cfg, tr.tok, batch_size=4)
+    full = _full_windows(waves, tr.cfg, opts)
+    audio_s = sum(len(w) for w in waves) / sr
+    runs = []
+    for run in ("cold", "warm"):
+        passes, decoded = [], {}
+
+        def batch_spy(rows, *a, passes=passes, **kw):
+            # (prompt, sup_len, opt, timestamps, max_ts_idx, quality, T, gen)
+            ids = sorted({i for row in rows for i, w in enumerate(full)
+                          if np.array_equal(row, w)})
+            passes.append((a[6], ids))
+            return BatchTranscriber._decode_batch(bt, rows, *a, **kw)
+
+        def windows_spy(*a, decoded=decoded, **kw):
+            out = BatchTranscriber._decode_windows(bt, *a, **kw)
+            decoded["results"], decoded["meta"] = out[0], out[1]
+            return out
+
+        def ladder_spy(i, *a, decoded=decoded, **kw):
+            out = BatchTranscriber._decode_window_ladder(bt, i, *a, **kw)
+            decoded.setdefault("tails", {})[i] = out[1]
+            return out
+
+        bt._decode_batch, bt._decode_windows = batch_spy, windows_spy
+        bt._decode_window_ladder = ladder_spy
+        try:
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = bt.transcribe_many_with_timestamps(waves, sr, opts)
+            torch.cuda.synchronize()
+            total = time.perf_counter() - t0
+            counts = launch_counts()
+        finally:
+            del bt._decode_batch, bt._decode_windows, bt._decode_window_ladder
+        segs = [[(s.start, s.end, s.text) for s in segs] for _, segs in res]
+        if run == "cold":
+            launches, cold, cold_segs = counts, segs, [x[1] for x in res]
+        elif segs != cold:
+            raise AssertionError("batched timestamps slice: the warm run's "
+                                 "segments differ from the cold run's")
+        # the temperatures each full window decoded at; tails: accepted T
+        rungs = {i: [t for t, ids in passes if i in ids]
+                 for i in range(len(full))}
+        per_pass = {}
+        for t, ids in passes:
+            per_pass[t] = per_pass.get(t, 0) + len(ids)
+        results = decoded["results"]
+        silent = sorted(k for k, v in results.items() if v == [])
+        runs.append(dict(run=run, seconds=total, xrt=audio_s / total,
+                         full_window_rungs=rungs,
+                         tail_accepted_temperature=decoded.get("tails", {}),
+                         windows_per_pass=per_pass, silent_windows=silent,
+                         n_segments=[len(s) for s in segs]))
+        log(f"batched timestamps slice {run}: {len(waves)} streams, "
+            f"{audio_s:.1f} s audio, {len(results)} windows ({len(full)} "
+            f"full), windows decoded per batched pass by temperature "
+            f"{per_pass}, full windows' temperatures {rungs}, tails "
+            f"accepted at {decoded.get('tails', {})}, silence {silent}, "
+            f"{[len(s) for s in segs]} segments in {total:.3f} s = "
+            f"{audio_s / total:.2f}x real time (batch {bt.batch_size})")
+        temps = list(opts.temperature)
+        for i, r in rungs.items():
+            if not r or r != temps[:len(r)]:
+                raise AssertionError(f"full window {i} decoded at {r}, not a "
+                                     f"prefix of {temps}")
+        if len(results) != len(full) + len(decoded.get("tails", {})):
+            raise AssertionError(f"windows without a result: {results}")
+    log(f"batched timestamps slice launches: {launches}")
+    for stream, segs in enumerate(cold_segs):
+        if not segs:
+            raise AssertionError(f"batched timestamps slice: stream {stream} "
+                                 "has no segment")
+        _check_segment_times(f"batched timestamps slice stream {stream}",
+                             segs, len(waves[stream]) / sr)
+    for name in ("flash_attention", "encoder_mlp", "decode_attention",
+                 "decode_attention_group", "permute"):
+        if launches[name] == 0:
+            raise AssertionError(f"batched timestamps slice never launched "
+                                 f"{name}")
+    plain = DecodeOptions(temperature=0.0)
+    same = [[(s.start, s.end, s.text) for s in
+             tr.transcribe_with_timestamps(w, sr, plain)[1]] == c
+            for w, c in zip(waves, cold)]
+    log(f"batched timestamps segments == transcribe_with_timestamps "
+        f"(temperature 0) segments: {same}")
+    return dict(launches=launches, runs=runs,
+                same_segments_as_sequential_t0=same)
+
+
+def phase_words(params, tr, wave) -> dict:
+    """Greedy timestamped transcription with word timings over the 3
+    windows, the launch counts set to 0 just before and read just after;
+    then one window's cross-attention weights from the kernel path's
+    encoder output against the plain path's."""
+    from whisper_tpu_torch.align import cross_attention_weights
+    from whisper_tpu_torch.ops import audio
+    from whisper_tpu_torch.pipeline.transcribe import DecodeOptions
+
+    sr = 16000
+    opts = DecodeOptions(strategy="greedy")
+    attach = tr._attach_words
+    align_s = []
+
+    def spy(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = attach(*a, **kw)
+        torch.cuda.synchronize()
+        align_s.append(time.perf_counter() - t0)
+        return out
+
+    tr._attach_words = spy
+    try:
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, segs = tr.transcribe_with_timestamps(wave, sr, opts,
+                                                word_timestamps=True)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+        launches = launch_counts()
+    finally:
+        del tr._attach_words
+    audio_s = len(wave) / sr
+    if not segs:
+        raise AssertionError("words slice: no segment")
+    _check_segment_times("words slice", segs, audio_s)
+    # _attach_words aligns the segments whose start sample clamps to the
+    # same window together, and hands the words out in token order: a word
+    # that runs on into the next segment's tokens is the earlier one's
+    n_window = audio.max_waveform_samples(tr.cfg.encoder_ctx_size
+                                          - opts.padding)
+    surplus = {}  # window start -> word tokens handed out - text tokens
+    for seg in segs:
+        w0 = min(int(seg.start * sr), max(0, len(wave) - n_window))
+        n_tok = sum(not tr.tok.is_special(t) for t in seg.tokens)
+        ahead = surplus.get(w0, 0)
+        if seg.text.strip() and not seg.words and ahead <= 0:
+            raise AssertionError(f"words slice: segment {seg.start:.2f}-"
+                                 f"{seg.end:.2f} s has text and no words")
+        surplus[w0] = ahead + sum(len(w.tokens) for w in seg.words) - n_tok
+        starts = [w.start for w in seg.words]
+        if (starts != sorted(starts) or not all(
+                0.0 <= w.start <= w.end <= audio_s for w in seg.words)):
+            raise AssertionError(f"words slice: word times not monotone in "
+                                 f"[0, {audio_s}] s: "
+                                 f"{[(w.start, w.end) for w in seg.words]}")
+    n_words = sum(len(s.words) for s in segs)
+    if not n_words:
+        raise AssertionError("words slice: no word")
+    for name in ("flash_attention", "encoder_mlp", "decode_attention"):
+        if launches[name] == 0:
+            raise AssertionError(f"words slice never launched {name}")
+    log(f"words slice: {audio_s:.1f} s audio, {len(segs)} segments, "
+        f"{n_words} words in {total:.3f} s: alignment {sum(align_s):.3f} s, "
+        f"decode {total - sum(align_s):.3f} s; launches {launches}")
+
+    # the first window's weights, its segments' tokens teacher-forced: from
+    # the kernel path's encoder output (K1, K2) and the plain path's
+    seq = list(tr.tok.prompt_ids("en", timestamps=True))
+    for seg in segs:
+        if seg.start * sr < n_window:
+            seq += seg.tokens
+    seq.append(tr.tok.eot)
+    with torch.inference_mode():
+        _, enc = _window_encodings(params, tr.cfg, [wave[:n_window]], opts)
+        toks = torch.tensor(seq, device=enc["flash"].device)
+        w = {a: cross_attention_weights(params, e, toks, tr.cfg)
+             for a, e in enc.items()}
+    paths = _check_paths("words window cross-attention weights",
+                         {"weights": rel_err(w["flash"], w["xla"])},
+                         {"weights": w["flash"]})
+    return dict(launches=launches, seconds=total,
+                align_seconds=sum(align_s), xrt=audio_s / total,
+                n_segments=len(segs), n_words=n_words,
+                weights_tokens=len(seq), paths=paths)
+
+
+def phase_waveform_to_text(tr, wave, greedy_text) -> dict:
+    """`waveform_to_text` greedy on the card (its own Transcriber over the
+    same weights), the launch counts set to 0 just before and read just
+    after: the text of the greedy slice."""
+    from whisper_tpu_torch.pipeline.transcribe import waveform_to_text
+
+    sr = 16000
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    text, tokens = waveform_to_text(tr.params, tr.cfg, tr.tok, "en", wave,
+                                    sr, strategy="greedy")
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    launches = launch_counts()
+    log(f"waveform_to_text: {len(wave) / sr:.1f} s audio, {len(tokens)} "
+        f"tokens in {total:.3f} s = {len(wave) / sr / total:.2f}x real "
+        f"time; launches {launches}")
+    if text != greedy_text:
+        raise AssertionError("waveform_to_text's text differs from the greedy "
+                             "slice's")
+    for name in ("flash_attention", "encoder_mlp", "decode_attention"):
+        if launches[name] == 0:
+            raise AssertionError(f"waveform_to_text never launched {name}")
+    return dict(launches=launches, seconds=total,
+                xrt=len(wave) / sr / total, n_tokens=len(tokens))
 
 
 def _forcing_hook(n_prompt: int, eot_id: int, eot_at=None):

@@ -1,13 +1,16 @@
 """The port's batched path vs the JAX package, f32 on the CPU: the top-k
 helpers of the batched beam search, `beam_search_batched` over W = 3
-windows, `BatchTranscriber.transcribe_many` and `cli.py transcribe-many`.
+windows, `BatchTranscriber.transcribe_many` and `cli.py transcribe-many`
+(the batched fallback ladder and `transcribe_many_with_timestamps`:
+tests/test_torch_batch_ladder.py, a file of its own so the two run on
+separate workers).
 
 Setup as tests/test_torch_beam.py (the synthetic tokenizer, a 2-layer
 n_state-32 model, PRNGKey(7), ENC_CTX 96: ~0.87 s windows). Tokens and
 lengths must be EQUAL; summed log-probs agree to LOGP_ATOL = 1e-4 (f32,
 summation order; 1e-3 over the int8 caches, whose JAX kernels score through
-a bf16 hi/lo split, see tests/test_torch_fused_beam.py). The top-k helpers
-are held element-identical (values and indices).
+a bf16 hi/lo split, see tests/test_torch_fused_beam.py). The top-k
+helpers are held element-identical (values and indices).
 """
 
 import dataclasses
@@ -242,12 +245,18 @@ def test_transcribe_many_matches_jax(setup, strategy, batch_size):
 
 
 def test_transcribe_many_refuses_what_it_does_not_cover(setup):
+    """Clip ranges (which JAX's batched entries ignore and its CLI refuses
+    with --parallel-windows) raise ValueError on both batched entries,
+    before any window is decoded; so does batch_size 0."""
     params, _, cfg, tok, _ = setup
     bt = TB.BatchTranscriber(params, cfg, tok, batch_size=2, device="cpu")
-    for opt in (dict(timestamps=True), dict(temperature=(0.0, 0.2)),
-                dict(no_speech_threshold=0.6)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            bt.transcribe_many(_streams(), options=TT.DecodeOptions(**opt))
+    calls = []
+    bt._decode_batch = lambda *a, **kw: calls.append(a)
+    opt = TT.DecodeOptions(clip_timestamps="0,1")
+    for entry in (bt.transcribe_many, bt.transcribe_many_with_timestamps):
+        with pytest.raises(ValueError, match="--parallel-windows"):
+            entry(_streams(), options=opt)
+    assert calls == []
     with pytest.raises(ValueError, match="batch_size"):
         TB.BatchTranscriber(params, cfg, tok, batch_size=0, device="cpu")
 

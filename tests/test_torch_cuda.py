@@ -1169,6 +1169,96 @@ def test_cli_quant_check_and_eval_on_the_card(cli_dir, monkeypatch, capsys):
     assert doc["utterances"] == 1 and doc["words"] == 2
 
 
+def _batch_kernel_counts():
+    return {"K1": lambda: KA.attention_bhsd.launches,
+            "K2": lambda: KB.fused_mlp_block.launches,
+            "K3": lambda: KC.decode_attention_stacked.launches,
+            "K3g": lambda: KC.decode_attention_stacked.group_launches,
+            "K4": lambda: KP.permute_lanes_arrays.launches}
+
+
+def test_batched_ladder_on_the_card(cli_dir):
+    """`BatchTranscriber` on the card (bf16, batches of 4 windows) over two
+    short streams: the batched ladder with every window decoded again at
+    each temperature (logprob_threshold 0), through `transcribe_many` and
+    `transcribe_many_with_timestamps`. The sampling rungs' generators are
+    seeded, so a rerun gives the same texts and segments; segment times
+    lie in the stream; beam 5 (K3g, K4) and the sampling rungs (K3) run
+    after the batched encoder (K1, K2)."""
+    from whisper_tpu_torch.io import checkpoint, native
+    from whisper_tpu_torch.pipeline.batch import BatchTranscriber
+    from whisper_tpu_torch.pipeline.transcribe import DecodeOptions
+    from whisper_tpu_torch.text.tokenizer import WhisperTokenizer
+
+    params, cfg = checkpoint.load_params(str(cli_dir / "dump"))
+    bt = BatchTranscriber(params, cfg,
+                          WhisperTokenizer(str(cli_dir / "tokenizer.json")),
+                          batch_size=4, dtype=torch.bfloat16)
+    wave, _ = native.load_audio(str(cli_dir / "audio.wav"))
+    waves = [wave, np.ascontiguousarray(wave[::-1])]
+    opts = DecodeOptions(temperature=(0.0, 0.2, 0.4), logprob_threshold=0.0,
+                         no_speech_threshold=0.6, max_depth=8)
+    counts = _batch_kernel_counts()
+    before = {k: f() for k, f in counts.items()}
+    texts = [bt.transcribe_many(waves, options=opts) for _ in range(2)]
+    assert texts[0] == texts[1] and len(texts[0]) == 2
+    runs = [bt.transcribe_many_with_timestamps(waves, options=opts)
+            for _ in range(2)]
+    segs = [[[(s.start, s.end, s.text) for s in ss] for _, ss in r]
+            for r in runs]
+    assert segs[0] == segs[1]
+    for (_, ss), w in zip(runs[0], waves):
+        assert all(0.0 <= s.start <= s.end <= len(w) / 16000 + 1e-6
+                   for s in ss)
+    grew = {k: f() - before[k] for k, f in counts.items()}
+    assert all(n > 0 for n in grew.values()), grew
+
+
+def test_cli_words_on_the_card(cli_dir, monkeypatch, capsys):
+    """`transcribe --timestamps --words` on the card (beam 5, bf16): a
+    words list on every JSON segment, word times inside the audio and in
+    order within a segment, the encoder kernels launched for the decode
+    and the alignment passes; `--format vtt --words` writes highlighted
+    cues."""
+    import json
+
+    monkeypatch.chdir(cli_dir)
+    before = KA.attention_bhsd.launches
+    rc = torch_cli.main(["transcribe", "dump", "audio.wav", "en",
+                         "words.json", "--timestamps", "--words", "--json",
+                         "--max-depth", "8"])
+    out, err = capsys.readouterr()
+    assert rc == 0, err
+    doc = json.loads((cli_dir / "words.json").read_text())
+    for seg in doc["segments"]:
+        starts = [w["start"] for w in seg["words"]]
+        assert starts == sorted(starts)
+        assert all(0.0 <= w["start"] <= w["end"] <= 2.3 + 1e-3
+                   for w in seg["words"])
+    assert KA.attention_bhsd.launches > before
+    rc = torch_cli.main(["transcribe", "dump", "audio.wav", "en",
+                         "words.vtt", "--timestamps", "--words", "--format",
+                         "vtt", "--max-depth", "8"])
+    assert rc == 0, capsys.readouterr().err
+    assert (cli_dir / "words.vtt").read_text().startswith("WEBVTT")
+
+
+def test_convert_then_transcribe_on_the_card(cli_dir, monkeypatch, capsys):
+    """`convert` of the npy dump (on the host), then `transcribe` of the
+    converted `.safetensors` + `.cfg` on the card: the dump's text."""
+    monkeypatch.chdir(cli_dir)
+    assert torch_cli.main(["convert", "dump", "--out", "conv", "--mpk"]) == 0
+    out, _ = capsys.readouterr()
+    assert out == "Saving model...\nSaving config...\nFinished.\n"
+    texts = []
+    for model in ("conv", "dump"):
+        rc = torch_cli.main(["transcribe", model, "audio.wav", "en",
+                             f"{model}.txt", "--greedy", "--max-depth", "8"])
+        assert rc == 0, capsys.readouterr().err
+        texts.append((cli_dir / f"{model}.txt").read_text())
+    assert texts[0] == texts[1]
+
+
 # The one-block kernel (K3 and K8 over self caches, K3s): every storage x
 # query type, with and without row scales (integer caches).
 ONE_BLOCK_TYPES = [("bf16", torch.bfloat16, False), ("f32", torch.float32, False),
@@ -1324,6 +1414,38 @@ def test_w8a8_big_route_raises_on_tiles_it_does_not_take(gen, monkeypatch):
     monkeypatch.setattr(KQ, "plan_big", lambda m, n: 64)
     with pytest.raises(ValueError, match="shapes the kernel does not take"):
         KQ.quantized_matmul_big(x, wq, scale)
+
+
+def test_profiler_records_cuda_events_after_the_cli_tests(gen):
+    """In this process, after the CLI tests above, the process's first
+    profiling sessions: two that run one PyTorch op, then two that run one
+    K4 launch (a kernel of the port, launched through ctypes). The launch
+    tests count in a process of their own (`_in_own_process`) because a
+    session here once recorded no CUDA events; this prints the CUDA events
+    each session records, and holds that a session after the first
+    records the PyTorch op."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x = _randn((1024,), gen)
+    arrays = [_randn((2, 1, 32, 128), gen)]
+    out = [torch.empty_like(arrays[0])]
+    parents = torch.tensor([1, 0], dtype=torch.int32, device="cuda")
+    work = {"op": lambda: (x * 2).sum(),
+            "K4": lambda: KP.permute_lanes_arrays(arrays, parents, out)}
+    work["K4"]()  # builds the kernels, outside any session
+
+    def cuda_events(name):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            work[name]()
+            torch.cuda.synchronize()
+        return sum(e.count for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+
+    counts = [(name, cuda_events(name)) for name in ("op", "op", "K4", "K4")]
+    print("profiler CUDA events by session:", counts)
+    assert counts[1][1] > 0, counts
 
 
 if __name__ == "__main__":  # `_in_own_process`'s child: one check

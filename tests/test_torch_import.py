@@ -46,6 +46,8 @@ def _port_modules():
     "whisper_tpu_torch.models.whisper, whisper_tpu_torch.decode.greedy",
     "whisper_tpu_torch.pipeline.batch, "
     "whisper_tpu_torch.ops.kernels.dequant_matmul",
+    "whisper_tpu_torch.align, whisper_tpu_torch.io.convert_pt, "
+    "whisper_tpu_torch.io.mpk, whisper_tpu_torch.decode.host_beam",
 ])
 def test_import_leaves_out_jax_triton_and_cuda_build(modules):
     out = _run(
@@ -58,9 +60,13 @@ def test_import_leaves_out_jax_triton_and_cuda_build(modules):
 
 @pytest.fixture(scope="module")
 def tiny_cli_dir(tmp_path_factory):
-    """A 2-layer random npy-dump checkpoint, the synthetic tokenizer and
-    0.5 s of audio, written with the JAX package in this process."""
+    """A 2-layer random npy-dump checkpoint, the same weights as a bare
+    OpenAI state dict (`bare.pt`), the synthetic tokenizer and 0.5 s of
+    audio, written with the JAX package in this process."""
     import jax
+    import torch
+
+    from test_convert_pt import _openai_sd
 
     from whisper_tpu.config import tiny_test_config
     from whisper_tpu.io import npy_tree
@@ -77,6 +83,7 @@ def tiny_cli_dir(tmp_path_factory):
     params = jax.tree.map(np.asarray,
                           JM.init_params(jax.random.PRNGKey(7), cfg))
     npy_tree.save_whisper(params, cfg, str(d / "dump"))
+    torch.save(_openai_sd(params), str(d / "bare.pt"))
     x = 0.3 * np.sin(2 * np.pi * 220.0 * np.arange(8000) / 16000.0)
     with wave_mod.open(str(d / "audio.wav"), "wb") as w:
         w.setnchannels(1)
@@ -107,6 +114,29 @@ def test_port_runs_with_jax_and_the_jax_package_blocked(tiny_cli_dir):
         "RC 0", "RC 0"], out
     assert (tiny_cli_dir / "out.txt").exists()
     assert (tiny_cli_dir / "many" / "audio.txt").exists()
+
+
+def test_convert_runs_with_jax_and_the_jax_package_blocked(tiny_cli_dir):
+    """With `whisper_tpu` and `jax` unimportable, `convert` (with the Burn
+    record) and `convert-pt` (with the npy dump tree) write their files on
+    the host, and the converted checkpoint transcribes on the CPU."""
+    out = _run(
+        "import sys\n"
+        "sys.modules['whisper_tpu'] = None\n"
+        "sys.modules['jax'] = None\n"
+        "from whisper_tpu_torch.cli import main\n"
+        "print('RC', main(['convert', 'dump', '--out', 'conv', '--mpk']))\n"
+        "print('RC', main(['convert-pt', 'bare.pt', 'frompt', "
+        "'--dump-tree']))\n"
+        "print('RC', main(['transcribe', 'conv', 'audio.wav', 'en', "
+        "'conv.txt', '--greedy', '--max-depth', '4', '--device', "
+        "'cpu']))\n", cwd=str(tiny_cli_dir))
+    assert [line for line in out.splitlines() if line.startswith("RC")] == [
+        "RC 0"] * 3, out
+    for name in ("conv.safetensors", "conv.cfg", "conv.mpk.gz",
+                 "frompt.safetensors", "frompt.cfg", "conv.txt",
+                 "frompt/encoder/conv1/weight.npy"):
+        assert (tiny_cli_dir / name).exists(), name
 
 
 def test_no_port_file_imports_the_jax_package():

@@ -107,10 +107,18 @@ def test_transcribe_with_timestamps_matches_jax(setup, opts):
 
 
 def test_word_timestamps_raise_naming_the_roadmap_item(setup):
+    """Word timestamps no longer raise: the segments are those of the call
+    without them, each with its words (parity with JAX:
+    test_torch_align.py)."""
     _, tt, *_ = setup
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tt.transcribe_with_timestamps(np.zeros(8000, np.float32),
-                                      word_timestamps=True)
+    wave = _multiwindow_wave()
+    opts = TT.DecodeOptions(strategy="greedy", **BASE)
+    text, segs = tt.transcribe_with_timestamps(wave, options=opts,
+                                               word_timestamps=True)
+    plain = tt.transcribe_with_timestamps(wave, options=opts)
+    assert text == plain[0] and _segs(segs) == _segs(plain[1])
+    assert all(isinstance(s.words, list) for s in segs)
+    assert sum(len(s.words) for s in segs) > 0
 
 
 # The five options that raised before the ladder, timestamps and clips were
@@ -375,14 +383,22 @@ CLI_CASES = {
     "tsv_beam": ["en", "out.tsv", "--timestamps", "--format", "tsv"],
     "txt_segments": ["en", "out.txt", "--timestamps", "--greedy"],
     "parallel_windows": ["en", "out.txt", "--parallel-windows", "--greedy"],
+    "parallel_ladder": ["en", "out.txt", "--parallel-windows",
+                        "--temperature", "0,0.2", "--no-speech-threshold",
+                        "0.6", "--greedy"],
+    "txt_words": ["en", "out.txt", "--timestamps", "--words", "--greedy"],
 }
 
 
 @pytest.mark.parametrize("case", sorted(CLI_CASES))
-def test_cli_flags_match_jax_cli(cli_dir, monkeypatch, capsys, case):
+def test_cli_flags_match_jax_cli(cli_dir, monkeypatch, capsys, request,
+                                 case):
     """The same flags through the JAX CLI and the port's (on the CPU): the
     output files are equal (JSON: equal up to the quality fields, which
-    are held to QUALITY_ATOL)."""
+    are held to QUALITY_ATOL). The batched ladder runs with both samplers
+    swapped for argmax."""
+    if case == "parallel_ladder":
+        request.getfixturevalue("argmax_samplers")
     monkeypatch.chdir(cli_dir)
     lang, out, *flags = CLI_CASES[case]
     flags += ["--max-depth", "8"]
@@ -412,11 +428,12 @@ def test_cli_flags_match_jax_cli(cli_dir, monkeypatch, capsys, case):
 
 @pytest.mark.parametrize("flags,message", [
     (["--format", "srt"], "requires --timestamps"),
-    (["--timestamps", "--words"], "item 14"),
+    (["--clip", "0,1", "--parallel-windows"], "incompatible"),
     (["--greedy", "--draft", "dump"], "item 11"),
     (["--clip", "2,1"], "Bad --clip"),
     (["--timestamps", "--parallel-windows"], "incompatible"),
-    (["--parallel-windows", "--temperature", "0,0.2"], "item 10"),
+    (["--condition-on-previous-text", "--parallel-windows"],
+     "incompatible"),
 ])
 def test_cli_error_exits(cli_dir, monkeypatch, capsys, flags, message):
     monkeypatch.chdir(cli_dir)

@@ -5,6 +5,8 @@
     python -m whisper_tpu_torch.cli detect-lang <model> <audio.wav>
     python -m whisper_tpu_torch.cli eval <model> <dataset> [lang]
     python -m whisper_tpu_torch.cli quant-check <model>
+    python -m whisper_tpu_torch.cli convert <dump dir> [--out NAME] [--mpk]
+    python -m whisper_tpu_torch.cli convert-pt <model.pt> <out name>
 
 Keeps the reference's positional contract (whisper-burn
 src/bin/transcribe/main.rs:85-94) and its progress lines, as
@@ -19,8 +21,11 @@ JAX CLI's other `transcribe` flags are kept with its error exits and
 messages: `lang auto`, `--task`, `--temperature` (a comma list is the
 fallback ladder), `--no-speech-threshold`, `--vad`, `--timestamps` with
 `--json` / `--format {txt,json,srt,vtt,tsv}`, `--condition-on-previous-text`,
-`--clip`, `--initial-prompt` and `--parallel-windows`; `--words` and
-`--draft` exit 1 naming their ROADMAP items (14 and 11). `detect-lang`
+`--clip`, `--initial-prompt`, `--parallel-windows` (the batched path, its
+fallback ladder with `--temperature a,b` or `--no-speech-threshold`) and
+`--words` (word timings with `--timestamps`: a `words` list per JSON
+segment, word lines in the text form, highlighted cues with `--format
+vtt`); `--draft` exits 1 naming its ROADMAP item (11). `detect-lang`
 prints the JSON line of `whisper_tpu.cli detect-lang`.
 `transcribe-many` (as `whisper_tpu.cli transcribe-many`) decodes several
 files' full windows together in batches of `--batch-size` and writes
@@ -28,7 +33,13 @@ files' full windows together in batches of `--batch-size` and writes
 LibriSpeech-layout directory or a manifest) and `quant-check` (the
 quantization agreement gate: int8 weights and quantized caches against
 the bf16 path on seeded audio, exit 1 unless tokens match) keep the JAX
-commands' flags, JSON line and exit codes, plus `--device`.
+commands' flags, JSON line and exit codes, plus `--device`. `convert`
+(a npy dump tree to `<name>.safetensors` + `<name>.cfg`, `--mpk` adding
+the reference's Burn `<name>.mpk.gz`) and `convert-pt` (an OpenAI or
+HuggingFace `.pt`/`.bin` checkpoint to the same pair, `--dump-tree` adding
+the npy tree, `--alignment-heads` the word-timing heads) run on the host
+and write what `whisper_tpu.cli` writes, with its progress lines and exit
+codes.
 """
 
 from __future__ import annotations
@@ -108,8 +119,9 @@ def _dtype(args):
                                          else "float32"))
 
 
-def _segments_output(text, segments, out_format: str) -> str:
-    """The --timestamps output file (cli.py:279-317 of the JAX package)."""
+def _segments_output(text, segments, out_format: str, words: bool) -> str:
+    """The --timestamps output file (cli.py:279-317 of the JAX package);
+    `words`: --words was given (vtt highlights each word)."""
     if out_format == "json":
         def seg_doc(seg):
             d = {"start": round(seg.start, 3), "end": round(seg.end, 3),
@@ -117,6 +129,9 @@ def _segments_output(text, segments, out_format: str) -> str:
             for key in ("avg_logprob", "compression_ratio", "no_speech_prob"):
                 if getattr(seg, key) is not None:
                     d[key] = round(getattr(seg, key), 4)
+            if seg.words is not None:
+                d["words"] = [{"word": w.word, "start": round(w.start, 3),
+                               "end": round(w.end, 3)} for w in seg.words]
             return d
 
         return json.dumps({"text": text,
@@ -125,10 +140,16 @@ def _segments_output(text, segments, out_format: str) -> str:
     if out_format in ("srt", "vtt", "tsv"):
         from .pipeline import formats
 
-        return {"srt": formats.to_srt, "vtt": formats.to_vtt,
+        if out_format == "vtt":
+            return formats.to_vtt(segments, highlight_words=words)
+        return {"srt": formats.to_srt,
                 "tsv": formats.to_tsv}[out_format](segments)
-    return "\n".join(f"[{seg.start:.2f} -> {seg.end:.2f}] {seg.text}"
-                     for seg in segments)
+    lines = []
+    for seg in segments:
+        lines.append(f"[{seg.start:.2f} -> {seg.end:.2f}] {seg.text}")
+        lines += [f"  {w.word} [{w.start:.2f} -> {w.end:.2f}]"
+                  for w in seg.words or ()]
+    return "\n".join(lines)
 
 
 def cmd_transcribe(argv) -> int:
@@ -177,15 +198,18 @@ def cmd_transcribe(argv) -> int:
                    help="write '[start -> end] text' segment lines instead "
                         "of plain text (timestamped decoding)")
     p.add_argument("--words", action="store_true",
-                   help="per-word timings (not ported: ROADMAP queue 1 "
-                        "item 14)")
+                   help="with --timestamps: per-word timings "
+                        "(cross-attention DTW alignment) as "
+                        "'  word [start -> end]' lines, a words list per "
+                        "JSON segment, highlighted cues with --format vtt")
     p.add_argument("--json", action="store_true",
                    help="with --timestamps: a JSON document {text, "
                         "segments} (alias for --format json)")
     p.add_argument("--format", choices=["txt", "json", "srt", "vtt", "tsv"],
                    default=None, dest="out_format",
                    help="output format; srt/vtt/tsv/json require "
-                        "--timestamps")
+                        "--timestamps (vtt + --words emits per-word "
+                        "highlight cues)")
     p.add_argument("--condition-on-previous-text", action="store_true",
                    help="feed each window the previously decoded text as "
                         "<|startofprev|> context")
@@ -198,7 +222,8 @@ def cmd_transcribe(argv) -> int:
                         "from the output")
     p.add_argument("--parallel-windows", action="store_true",
                    help="decode all windows of the file as one batch "
-                        "(BatchTranscriber; identical output)")
+                        "(BatchTranscriber; identical output; a temperature "
+                        "list runs the batched fallback ladder)")
     p.add_argument("--draft", default=None, metavar="MODEL",
                    help="speculative decoding (not ported: ROADMAP queue 1 "
                         "item 11)")
@@ -209,11 +234,6 @@ def cmd_transcribe(argv) -> int:
     args = p.parse_args(argv)
 
     if _no_card(args.device):
-        return 1
-    if args.words:
-        print("--words (word timestamps, cross-attention DTW alignment) is "
-              "ROADMAP queue 1 item 14, not ported to whisper_tpu_torch yet",
-              file=sys.stderr)
         return 1
     if args.draft is not None:
         print("--draft (speculative decoding) is ROADMAP queue 1 item 11, "
@@ -294,20 +314,17 @@ def cmd_transcribe(argv) -> int:
         print(f"--format {out_format} requires --timestamps", file=sys.stderr)
         return 1
     t0 = time.perf_counter()
-    try:
-        if args.timestamps:
-            text, segments = t.transcribe_with_timestamps(waveform, rate, opts)
-            text = _segments_output(text, segments, out_format)
-        elif args.parallel_windows:
-            from .pipeline.batch import BatchTranscriber
+    if args.timestamps:
+        text, segments = t.transcribe_with_timestamps(
+            waveform, rate, opts, word_timestamps=args.words)
+        text = _segments_output(text, segments, out_format, args.words)
+    elif args.parallel_windows:
+        from .pipeline.batch import BatchTranscriber
 
-            bt = BatchTranscriber(t.params, cfg, tokenizer, device=args.device)
-            (text, _), = bt.transcribe_many([waveform], rate, opts)
-        else:
-            text, _ = t.transcribe(waveform, rate, opts)
-    except NotImplementedError as e:
-        print(str(e), file=sys.stderr)
-        return 1
+        bt = BatchTranscriber(t.params, cfg, tokenizer, device=args.device)
+        (text, _), = bt.transcribe_many([waveform], rate, opts)
+    else:
+        text, _ = t.transcribe(waveform, rate, opts)
     dt = time.perf_counter() - t0
     with open(args.out, "w") as f:
         f.write(text)
@@ -575,11 +592,112 @@ def cmd_quant_check(argv) -> int:
     return 0
 
 
+def cmd_convert(argv) -> int:
+    p = argparse.ArgumentParser(
+        prog="whisper_tpu_torch convert",
+        description="Convert a npy dump tree to the fast-load format "
+                    "(reference convert CLI parity; runs on the host).")
+    p.add_argument("dump_dir", help="npy dump directory (python/dump.py "
+                                    "output)")
+    p.add_argument("--out", default=None,
+                   help="output basename (default: <dump_dir>)")
+    p.add_argument("--mpk", action="store_true",
+                   help="also write the reference's Burn <name>.mpk.gz "
+                        "record (convert main.rs:17-19 output)")
+    args = p.parse_args(argv)
+
+    from .io import checkpoint, mpk, npy_tree
+
+    name = args.out or args.dump_dir.rstrip("/")
+    try:
+        params, cfg = npy_tree.load_whisper(args.dump_dir)
+    except Exception as e:  # the CLI boundary: report, exit non-zero
+        print(f"Error loading model {args.dump_dir}: {e}", file=sys.stderr)
+        return 1
+    print("Saving model...")  # convert main.rs:44 contract
+    checkpoint.save_safetensors(params, cfg, f"{name}.safetensors")
+    if args.mpk:
+        mpk.save_whisper_record(params, cfg, f"{name}.mpk.gz")
+    print("Saving config...")  # convert main.rs:50 contract
+    cfg.save(f"{name}.cfg")
+    print("Finished.")  # convert main.rs:56 contract
+    return 0
+
+
+def _alignment_heads_arg(value: str):
+    """--alignment-heads: JSON [[layer, head], ...] or a path to a JSON
+    file (an HF generation_config.json gives its `alignment_heads` key);
+    (heads, None) or (None, error message)."""
+    try:
+        if os.path.exists(value):
+            with open(value) as f:
+                heads = json.load(f)
+            if isinstance(heads, dict):  # a generation_config.json
+                heads = heads.get("alignment_heads")
+                if heads is None:
+                    return None, f"{value}: no alignment_heads key"
+            return heads, None
+        return json.loads(value), None
+    except ValueError as e:
+        return None, f"Bad --alignment-heads: {e}"
+
+
+def cmd_convert_pt(argv) -> int:
+    p = argparse.ArgumentParser(
+        prog="whisper_tpu_torch convert-pt",
+        description="Convert an OpenAI or HuggingFace Whisper .pt/.bin "
+                    "checkpoint (replaces the reference's python/dump.py + "
+                    "convert_huggingface_model.py; runs on the host).")
+    p.add_argument("pt_file", help="OpenAI {dims, model_state_dict} .pt or "
+                                   "HF pytorch_model.bin")
+    p.add_argument("out", help="output basename: writes <out>.safetensors "
+                               "+ <out>.cfg")
+    p.add_argument("--dump-tree", action="store_true",
+                   help="also write the reference-format npy dump tree at "
+                        "<out>/")
+    p.add_argument("--alignment-heads", default=None, metavar="JSON",
+                   help="word-timing alignment heads as JSON [[layer, head],"
+                        " ...] or a path to a JSON file (e.g. an HF "
+                        "generation_config.json); auto-detected from a "
+                        "sibling generation_config.json when omitted. "
+                        "OpenAI .pt files do not embed the mask -- pass it "
+                        "here for best word timestamps.")
+    args = p.parse_args(argv)
+
+    from .io import checkpoint, convert_pt, npy_tree
+
+    heads = None
+    if args.alignment_heads:
+        heads, err = _alignment_heads_arg(args.alignment_heads)
+        if err is not None:
+            print(err, file=sys.stderr)
+            return 1
+    try:
+        params, cfg = convert_pt.load_pt(args.pt_file, alignment_heads=heads)
+    except Exception as e:  # the CLI boundary: report, exit non-zero
+        print(f"Error loading checkpoint {args.pt_file}: {e}", file=sys.stderr)
+        return 1
+    if cfg.alignment_heads:
+        print(f"Alignment heads: {len(cfg.alignment_heads)} baked "
+              "(word timings will use them)")
+    print("Saving model...")
+    checkpoint.save_safetensors(params, cfg, f"{args.out}.safetensors")
+    print("Saving config...")
+    cfg.save(f"{args.out}.cfg")
+    if args.dump_tree:
+        print("Saving npy dump tree...")
+        npy_tree.save_whisper(params, cfg, args.out)
+    print("Finished.")
+    return 0
+
+
 COMMANDS = {"transcribe": cmd_transcribe,
             "transcribe-many": cmd_transcribe_many,
             "detect-lang": cmd_detect_lang,
             "eval": cmd_eval,
-            "quant-check": cmd_quant_check}
+            "quant-check": cmd_quant_check,
+            "convert": cmd_convert,
+            "convert-pt": cmd_convert_pt}
 
 
 def main(argv=None) -> int:
@@ -589,7 +707,8 @@ def main(argv=None) -> int:
               "<audio> <lang|auto> <out> [--greedy | --beam-size K] "
               "[--max-depth N] [--task transcribe|translate] [--temperature "
               "T[,T...]] [--no-speech-threshold P] [--vad] "
-              "[--vad-threshold-db DB] [--timestamps [--json | --format "
+              "[--vad-threshold-db DB] [--timestamps [--words] [--json | "
+              "--format "
               "txt|json|srt|vtt|tsv]] [--condition-on-previous-text] "
               "[--clip S0,E0,...] [--initial-prompt TEXT] "
               "[--parallel-windows] [--kv-quant] [--self-quant] [--resample] "
@@ -611,7 +730,12 @@ def main(argv=None) -> int:
               "       python -m whisper_tpu_torch.cli quant-check <model> "
               "[--kv int8|int4|none] [--self-kv int8|none] [--windows N] "
               "[--max-depth N] [--min-token-match R] [--device cuda|cpu] "
-              "[--tokenizer PATH]", file=sys.stderr)
+              "[--tokenizer PATH]\n"
+              "       python -m whisper_tpu_torch.cli convert <dump dir> "
+              "[--out NAME] [--mpk]\n"
+              "       python -m whisper_tpu_torch.cli convert-pt <model.pt> "
+              "<out name> [--dump-tree] [--alignment-heads JSON|PATH]",
+              file=sys.stderr)
         return 2
     return COMMANDS[argv[0]](argv[1:])
 

@@ -1,5 +1,7 @@
-"""Checkpoint loading: the port's copy of `whisper_tpu/io/checkpoint.py`
-(loading only; the safetensors writer takes a JAX pytree and stays there).
+"""Checkpoints: the port's copy of `whisper_tpu/io/checkpoint.py`. Its
+loaders return, and its writer takes, the parameter tree as nested dicts
+of numpy arrays (the JAX package's keys and layouts; `params.
+from_numpy_tree` turns it into the port's ParamTree).
 
 The reference's fast-load format is Burn's `.mpk.gz` record plus a `.cfg`
 JSON written by its convert CLI (src/bin/convert/main.rs:17-19,45,51). The
@@ -28,8 +30,25 @@ Params = Dict[str, Any]
 
 
 # ----------------------------------------------------------------------------
-# Flat key -> pytree mapping
+# Flat key <-> pytree mapping
 # ----------------------------------------------------------------------------
+
+
+def flatten_params(params: Params, prefix: str = "") -> Dict[str, np.ndarray]:
+    """{"encoder.conv1_w": array, ...}, every array C-contiguous: the
+    safetensors writer (0.4 on) copies an array's buffer as it lies in
+    memory, so a transposed view -- the conv weights of a dump tree, the
+    linears of `convert_pt` -- would be written with its elements out of
+    order. The JAX package's `flatten_params` keeps views (`np.asarray`),
+    and its `convert` writes such files under those versions."""
+    flat: Dict[str, np.ndarray] = {}
+    for k, v in params.items():
+        key = f"{prefix}{k}"
+        if isinstance(v, dict):
+            flat.update(flatten_params(v, key + "."))
+        else:
+            flat[key] = np.ascontiguousarray(v)
+    return flat
 
 
 def unflatten_params(flat: Dict[str, np.ndarray]) -> Params:
@@ -46,6 +65,16 @@ def unflatten_params(flat: Dict[str, np.ndarray]) -> Params:
 # ----------------------------------------------------------------------------
 # safetensors
 # ----------------------------------------------------------------------------
+
+
+def save_safetensors(params: Params, cfg: WhisperConfig, path: str) -> None:
+    """Write the numpy tree as one flat safetensors file with the `.cfg`
+    JSON in its metadata: the bytes the JAX package's writer gives for
+    C-contiguous leaves (`flatten_params`)."""
+    from safetensors.numpy import save_file
+
+    save_file(flatten_params(params), path,
+              metadata={"config": json.dumps(cfg.to_cfg_dict())})
 
 
 def load_safetensors(path: str) -> Tuple[Params, Optional[WhisperConfig]]:

@@ -1,5 +1,5 @@
-"""Reader for Burn `.mpk.gz` records (the reference's fast-load format): the
-port's copy of the reader half of `whisper_tpu/io/mpk.py`.
+"""Reader AND writer for Burn `.mpk.gz` records (the reference's fast-load
+format): the port's copy of `whisper_tpu/io/mpk.py`.
 
 The reference's convert CLI saves the model with Burn 0.9's `DefaultRecorder`
 (= gzipped named-MessagePack, src/bin/convert/main.rs:17-19): the module
@@ -14,9 +14,11 @@ this offline environment, so the reader is deliberately *tolerant*: it walks
 the decoded msgpack tree, treats any map containing ("value", "shape") --
 possibly nested under "param"/"id" wrappers -- as a tensor leaf, and resolves
 module paths by field name (encoder/decoder/conv1/blocks/... -- the same
-names as the Rust structs in src/model/mod.rs). Validation against a real
-Burn-produced file remains an open item (requires the Rust toolchain or a
-sample record).
+names as the Rust structs in src/model/mod.rs). The writer emits the
+canonical param-wrapped layout, including the decoder's precomputed causal
+`mask` Param (src/model/mod.rs:125) the Rust loader expects; writer->reader
+round-trip equality is tested. Validation against a real Burn-produced file
+remains an open item (requires the Rust toolchain or a sample record).
 """
 
 from __future__ import annotations
@@ -214,3 +216,166 @@ def load_whisper_record(
             ),
         )
     return params, cfg
+
+
+# ----------------------------------------------------------------------------
+# Writer: params pytree -> Burn-layout named-msgpack record.
+# ----------------------------------------------------------------------------
+
+
+def _leaf(arr: np.ndarray, ident: int) -> Dict[str, Any]:
+    """ParamSerde { id, param: DataSerialize { value, shape } }."""
+    a = np.ascontiguousarray(arr, dtype=np.float32)
+    return {
+        "id": f"{ident:032x}",
+        "param": {
+            "value": a.reshape(-1).tolist(),
+            "shape": [int(s) for s in a.shape],
+        },
+    }
+
+
+class _Ids:
+    """Deterministic Param ids (Burn uses random uuids; determinism is
+    friendlier to tests and diffing and equally valid on load)."""
+
+    def __init__(self):
+        self.n = 0
+
+    def leaf(self, arr: np.ndarray) -> Dict[str, Any]:
+        self.n += 1
+        return _leaf(arr, self.n)
+
+
+def _write_linear(ids: _Ids, w: np.ndarray,
+                  b: Optional[np.ndarray]) -> Dict[str, Any]:
+    """Burn LinearRecord: weight (d_in, d_out) -- the same orientation the
+    npy dumper pre-transposes to (python/dump.py:143) and this repo stores."""
+    return {
+        "weight": ids.leaf(w),
+        "bias": None if b is None else ids.leaf(b),
+    }
+
+
+def _write_ln(ids: _Ids, g: np.ndarray, b: np.ndarray) -> Dict[str, Any]:
+    return {"gamma": ids.leaf(g), "beta": ids.leaf(b), "epsilon": None}
+
+
+def _write_attn(ids: _Ids, blk: Dict[str, np.ndarray], i: int,
+                cross: bool) -> Dict[str, Any]:
+    if cross:
+        qw, qb = blk["cross_q_w"][i], blk["cross_q_b"][i]
+        kw, vw = blk["cross_kv_w"][i, :, 0], blk["cross_kv_w"][i, :, 1]
+        kb, vb = blk["cross_kv_b"][i, 0], blk["cross_kv_b"][i, 1]
+        ow, ob = blk["cross_o_w"][i], blk["cross_o_b"][i]
+    else:
+        qw, kw, vw = (blk["qkv_w"][i, :, j] for j in range(3))
+        qb, kb, vb = (blk["qkv_b"][i, j] for j in range(3))
+        ow, ob = blk["attn_o_w"][i], blk["attn_o_b"][i]
+    return {
+        "n_head": None,  # Burn constant (from .cfg), src/model/mod.rs:420
+        "query": _write_linear(ids, qw, qb),
+        # K has no bias in the reference (src/model/mod.rs:402-404)
+        "key": _write_linear(ids, kw, None),
+        "value": _write_linear(ids, vw, vb),
+        "out": _write_linear(ids, ow, ob),
+    }
+
+
+def _write_block(ids: _Ids, blk: Dict[str, np.ndarray], i: int,
+                 cross: bool) -> Dict[str, Any]:
+    node: Dict[str, Any] = {
+        "attn": _write_attn(ids, blk, i, cross=False),
+        "attn_ln": _write_ln(ids, blk["attn_ln_g"][i], blk["attn_ln_b"][i]),
+    }
+    if cross:
+        node["cross_attn"] = _write_attn(ids, blk, i, cross=True)
+        node["cross_attn_ln"] = _write_ln(
+            ids, blk["cross_ln_g"][i], blk["cross_ln_b"][i])
+    node["mlp"] = {
+        "lin1": _write_linear(ids, blk["mlp1_w"][i], blk["mlp1_b"][i]),
+        "gelu": None,
+        "lin2": _write_linear(ids, blk["mlp2_w"][i], blk["mlp2_b"][i]),
+    }
+    node["mlp_ln"] = _write_ln(ids, blk["mlp_ln_g"][i], blk["mlp_ln_b"][i])
+    return node
+
+
+def causal_mask(n_ctx: int) -> np.ndarray:
+    """The decoder's precomputed additive causal mask Param
+    (`attn_decoder_mask`, src/model/mod.rs:535-544): row i has -inf at
+    columns > i. Stored as f32::NEG_INFINITY in the Burn record; msgpack
+    carries f32 -inf natively."""
+    mask = np.zeros((n_ctx, n_ctx), np.float32)
+    mask[np.triu_indices(n_ctx, k=1)] = -np.inf
+    return mask
+
+
+def save_whisper_record(params: Params, cfg: WhisperConfig, path: str) -> None:
+    """Write a Burn 0.9 DefaultRecorder-layout `.mpk.gz` record
+    (src/bin/convert/main.rs:17-19 output contract).
+
+    The caller should write `<name>.cfg` next to it like the reference
+    (convert/main.rs:51); constants (n_head etc.) live there, not here.
+    """
+    import msgpack
+
+    to_np = lambda x: np.asarray(x, dtype=np.float32)
+    enc, dec = params["encoder"], params["decoder"]
+    eb, db = enc["blocks"], dec["blocks"]
+    n_enc = eb["qkv_w"].shape[0]
+    n_dec = db["qkv_w"].shape[0]
+    ids = _Ids()
+
+    enc_node = {
+        "conv1": {
+            # Burn Conv1d stores (out, in, k); the pytree keeps (k, in, out)
+            "weight": ids.leaf(to_np(enc["conv1_w"]).transpose(2, 1, 0)),
+            "bias": ids.leaf(to_np(enc["conv1_b"])),
+            "stride": None, "kernel_size": None, "dilation": None,
+            "groups": None, "padding": None,
+        },
+        "gelu1": None,
+        "conv2": {
+            "weight": ids.leaf(to_np(enc["conv2_w"]).transpose(2, 1, 0)),
+            "bias": ids.leaf(to_np(enc["conv2_b"])),
+            "stride": None, "kernel_size": None, "dilation": None,
+            "groups": None, "padding": None,
+        },
+        "gelu2": None,
+        "blocks": [
+            _write_block(ids, {k: to_np(v) for k, v in eb.items()}, i,
+                         cross=False)
+            for i in range(n_enc)
+        ],
+        "ln_post": _write_ln(ids, to_np(enc["ln_post_g"]),
+                             to_np(enc["ln_post_b"])),
+        "positional_embedding": ids.leaf(to_np(enc["pos_emb"])),
+        "n_mels": None,
+        "n_audio_ctx": None,
+    }
+    n_text_ctx = int(np.asarray(dec["pos_emb"]).shape[0])
+    dec_node = {
+        "token_embedding": ids.leaf(to_np(dec["tok_emb"])),
+        "positional_embedding": ids.leaf(to_np(dec["pos_emb"])),
+        "blocks": [
+            _write_block(ids, {k: to_np(v) for k, v in db.items()}, i,
+                         cross=True)
+            for i in range(n_dec)
+        ],
+        "ln": _write_ln(ids, to_np(dec["ln_g"]), to_np(dec["ln_b"])),
+        # the reference stores the full-context causal mask as a Param
+        # (src/model/mod.rs:125,152); the Rust loader expects it present
+        "mask": ids.leaf(causal_mask(n_text_ctx)),
+        "n_vocab": None,
+        "n_text_ctx": None,
+    }
+
+    record = {"item": {"encoder": enc_node, "decoder": dec_node}}
+    raw = msgpack.packb(record, use_single_float=True)
+    if path.endswith(".gz"):
+        with gzip.open(path, "wb", compresslevel=6) as f:
+            f.write(raw)
+    else:
+        with open(path, "wb") as f:
+            f.write(raw)

@@ -1,6 +1,6 @@
-"""Loader for the reference's npy dump-tree checkpoint format: the port's
-copy of `whisper_tpu/io/npy_tree.py` (loading only; the writer takes a
-JAX pytree and stays there).
+"""Loader and writer of the reference's npy dump-tree checkpoint format:
+the port's copy of `whisper_tpu/io/npy_tree.py`, over the parameter tree
+as nested dicts of numpy arrays.
 
 Format (whisper-burn `src/model/load.rs:19-27` + `python/dump.py:130-139`):
 every tensor is a 1-D float32 .npy whose first D entries are the dimensions
@@ -40,7 +40,7 @@ Params = Dict[str, Any]
 
 
 # ----------------------------------------------------------------------------
-# Primitive reads of the dims-prefixed npy encoding
+# Primitive read/write of the dims-prefixed npy encoding
 # ----------------------------------------------------------------------------
 
 
@@ -56,6 +56,17 @@ def read_tensor(path: str, ndim: int) -> np.ndarray:
 def read_scalar(path: str) -> float:
     """Read a `[1.0, value]` scalar (dump.py:130-132, load.rs:47-53)."""
     return float(read_tensor(path, 1)[0])
+
+
+def write_tensor(arr: np.ndarray, path: str) -> None:
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    arr = np.asarray(arr, np.float32)
+    np.save(path, np.concatenate([np.array(arr.shape, np.float32), arr.ravel()]))
+
+
+def write_scalar(value: float, path: str) -> None:
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    np.save(path, np.array([1.0, float(value)], np.float32))
 
 
 # ----------------------------------------------------------------------------
@@ -245,3 +256,88 @@ def load_whisper(path: str) -> Tuple[Params, WhisperConfig]:
         ln_eps=eps,
     )
     return params, cfg
+
+
+# ----------------------------------------------------------------------------
+# Saving (produces trees byte-compatible with the reference loader; used by
+# tests and by the convert CLI's round-trip path)
+# ----------------------------------------------------------------------------
+
+
+def _save_linear(w: np.ndarray, b: Optional[np.ndarray], path: str) -> None:
+    write_tensor(w, os.path.join(path, "weight.npy"))
+    if b is not None:
+        write_tensor(b, os.path.join(path, "bias.npy"))
+
+
+def _save_ln(g, b, eps: float, path: str) -> None:
+    write_tensor(g, os.path.join(path, "weight.npy"))
+    write_tensor(b, os.path.join(path, "bias.npy"))
+    write_scalar(eps, os.path.join(path, "eps.npy"))
+
+
+def _save_block(blk: Dict[str, np.ndarray], i: int, path: str, n_head: int,
+                eps: float, cross: bool) -> None:
+    d = blk["attn_o_w"].shape[-1]
+    qw, kw, vw = blk["qkv_w"][i, :, 0], blk["qkv_w"][i, :, 1], blk["qkv_w"][i, :, 2]
+    qb, kb, vb = blk["qkv_b"][i]
+    ap = os.path.join(path, "attn")
+    _save_linear(qw, qb, os.path.join(ap, "query"))
+    _save_linear(kw, None, os.path.join(ap, "key"))  # K: no bias
+    _save_linear(vw, vb, os.path.join(ap, "value"))
+    _save_linear(blk["attn_o_w"][i], blk["attn_o_b"][i], os.path.join(ap, "out"))
+    write_scalar(n_head, os.path.join(ap, "n_head.npy"))
+    _save_ln(blk["attn_ln_g"][i], blk["attn_ln_b"][i], eps, os.path.join(path, "attn_ln"))
+    if cross:
+        cp = os.path.join(path, "cross_attn")
+        ckw, cvw = blk["cross_kv_w"][i, :, 0], blk["cross_kv_w"][i, :, 1]
+        ckb, cvb = blk["cross_kv_b"][i]
+        _save_linear(blk["cross_q_w"][i], blk["cross_q_b"][i], os.path.join(cp, "query"))
+        _save_linear(ckw, None, os.path.join(cp, "key"))
+        _save_linear(cvw, cvb, os.path.join(cp, "value"))
+        _save_linear(blk["cross_o_w"][i], blk["cross_o_b"][i], os.path.join(cp, "out"))
+        write_scalar(n_head, os.path.join(cp, "n_head.npy"))
+        _save_ln(
+            blk["cross_ln_g"][i], blk["cross_ln_b"][i], eps,
+            os.path.join(path, "cross_attn_ln"),
+        )
+    _save_linear(blk["mlp1_w"][i], blk["mlp1_b"][i], os.path.join(path, "mlp", "mlp1"))
+    _save_linear(blk["mlp2_w"][i], blk["mlp2_b"][i], os.path.join(path, "mlp", "mlp2"))
+    _save_ln(blk["mlp_ln_g"][i], blk["mlp_ln_b"][i], eps, os.path.join(path, "mlp_ln"))
+
+
+def save_whisper(params: Params, cfg: WhisperConfig, path: str) -> None:
+    """Write params (numpy leaves) as a reference-format dump tree
+    (dump.py:186-210 layout)."""
+    enc_cfg, dec_cfg = cfg.audio_encoder_config, cfg.text_decoder_config
+    eps = cfg.ln_eps
+
+    enc = params["encoder"]
+    ep = os.path.join(path, "encoder")
+    # back to torch layout (out, in, k)
+    write_tensor(enc["conv1_w"].transpose(2, 1, 0), os.path.join(ep, "conv1", "weight.npy"))
+    write_tensor(enc["conv1_b"], os.path.join(ep, "conv1", "bias.npy"))
+    write_tensor(enc["conv2_w"].transpose(2, 1, 0), os.path.join(ep, "conv2", "weight.npy"))
+    write_tensor(enc["conv2_b"], os.path.join(ep, "conv2", "bias.npy"))
+    for i in range(enc_cfg.n_audio_layer):
+        _save_block(
+            enc["blocks"], i, os.path.join(ep, f"block_{i}"),
+            enc_cfg.n_audio_head, eps, cross=False,
+        )
+    _save_ln(enc["ln_post_g"], enc["ln_post_b"], eps, os.path.join(ep, "ln_post"))
+    write_tensor(enc["pos_emb"], os.path.join(ep, "positional_embedding.npy"))
+    write_scalar(enc_cfg.n_audio_layer, os.path.join(ep, "n_layer.npy"))
+    write_scalar(enc_cfg.n_mels, os.path.join(ep, "n_mels.npy"))
+    write_scalar(enc_cfg.n_audio_state, os.path.join(ep, "n_audio_state.npy"))
+
+    dec = params["decoder"]
+    dp = os.path.join(path, "decoder")
+    write_tensor(dec["tok_emb"], os.path.join(dp, "token_embedding", "weight.npy"))
+    write_tensor(dec["pos_emb"], os.path.join(dp, "positional_embedding.npy"))
+    for i in range(dec_cfg.n_text_layer):
+        _save_block(
+            dec["blocks"], i, os.path.join(dp, f"block_{i}"),
+            dec_cfg.n_text_head, eps, cross=True,
+        )
+    _save_ln(dec["ln_g"], dec["ln_b"], eps, os.path.join(dp, "ln"))
+    write_scalar(dec_cfg.n_text_layer, os.path.join(dp, "n_layer.npy"))

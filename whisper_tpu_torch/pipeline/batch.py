@@ -1,45 +1,53 @@
 """Batched multi-stream transcription.
 
-Counterpart of `whisper_tpu/pipeline/batch.py::BatchTranscriber` (:49-363)
-without its quality ladder, timestamps or mesh. Every stream is windowed
-as `Transcriber.transcribe` windows it (the same ~14.9 s windows, overlap
-and zero padding); the FULL windows of all streams are packed into batches
-of `batch_size` and each batch runs log-mel (per-sample dynamic-range
-clamp, so a window's mel does not depend on its batch mates) -> encoder on
-the batch -> `greedy_decode` or `beam_search_batched`. A short last batch
-is padded by repeating its first window, as JAX pads it, so the encoder's
-row count -- and with it the W8A8 kernel choice (K6 at <= 1024 rows, K7
-above) -- is that of a full batch. Tail windows go one at a time through
-`Transcriber._decode`, and each stream is stitched on its own.
+Counterpart of `whisper_tpu/pipeline/batch.py::BatchTranscriber` (:49-426)
+without its mesh. Every stream is windowed as `Transcriber.transcribe`
+windows it (the same ~14.9 s windows, overlap and zero padding); the FULL
+windows of all streams are packed into batches of `batch_size` and each
+batch runs log-mel (per-sample dynamic-range clamp, so a window's mel does
+not depend on its batch mates) -> encoder on the batch -> `greedy_decode`
+or `beam_search_batched`. A short last batch is padded by repeating its
+first window, as JAX pads it, so the encoder's row count -- and with it
+the W8A8 kernel choice (K6 at <= 1024 rows, K7 above) -- is that of a full
+batch. Tail windows go one at a time through the single-window path, and
+each stream is stitched on its own.
+
+The fallback ladder runs batched (`_decode_windows`): a first pass decodes
+every full window at temps[0], the host-side quality gates judge each
+window, and only the windows that failed decode again -- batched again --
+at the next (sampling) temperature. `transcribe_many_with_timestamps`
+gives each stream the segments, quality metadata and (with
+`word_timestamps`) word timings of `Transcriber.transcribe_with_timestamps`.
 
 The windows of a batch are independent, so `condition_on_previous_text`
 cannot chain them: JAX's `transcribe_many` ignores the option without a
 word (its CLI refuses it with `--parallel-windows`), and the port's raises
-ValueError instead (`_check_batch_supported`), as `Transcriber.transcribe`
-applies it. Options the port does not cover raise NotImplementedError: the
-batched fallback ladder, timestamps (`transcribe_many_with_timestamps`) and
-clip ranges, as well as `WindowPool` and `BatchingWorker`, are not ported
-yet (ROADMAP queue 1 items 10 and 13).
+ValueError instead; `transcribe_many_with_timestamps` runs each stream
+through the sequential path, as JAX's does. Clip ranges raise ValueError
+on the batched path (JAX's batched entries ignore them; its CLI refuses
+`--clip` with `--parallel-windows`). `WindowPool` and `BatchingWorker` are
+not ported yet (ROADMAP queue 1 item 13).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from ..config import SAMPLE_RATE
 from ..decode.beam import beam_search_batched
 from ..decode.greedy import greedy_decode
-from ..models.whisper import encoder_forward
-from ..ops.audio import max_waveform_samples, prep_audio
+from ..ops.audio import max_waveform_samples
 from . import vad
 from .transcribe import (DecodeOptions, Transcriber, _check_supported,
-                         find_chunk_overlap, window_waveform)
+                         _rung_generator, compression_ratio,
+                         evaluate_window_quality, find_chunk_overlap,
+                         window_waveform)
 
 log = logging.getLogger(__name__)
 
@@ -47,32 +55,24 @@ Window = Tuple[int, int, np.ndarray]  # (stream, window index, samples)
 
 
 def _check_batch_supported(opt: DecodeOptions) -> None:
-    """Raise for the options the batched path does not cover (beyond
+    """Raise for the options the batched path does not take (beyond
     `_check_supported`'s): `condition_on_previous_text`, which independent
-    windows cannot apply (ValueError), and the JAX batched ladder,
-    timestamps and clip ranges (NotImplementedError)."""
+    windows cannot apply, and clip ranges (ValueError)."""
     _check_supported(opt)
     if opt.condition_on_previous_text:
         raise ValueError(
             "condition_on_previous_text needs each window decoded after the "
             "one before it; transcribe_many decodes windows independently "
             "(use Transcriber.transcribe)")
-    todo = []
-    if opt.timestamps:
-        todo.append("timestamps (transcribe_many_with_timestamps)")
-    if Transcriber._ladder_temps(opt)[1]:
-        todo.append("temperature > 0, a temperature tuple or "
-                    "no_speech_threshold (the batched fallback ladder)")
     if opt.clip_timestamps is not None:
-        todo.append("clip_timestamps")
-    if todo:
-        raise NotImplementedError(
-            "not ported to the batched path of whisper_tpu_torch yet "
-            "(ROADMAP queue 1 item 10): " + "; ".join(todo))
+        raise ValueError(
+            "clip_timestamps is incompatible with the batched path (the JAX "
+            "CLI refuses --clip with --parallel-windows); use "
+            "Transcriber.transcribe")
 
 
 class BatchTranscriber(Transcriber):
-    """A Transcriber with a many-streams entry point: full windows decode
+    """A Transcriber with many-streams entry points: full windows decode
     `batch_size` at a time (greedy, or beam search over W x K lanes)."""
 
     def __init__(self, *args, batch_size: int = 8, **kwargs):
@@ -82,35 +82,57 @@ class BatchTranscriber(Transcriber):
         self.batch_size = batch_size
 
     def _decode_batch(self, waves: np.ndarray, prompt: torch.Tensor,
-                      suppress_until_len: int, opt: DecodeOptions):
-        """(B, n) windows -> (tokens (B, ctx), lengths (B,)), prompt
-        included (batch.py:114-154)."""
-        cfg = self.cfg
-        x = torch.from_numpy(waves).to(self.device)
-        mel = prep_audio(x, per_sample_max=True, n_mels=cfg.n_mels)
-        keep = min(mel.shape[2], cfg.encoder_ctx_size - opt.padding)
-        mel = F.pad(mel[:, :, :keep], (0, opt.padding))
-        enc = encoder_forward(self.params, mel, cfg)
-        common = dict(eot_id=self.tok.eot, suppress_mask=self._suppress,
-                      max_depth=opt.max_depth,
-                      suppress_until_len=suppress_until_len,
-                      kv_quant=opt.kv_quant, self_quant=opt.self_quant)
-        if opt.strategy == "beam":
-            toks, lengths, _ = beam_search_batched(
-                self.params, enc, prompt, cfg, beam_size=opt.beam_size,
-                **common)
+                      suppress_until_len: int, opt: DecodeOptions,
+                      timestamps: bool = False, max_ts_idx: int = 50,
+                      quality: bool = False, temperature: float = 0.0,
+                      generator: Optional[torch.Generator] = None,
+                      sot_pos: int = 0):
+        """(B, n) windows -> (tokens (B, ctx), lengths (B,), sum_logp (B,),
+        p(<|nospeech|>) (B,), -1 unless `quality` asks for it) as numpy,
+        prompt included (batch.py:114-154): beam search over B x K lanes
+        at temperature 0 with strategy "beam", else greedy (sampling at
+        temperature > 0 from `generator`)."""
+        enc = self._encode_windows(waves, opt)
+        common = self._decode_args(opt, suppress_until_len, timestamps,
+                                   max_ts_idx, quality, sot_pos)
+        if opt.strategy == "beam" and temperature == 0.0:
+            out = beam_search_batched(self.params, enc, prompt, self.cfg,
+                                      beam_size=opt.beam_size, **common)
         else:
-            toks, lengths, _ = greedy_decode(self.params, enc, prompt, cfg,
-                                             **common)
-        return toks.cpu().numpy(), lengths.cpu().numpy()
+            out = greedy_decode(self.params, enc, prompt, self.cfg,
+                                temperature=temperature, generator=generator,
+                                **common)
+        toks, lengths, logp = (t.cpu().numpy() for t in out[:3])
+        ns = (out[3].float().cpu().numpy()
+              if common["nospeech_id"] is not None
+              else np.full(len(waves), -1.0, np.float32))
+        return toks, lengths, logp, ns
 
     def _decode_windows(self, waveforms: Sequence[np.ndarray],
-                        sample_rate: int, opt: DecodeOptions):
-        """Window and decode N streams (batch.py:160-327, without the
-        ladder). Returns (results, n_windows): results[(stream, window)]
-        is the window's token list with the conditioning prefix stripped
-        (absent for VAD-skipped and sub-n_fft windows), n_windows[s] the
-        stream's window count."""
+                        sample_rate: int, opt: DecodeOptions,
+                        timestamps: bool = False, max_ts_idx: int = 50):
+        """Window and decode N streams (batch.py:160-327); the engine under
+        `transcribe_many` and `transcribe_many_with_timestamps`.
+
+        Returns (results, meta, bounds, n_windows): results[(stream,
+        window)] is the window's token list with the conditioning prefix
+        stripped (absent for VAD-skipped and sub-n_fft windows; [] when the
+        no-speech gate accepted it as silence), meta[(stream, window)] the
+        (avg_logprob, compression_ratio, no_speech_prob or None) of its
+        accepted decode (only when the quality path ran: the ladder or
+        timestamps), bounds[(stream, window)] its (start, end) samples,
+        n_windows[s] the stream's window count.
+
+        With the ladder on (a temperature tuple, a temperature > 0 or
+        `no_speech_threshold`), the first pass decodes every full window
+        at temps[0]; the quality gates of `evaluate_window_quality` judge
+        each, and only the failed windows decode again, batched, at the
+        next temperature, until accepted or the temperatures run out.
+        Sampling rung ti of the batch that starts at index i of the
+        pending list draws from the generator seeded from (opt.seed,
+        ti * 100003 + i), JAX's `fold_in(PRNGKey(seed), ti * 100003 + i)`.
+        Tail windows take `_decode_window_ladder(s * 100003 + w, ...)`
+        whenever the quality path runs."""
         cfg = self.cfg
         n_window = max_waveform_samples(cfg.encoder_ctx_size - opt.padding)
         overlap = int(sample_rate * opt.chunk_overlap_seconds)
@@ -122,12 +144,14 @@ class BatchTranscriber(Transcriber):
         full: List[Window] = []
         tail: List[Window] = []
         n_windows = [0] * len(waveforms)
+        bounds: Dict[Tuple[int, int], Tuple[int, int]] = {}
         for s, wave in enumerate(waveforms):
             wave = np.asarray(wave, np.float32)
             for i, (start, end) in enumerate(
                     window_waveform(wave, sample_rate, n_window, overlap)):
                 chunk = np.ascontiguousarray(wave[start:end])
                 n_windows[s] = i + 1
+                bounds[(s, i)] = (start, end)
                 if opt.vad and vad.is_silent(
                         chunk, sample_rate, opt.vad_threshold_db,
                         opt.vad_min_speech_seconds):
@@ -138,24 +162,80 @@ class BatchTranscriber(Transcriber):
                     tail.append((s, i, chunk))
 
         results: Dict[Tuple[int, int], List[int]] = {}
+        meta: Dict[Tuple[int, int], tuple] = {}
+        n_prompt = int(prompt.shape[0])
+        temps, use_ladder = self._ladder_temps(opt)
+        # the gates need the quality outputs, and so do the timestamped
+        # path's per-segment metadata
+        quality = use_ladder or timestamps
         bsz = self.batch_size
-        for i in range(0, len(full), bsz):
-            group = full[i:i + bsz]
-            waves = np.stack([g[2] for g in group])
-            if len(group) < bsz:  # pad with the first window, discarded
-                waves = np.concatenate(
-                    [waves, np.repeat(waves[:1], bsz - len(group), axis=0)])
-            t0 = time.perf_counter()
-            toks, lengths = self._decode_batch(waves, prompt, sup_len, opt)
-            for j, (s, w, _) in enumerate(group):
-                results[(s, w)] = [int(t) for t in
-                                   toks[j, :lengths[j]]][n_cond:]
-            log.info("batch %d-%d/%d windows in %.2fs", i, i + len(group),
-                     len(full), time.perf_counter() - t0)
+        pending = full
+        for ti, temp in enumerate(temps):
+            failures: List[Window] = []
+            for i in range(0, len(pending), bsz):
+                group = pending[i:i + bsz]
+                waves = np.stack([g[2] for g in group])
+                if len(group) < bsz:  # pad with the first window, discarded
+                    waves = np.concatenate(
+                        [waves, np.repeat(waves[:1], bsz - len(group),
+                                          axis=0)])
+                gen = (_rung_generator(self.device, opt.seed,
+                                       ti * 100003 + i)
+                       if temp > 0.0 else None)
+                t0 = time.perf_counter()
+                toks, lengths, logps, nss = self._decode_batch(
+                    waves, prompt, sup_len, opt, timestamps, max_ts_idx,
+                    quality, temp, gen, sot_pos=n_cond)
+                for j, (s, w, chunk) in enumerate(group):
+                    tl = [int(t) for t in toks[j, :lengths[j]]][n_cond:]
+                    if not quality:
+                        results[(s, w)] = tl
+                        continue
+                    ns = float(nss[j])
+                    if not use_ladder:  # metadata only, no gating
+                        results[(s, w)] = tl
+                        meta[(s, w)] = (
+                            float(logps[j]) / max(int(lengths[j]) - n_prompt,
+                                                  1),
+                            compression_ratio(
+                                self.tok.decode(tl, skip_special=True)),
+                            ns if ns >= 0.0 else None)
+                        continue
+                    ok, silence, avg_lp, cr = evaluate_window_quality(
+                        opt, self.tok, tl, int(lengths[j]) - n_prompt,
+                        logps[j], ns)
+                    m = (avg_lp, cr, ns if ns >= 0.0 else None)
+                    if silence:
+                        log.info("stream %d window %d: no speech (p=%.2f), "
+                                 "skipping", s, w, ns)
+                        results[(s, w)], meta[(s, w)] = [], m
+                    elif ok or ti == len(temps) - 1:
+                        if ti:
+                            log.info("stream %d window %d: accepted at "
+                                     "t=%.1f (avg_logprob %.2f, compression "
+                                     "%.2f)", s, w, temp, avg_lp, cr)
+                        results[(s, w)], meta[(s, w)] = tl, m
+                    else:
+                        log.info("stream %d window %d: t=%.1f failed checks "
+                                 "(avg_logprob %.2f, compression %.2f), "
+                                 "queueing re-decode", s, w, temp, avg_lp, cr)
+                        failures.append((s, w, chunk))
+                log.info("batch %d-%d/%d windows (t=%.1f) in %.2fs", i,
+                         i + len(group), len(pending), temp,
+                         time.perf_counter() - t0)
+            pending = failures
+            if not pending:
+                break
+
         for s, w, chunk in tail:
-            results[(s, w)] = self._decode(chunk, prompt, sup_len,
-                                           opt)[0][n_cond:]
-        return results, n_windows
+            if quality:
+                results[(s, w)], _, meta[(s, w)] = self._decode_window_ladder(
+                    s * 100003 + w, chunk, prompt, n_cond, sup_len, opt, temps,
+                    timestamps=timestamps, max_initial_ts_idx=max_ts_idx)
+            else:
+                results[(s, w)] = self._decode(chunk, prompt, sup_len,
+                                               opt)[0][n_cond:]
+        return results, meta, bounds, n_windows
 
     def transcribe_many(self, waveforms: Sequence[np.ndarray],
                         sample_rate: int = SAMPLE_RATE,
@@ -167,8 +247,8 @@ class BatchTranscriber(Transcriber):
         opt = options or DecodeOptions()
         _check_batch_supported(opt)
         with torch.inference_mode():
-            results, n_windows = self._decode_windows(waveforms, sample_rate,
-                                                      opt)
+            results, _, _, n_windows = self._decode_windows(
+                waveforms, sample_rate, opt)
         out: List[Tuple[str, List[int]]] = []
         for s in range(len(waveforms)):
             tokens: List[int] = []
@@ -185,4 +265,53 @@ class BatchTranscriber(Transcriber):
                 else:
                     tokens.extend(new_tokens)
             out.append((self.tok.decode(tokens, skip_special=True), tokens))
+        return out
+
+    def transcribe_many_with_timestamps(
+            self, waveforms: Sequence[np.ndarray],
+            sample_rate: int = SAMPLE_RATE,
+            options: Optional[DecodeOptions] = None,
+            word_timestamps: bool = False) -> List[Tuple[str, list]]:
+        """Timestamped transcription of N streams on the batched path
+        (batch.py:365-426); returns [(text, [Segment])], stream for stream
+        what `Transcriber.transcribe_with_timestamps` gives: the same
+        windows, timestamp rules per lane (the timestamp-permitting
+        suppress mask, `max_initial_timestamp` as max_ts_idx), quality
+        metadata, and a `TimestampStitcher` of its own per stream.
+        `word_timestamps` attaches word timings (one alignment pass per
+        decode window). With `condition_on_previous_text` each stream runs
+        through the sequential `transcribe_with_timestamps`, as in JAX."""
+        from .segments import TimestampStitcher
+
+        opt = dataclasses.replace(options or DecodeOptions(), timestamps=True)
+        if opt.condition_on_previous_text:
+            # window i+1's prompt needs window i's text: sequential
+            log.info("condition_on_previous_text: each stream on the "
+                     "sequential path")
+            return [self.transcribe_with_timestamps(
+                w, sample_rate, opt, word_timestamps=word_timestamps)
+                for w in waveforms]
+        _check_batch_supported(opt)
+        max_ts_idx = max(0, int(round(opt.max_initial_timestamp / 0.02)))
+        with torch.inference_mode():
+            results, meta, bounds, n_windows = self._decode_windows(
+                waveforms, sample_rate, opt, timestamps=True,
+                max_ts_idx=max_ts_idx)
+        out: List[Tuple[str, list]] = []
+        for s in range(len(waveforms)):
+            st = TimestampStitcher(self.tok, opt.stitch_max_offsets,
+                                   opt.stitch_min_overlaps)
+            for w in range(n_windows[s]):
+                toks = results.get((s, w))
+                if toks is None:
+                    continue
+                start, end = bounds[(s, w)]
+                st.add_window(toks, start / sample_rate,
+                              (end - start) / sample_rate,
+                              quality=meta.get((s, w)))
+            segs = st.segments
+            if word_timestamps and segs:
+                self._attach_words(np.asarray(waveforms[s], np.float32),
+                                   sample_rate, segs, opt)
+            out.append((" ".join(x.text.strip() for x in segs), segs))
         return out

@@ -27,8 +27,8 @@ class Segment:
     end: float
     text: str
     tokens: List[int]
-    # per-word timings; None here (word timestamps, align.py in the JAX
-    # package, are not ported: ROADMAP queue 1 item 14)
+    # per-word timings (align.WordTiming), filled by
+    # transcribe_with_timestamps(word_timestamps=True); None otherwise
     words: list = None
     # decode-quality metadata of the window this segment came from (every
     # production Whisper result schema exposes these so consumers can
@@ -106,9 +106,10 @@ def segments_with_positions(
 
 
 class TimestampStitcher:
-    """Token-overlap stitching for timestamped windows
-    (`Transcriber.transcribe_with_timestamps`; in the JAX package the
-    batched pipeline shares it, so both give identical segments).
+    """Token-overlap stitching for timestamped windows, shared by the
+    single-stream (`Transcriber.transcribe_with_timestamps`) and batched
+    (`BatchTranscriber.transcribe_many_with_timestamps`) pipelines so both
+    give identical segments from identical per-window token sequences.
 
     Windows are joined by the same suffix/prefix token alignment as the
     plain text path (find_chunk_overlap, whisper-burn src/transcribe.rs:

@@ -9,8 +9,10 @@ prompt, suppression while seq len <= 5, token-overlap stitching, and the
 `Chunk {i}: {text}` progress contract; beam search (the default) or
 greedy, plus what the JAX `Transcriber` adds beyond the reference: the
 temperature fallback ladder with its quality gates, timestamped segments
-(`transcribe_with_timestamps`), clip ranges, language detection,
-`initial_prompt` and `condition_on_previous_text`.
+(`transcribe_with_timestamps`) with word timings (`align.py`), clip
+ranges, language detection, `initial_prompt` and
+`condition_on_previous_text`; and `waveform_to_text`, the reference's
+one-shot entry.
 
 The JAX pipeline dispatches window i+1 before fetching window i; this port
 runs windows one after another (the result is the same: windows are
@@ -32,6 +34,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..align import WordTiming, find_word_timings
 from ..config import SAMPLE_RATE, WhisperConfig
 from ..decode.beam import beam_search
 from ..decode.greedy import greedy_decode
@@ -283,6 +286,42 @@ class Transcriber:
             n_cond = len(cond)
         return torch.tensor(ids, dtype=torch.long, device=self.device), n_cond
 
+    def _encode_windows(self, waves: np.ndarray, opt: DecodeOptions
+                        ) -> torch.Tensor:
+        """(B, n) windows -> encoder output: log-mel with a per-window
+        dynamic-range clamp (a window's mel does not depend on its batch
+        mates), clipped to (encoder_ctx - padding) frames and zero-padded
+        by `padding` frames (transcribe.py:548-560, batch.py:114-122)."""
+        cfg = self.cfg
+        x = torch.from_numpy(np.ascontiguousarray(waves)).to(self.device)
+        mel = prep_audio(x, per_sample_max=True, n_mels=cfg.n_mels)
+        keep = min(mel.shape[2], cfg.encoder_ctx_size - opt.padding)
+        mel = F.pad(mel[:, :, :keep], (0, opt.padding))
+        return encoder_forward(self.params, mel, cfg)
+
+    def _decode_args(self, opt: DecodeOptions, suppress_until_len: int,
+                     timestamps: bool, max_initial_ts_idx: int,
+                     quality: bool, sot_pos: int) -> dict:
+        """The keyword arguments both decode loops take: `timestamps` runs
+        the timestamp rules with the timestamp tokens unsuppressed;
+        `quality` asks for p(<|nospeech|>) at `sot_pos` (None when the
+        tokenizer lacks the token)."""
+        ts_begin = None
+        if timestamps:
+            if self._ts_begin is None:
+                raise ValueError("timestamps=True but the tokenizer has no "
+                                 "timestamp tokens (<|0.00|>...)")
+            ts_begin = self._ts_begin
+        return dict(
+            eot_id=self.tok.eot,
+            suppress_mask=self._suppress_ts if timestamps else self._suppress,
+            max_depth=opt.max_depth, suppress_until_len=suppress_until_len,
+            kv_quant=opt.kv_quant, self_quant=opt.self_quant,
+            ts_begin=ts_begin, max_initial_ts_idx=max_initial_ts_idx,
+            nospeech_id=(self.tok.special_token(SpecialToken.NO_SPEECH)
+                         if quality else None),
+            sot_pos=sot_pos)
+
     def _decode(self, window: np.ndarray, prompt: torch.Tensor,
                 suppress_until_len: int, opt: DecodeOptions,
                 timestamps: bool = False, max_initial_ts_idx: int = 50,
@@ -293,42 +332,23 @@ class Transcriber:
         """One window, as the JAX window program runs it
         (transcribe.py:548-609): log-mel, clip + pad, encoder, then beam
         search at temperature 0 with strategy "beam", else greedy (sampling
-        at temperature > 0 with `generator`). `timestamps` runs the
-        timestamp rules with the timestamp tokens unsuppressed. Returns
-        (the decoded sequence, prompt included; sum_logp; p(<|nospeech|>)
-        at `sot_pos` when `quality`, -1 when not asked or when the
-        tokenizer lacks the token)."""
-        cfg = self.cfg
-        ts_begin = None
-        if timestamps:
-            if self._ts_begin is None:
-                raise ValueError("timestamps=True but the tokenizer has no "
-                                 "timestamp tokens (<|0.00|>...)")
-            ts_begin = self._ts_begin
-        ns_id = (self.tok.special_token(SpecialToken.NO_SPEECH) if quality
-                 else None)
-        wave = torch.from_numpy(window).to(self.device)
-        mel = prep_audio(wave[None, :], n_mels=cfg.n_mels)
-        keep = min(mel.shape[2], cfg.encoder_ctx_size - opt.padding)
-        mel = F.pad(mel[:, :, :keep], (0, opt.padding))
-        enc = encoder_forward(self.params, mel, cfg)
-        common = dict(
-            eot_id=self.tok.eot,
-            suppress_mask=self._suppress_ts if timestamps else self._suppress,
-            max_depth=opt.max_depth, suppress_until_len=suppress_until_len,
-            kv_quant=opt.kv_quant, self_quant=opt.self_quant,
-            ts_begin=ts_begin, max_initial_ts_idx=max_initial_ts_idx,
-            nospeech_id=ns_id, sot_pos=sot_pos)
+        at temperature > 0 with `generator`). Returns (the decoded
+        sequence, prompt included; sum_logp; p(<|nospeech|>) at `sot_pos`
+        when `quality`, -1 when not asked or when the tokenizer lacks the
+        token)."""
+        enc = self._encode_windows(window[None, :], opt)
+        common = self._decode_args(opt, suppress_until_len, timestamps,
+                                   max_initial_ts_idx, quality, sot_pos)
         if opt.strategy == "beam" and temperature == 0.0:
-            out = beam_search(self.params, enc, prompt, cfg,
+            out = beam_search(self.params, enc, prompt, self.cfg,
                               beam_size=opt.beam_size, **common)
         else:
-            out = greedy_decode(self.params, enc, prompt, cfg,
+            out = greedy_decode(self.params, enc, prompt, self.cfg,
                                 temperature=temperature, generator=generator,
                                 **common)
             out = [x[0] for x in out]
         toks, length, logp = out[:3]
-        ns = float(out[3]) if ns_id is not None else -1.0
+        ns = float(out[3]) if common["nospeech_id"] is not None else -1.0
         return toks[: int(length)].tolist(), float(logp), ns
 
     def _decode_window_ladder(self, i: int, window: np.ndarray,
@@ -541,19 +561,23 @@ class Transcriber:
         return " ".join(texts), tokens
 
     def _transcribe_clips_with_timestamps(self, waveform, sample_rate: int,
-                                          opt: DecodeOptions):
+                                          opt: DecodeOptions,
+                                          word_timestamps: bool):
         """clip_timestamps on the timestamped path (transcribe.py:887):
-        segment times are offset by each clip's start, so they stay
-        absolute in the original audio's timeline."""
+        segment (and word) times are offset by each clip's start, so they
+        stay absolute in the original audio's timeline."""
         texts: List[str] = []
         segments: List = []
         for s, clip, sub in self._clips(waveform, sample_rate, opt):
-            text, segs = self.transcribe_with_timestamps(clip, sample_rate,
-                                                         sub)
+            text, segs = self.transcribe_with_timestamps(
+                clip, sample_rate, sub, word_timestamps=word_timestamps)
             if text.strip():
                 texts.append(text.strip())
-            segments += [dataclasses.replace(seg, start=seg.start + s,
-                                             end=seg.end + s) for seg in segs]
+            segments += [dataclasses.replace(
+                seg, start=seg.start + s, end=seg.end + s,
+                words=None if seg.words is None else [
+                    WordTiming(w.word, w.start + s, w.end + s, w.tokens)
+                    for w in seg.words]) for seg in segs]
         return " ".join(texts), segments
 
     def transcribe_with_timestamps(self, waveform: np.ndarray,
@@ -567,19 +591,15 @@ class Transcriber:
         stitcher (segments.TimestampStitcher). Every segment carries the
         quality metadata of its window's decode (avg_logprob,
         compression_ratio, no_speech_prob), off the ladder too.
-        `word_timestamps=True` raises: the alignment (align.py) is not
-        ported."""
+        `word_timestamps=True` fills each segment's `words` with
+        [align.WordTiming] in absolute seconds (`_attach_words`)."""
         from .segments import TimestampStitcher
 
-        if word_timestamps:
-            raise NotImplementedError(
-                "word_timestamps (cross-attention DTW alignment, align.py) "
-                "is ROADMAP queue 1 item 14, not ported yet")
         opt = dataclasses.replace(options or DecodeOptions(), timestamps=True)
         _check_supported(opt)
         if opt.clip_timestamps is not None:
-            return self._transcribe_clips_with_timestamps(waveform,
-                                                          sample_rate, opt)
+            return self._transcribe_clips_with_timestamps(
+                waveform, sample_rate, opt, word_timestamps)
         tok = self.tok
         prompt, n_cond = self._build_prompt(opt)
         sup_len = opt.suppress_until_len + n_cond
@@ -615,5 +635,77 @@ class Transcriber:
                 if reset:  # accepted at a high temperature: cut it
                     prompt_reset_at = len(stitcher.all_tokens)
         segs = stitcher.segments
+        if word_timestamps and segs:
+            self._attach_words(waveform, sample_rate, segs, opt)
         text = " ".join(s.text.strip() for s in segs)
         return text, segs
+
+    def align_words(self, window: np.ndarray, tokens: Sequence[int],
+                    heads=None, offset_s: float = 0.0) -> List[WordTiming]:
+        """Word timings of one decoded window (transcribe.py:616): the
+        window's encoder output (the kernels on the flash config) and the
+        cross-attention DTW alignment (`align.find_word_timings`) of
+        `tokens`, its decoded sequence with the prompt, against it.
+        `heads`: [(layer, head)], default the model's baked heads, else the
+        top half. Times are window-relative plus `offset_s`."""
+        cfg = self.cfg
+        padding = 10
+        wave = torch.from_numpy(np.ascontiguousarray(window, np.float32))
+        with torch.inference_mode():
+            mel = prep_audio(wave.to(self.device)[None, :], n_mels=cfg.n_mels)
+            keep = min(mel.shape[2], cfg.encoder_ctx_size - padding)
+            mel = F.pad(mel[:, :, :keep], (0, padding))
+            enc = encoder_forward(self.params, mel, cfg)
+        words = find_word_timings(self.params, enc, [int(t) for t in tokens],
+                                  cfg, self.tok, num_frames=keep // 2,
+                                  heads=heads)
+        if offset_s:
+            words = [dataclasses.replace(w, start=w.start + offset_s,
+                                         end=w.end + offset_s) for w in words]
+        return words
+
+    def _attach_words(self, waveform, sample_rate: int, segs,
+                      opt: DecodeOptions) -> None:
+        """Fill each segment's `words` (transcribe.py:1025): ONE alignment
+        pass per decode window -- segments are grouped by the window that
+        holds their start, the window's tokens (the timestamped prompt,
+        every segment's tokens, EOT) align once, and the words are handed
+        back to the segments in token order."""
+        n_window = max_waveform_samples(self.cfg.encoder_ctx_size
+                                        - opt.padding)
+        prompt_ids = self.tok.prompt_ids(opt.lang, task=opt.task,
+                                         timestamps=True)
+        groups: dict = {}
+        for si, seg in enumerate(segs):
+            w0 = min(int(seg.start * sample_rate),
+                     max(0, len(waveform) - n_window))
+            groups.setdefault(w0, []).append(si)
+        for w0, sis in groups.items():
+            seq = list(prompt_ids)
+            for si in sis:
+                seq += segs[si].tokens
+            seq.append(self.tok.eot)
+            it = iter(self.align_words(waveform[w0:w0 + n_window], seq,
+                                       offset_s=w0 / sample_rate))
+            for si in sis:
+                n_tok = len([x for x in segs[si].tokens
+                             if not self.tok.is_special(x)])
+                got, used = [], 0
+                for w in it:
+                    got.append(w)
+                    used += len(w.tokens)
+                    if used >= n_tok:
+                        break
+                segs[si].words = got
+
+
+def waveform_to_text(params, cfg: WhisperConfig, tokenizer, lang: str,
+                     waveform: np.ndarray, sample_rate: int, device=None,
+                     **kwargs) -> Tuple[str, List[int]]:
+    """One-shot entry with the reference's signature
+    (`waveform_to_text(whisper, bpe, lang, waveform, sample_rate)`,
+    src/transcribe.rs:23-29; JAX transcribe.py:1061): a `Transcriber` on
+    `device` (the card unless given) transcribes with
+    `DecodeOptions(lang=lang, **kwargs)`. Returns (text, tokens)."""
+    return Transcriber(params, cfg, tokenizer, device=device).transcribe(
+        waveform, sample_rate, DecodeOptions(lang=lang, **kwargs))
