@@ -86,7 +86,31 @@ Phases, in order; any failure raises and the script exits non-zero:
                 path's encoder output against the plain path's, within
                 PATH_RTOL;
  16. waveform_to_text -- the one-shot entry, greedy on the card over the
-                35 s stream: its text must equal phase 4's.
+                35 s stream: its text must equal phase 4's;
+ 17. speculative -- `Transcriber(draft=..., draft_k=4)` with a multilingual
+                tiny draft (d 384, random bf16 weights from SEED + 2) over
+                the 35 s stream, cold and warm: its text must equal phase
+                4's (else the first differing position and the top-2
+                logit gap there on both paths are printed); K1, K2 and K3
+                launched at d 384 and d 1280 (counted by width); then a
+                self-draft over one window: plain greedy's tokens,
+                acceptance >= SELF_DRAFT_ACCEPTANCE, every draft self-cache
+                row in [P, length - 1) written and within PATH_RTOL of the
+                target's;
+ 18. streaming -- one `StreamingTranscriber` (beam 5, max_depth 100, the
+                compression gate off) over 20 s pushed in 1 s blocks, a
+                decode every 4 s: confirmed text, decodes, seconds,
+                monotone segment times in [0, 20] s; then 4 sessions on 4
+                threads sharing one `StreamDecodeBatcher(batch_size=4)`:
+                all finish, fewer batches than decodes, whether each
+                equals its unbatched run (reported);
+ 19. serve  -- `BatchingWorker` + `make_handler` on a free port over a
+                `BatchTranscriber(batch_size=4)`: 3 concurrent greedy
+                requests through the window pool, their texts equal to
+                `transcribe_many`'s; a timestamped SRT request; a /stream
+                session of 10 s in 2 s s16 blocks; /healthz and /metrics
+                (batches_total >= 1); both workers stopped and joined
+                within 10 s.
 The kernel phase holds the packed-int4 variants of K3s, K5, K6 and K7
 beside their int8 rows (the *_int4 entries, counted apart). The kernel
 phase also prints, for the kernels redesigned for Hopper (REDESIGNED: K1,
@@ -1053,6 +1077,11 @@ def main() -> int:
     slices["words"] = timed("words", phase_words, params, tr, wave)
     slices["waveform_to_text"] = timed(
         "waveform_to_text", phase_waveform_to_text, tr, wave, text["greedy"])
+    slices["speculative"] = timed(
+        "speculative", phase_speculative, params, tr, wave,
+        dict(slices["greedy"], text=text["greedy"]))
+    slices["streaming"] = timed("streaming", phase_streaming, tr, waves)
+    slices["serve"] = timed("serve", phase_serve, tr, waves)
     # every kernel must run on some slice's main path, K8 and K9 at their
     # call sites
     launches = {n: sum(sl["launches"][n] for sl in slices.values())
@@ -1509,6 +1538,443 @@ def phase_waveform_to_text(tr, wave, greedy_text) -> dict:
             raise AssertionError(f"waveform_to_text never launched {name}")
     return dict(launches=launches, seconds=total,
                 xrt=len(wave) / sr / total, n_tokens=len(tokens))
+
+
+# ----------------------------------------------------------------------
+# The serving path: speculative decoding, streaming, the HTTP server.
+
+# Acceptance expected of a draft that is the target itself: its S = 1 steps
+# (K3) and the target's S = k verify (f32 einsum attention) round
+# differently, so a proposal is rejected only at a near tie.
+SELF_DRAFT_ACCEPTANCE = 0.95
+
+
+class _WidthCounts:
+    """Counts K1, K2 and K3 launches by model width (the last dimension of
+    the activation each wrapper gets) while active: the three names are
+    wrapped where `models/whisper.py` calls them."""
+
+    NAMES = (("flash_attention", "attention_bhsd"),
+             ("encoder_mlp", "fused_mlp_block"),
+             ("decode_attention", "decode_attention_stacked"))
+
+    def __enter__(self):
+        from whisper_tpu_torch.models import whisper as M
+
+        self.M, self.saved, self.counts = M, {}, {}
+        for kernel, attr in self.NAMES:
+            fn = getattr(M, attr)
+            self.saved[attr] = fn
+
+            def spy(x, *a, fn=fn, kernel=kernel, **kw):
+                before = fn.launches
+                out = fn(x, *a, **kw)
+                if fn.launches > before:
+                    key = (kernel, int(x.shape[-1]))
+                    self.counts[key] = self.counts.get(key, 0) + 1
+                return out
+            setattr(M, attr, spy)
+        return self
+
+    def __exit__(self, *exc):
+        for attr, fn in self.saved.items():
+            setattr(self.M, attr, fn)
+
+    def by_width(self) -> dict:
+        return {f"{k}@d{w}": n for (k, w), n in sorted(self.counts.items())}
+
+
+def _top2_gap(logits) -> float:
+    top = torch.topk(logits.float(), 2).values
+    return float(top[0] - top[1])
+
+
+def _first_divergence(tr, spec_tr, wave, opts) -> None:
+    """Report, then raise: the first window whose speculative tokens differ
+    from plain greedy's, the first differing position, and the top-2 logit
+    gap there on the plain S = 1 path (K3) and on the general path the
+    verify step takes, both fed the common prefix."""
+    from whisper_tpu_torch.models import whisper as M
+    from whisper_tpu_torch.models.whisper import encoder_forward
+
+    prompt, _ = tr._build_prompt(opts)
+    sup = opts.suppress_until_len
+    for i, _, _, window in tr._windows(wave, 16000, opts):
+        with torch.inference_mode():
+            plain = tr._decode(window, prompt, sup, opts)[0]
+            spec = spec_tr._decode(window, prompt, sup, opts)[0]
+            if plain == spec:
+                continue
+            j = next((n for n, (a, b) in enumerate(zip(plain, spec))
+                      if a != b), min(len(plain), len(spec)))
+            enc = encoder_forward(tr.params, tr._window_mel(
+                window[None, :], opts), tr.cfg)
+            toks = torch.tensor([plain[:j]], device="cuda")
+            n_prompt = len(prompt)
+            cache = M.init_cache(tr.params, enc, tr.cfg, batch=1,
+                                 cache_len=448)
+            logits, _ = M.decoder_step(tr.params, toks[:, :n_prompt], 0,
+                                       cache, tr.cfg)
+            for pos in range(n_prompt, j):
+                logits, _ = M.decoder_step(tr.params, toks[:, pos:pos + 1],
+                                           pos, cache, tr.cfg)
+            cache = M.init_cache(tr.params, enc, tr.cfg, batch=1,
+                                 cache_len=448)
+            general, _ = M.decoder_step(tr.params, toks, 0, cache, tr.cfg)
+        log(f"speculative: window {i} differs at position {j} (plain "
+            f"{plain[j:j + 3]}, speculative {spec[j:j + 3]}); top-2 logit "
+            f"gap there: plain S=1 path {_top2_gap(logits[0, -1]):.5f}, "
+            f"general path {_top2_gap(general[0, -1]):.5f}")
+        raise AssertionError(f"speculative text differs from greedy's "
+                             f"(window {i}, position {j})")
+    raise AssertionError("speculative text differs from greedy's, but no "
+                         "window's tokens do")
+
+
+def phase_speculative(params, tr, wave, greedy_info) -> dict:
+    """Greedy over the 35 s stream with a multilingual tiny draft (random
+    bf16 weights from SEED + 2, draft_k 4), cold and warm: the text of the
+    greedy slice, K1, K2 and K3 launched at both widths. Then a self-draft
+    (draft = the target's weights) over one window: plain greedy's tokens,
+    the acceptance rate, and a draft self cache with every row in
+    [P, length - 1) written and within PATH_RTOL of the target's."""
+    from whisper_tpu_torch.config import preset
+    from whisper_tpu_torch.decode import speculative as S
+    from whisper_tpu_torch.decode.greedy import greedy_decode
+    from whisper_tpu_torch.models.whisper import encoder_forward
+    from whisper_tpu_torch.params import init_params
+    from whisper_tpu_torch.pipeline.transcribe import (DecodeOptions,
+                                                       Transcriber)
+
+    sr, k = 16000, 4
+    opts = DecodeOptions(strategy="greedy", max_depth=100)
+    d_cfg = preset("tiny")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    draft = init_params(d_cfg, gen, dtype=torch.bfloat16)
+    spec_tr = Transcriber(params, tr.cfg, tr.tok, draft=(draft, d_cfg),
+                          draft_k=k)
+    runs = []
+    for run in ("cold", "warm"):
+        S.speculative_greedy_decode.iterations = 0
+        S.speculative_greedy_decode.accepted = 0
+        reset_counts()
+        with _WidthCounts() as widths:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            text, tokens = spec_tr.transcribe(wave, sr, opts,
+                                              on_chunk=lambda i, t: None)
+            torch.cuda.synchronize()
+            total = time.perf_counter() - t0
+        it = S.speculative_greedy_decode.iterations
+        acc = S.speculative_greedy_decode.accepted
+        if run == "cold":
+            launches, by_width, cold_text = launch_counts(), \
+                widths.by_width(), text
+        elif text != cold_text:
+            raise AssertionError("speculative: the warm run's text differs")
+        runs.append(dict(run=run, seconds=total, xrt=len(wave) / sr / total,
+                         verify_steps=it, accepted=acc,
+                         acceptance=acc / max(it * (k - 1), 1),
+                         n_tokens=len(tokens)))
+        log(f"speculative {run}: {len(wave) / sr:.1f} s audio, "
+            f"{len(tokens)} tokens, {it} verify steps, acceptance "
+            f"{runs[-1]['acceptance']:.4f} in {total:.3f} s = "
+            f"{len(wave) / sr / total:.2f}x real time (greedy slice "
+            + ", ".join(f"{r['run']} {r['seconds']:.3f} s"
+                        for r in greedy_info["runs"]) + ")")
+    log(f"speculative launches: {launches}; K1/K2/K3 by width: {by_width}")
+    if cold_text != greedy_info["text"]:
+        _first_divergence(tr, spec_tr, wave, opts)
+    for kernel in ("flash_attention", "encoder_mlp"):
+        for width in (384, 1280):
+            if by_width.get(f"{kernel}@d{width}", 0) == 0:
+                raise AssertionError(f"speculative: {kernel} never launched "
+                                     f"at d {width}")
+    if by_width.get("decode_attention@d384", 0) == 0:
+        raise AssertionError("speculative: the draft never launched K3")
+
+    # self-draft over the first window, through the decoder functions
+    window = next(tr._windows(wave, sr, opts))[3]
+    prompt, _ = tr._build_prompt(opts)
+    common = tr._decode_args(opts, opts.suppress_until_len, False, 50,
+                             False, 0)
+    S.speculative_greedy_decode.iterations = 0
+    S.speculative_greedy_decode.accepted = 0
+    caches = {}
+    with _WidthCounts() as widths, torch.inference_mode():
+        enc = encoder_forward(params, tr._window_mel(window[None, :], opts),
+                              tr.cfg)
+        want = greedy_decode(params, enc, prompt, tr.cfg, **common)
+        got = S.speculative_greedy_decode(
+            params, enc, prompt, tr.cfg, draft_params=params,
+            draft_enc_out=enc, draft_cfg=tr.cfg, n_draft=k,
+            caches=caches, **common)
+    n = int(got[1][0])
+    it = S.speculative_greedy_decode.iterations
+    acceptance = S.speculative_greedy_decode.accepted / max(it * (k - 1), 1)
+    same = (n == int(want[1][0])
+            and torch.equal(got[0][0, :n], want[0][0, :n]))
+    p = len(prompt)
+    d_rows = caches["draft"].self_k[0, :, p:n - 1].float()
+    t_rows = caches["target"].self_k[0, :, p:n - 1].float()
+    zero_rows = int((d_rows.abs().amax(dim=(0, 2)) == 0).sum())
+    cache_err = rel_err(d_rows, t_rows)
+    log(f"self-draft window: {n - p} tokens, {it} verify steps, acceptance "
+        f"{acceptance:.4f}, tokens equal to greedy: {same}; draft self "
+        f"cache rows [{p}, {n - 1}): {zero_rows} zero, {cache_err:.5f} "
+        f"relative L2 from the target's; K3 by width {widths.by_width()}")
+    if not same:
+        raise AssertionError("self-draft: tokens differ from greedy's")
+    if zero_rows or cache_err > PATH_RTOL:
+        raise AssertionError(f"self-draft: draft cache has {zero_rows} zero "
+                             f"rows, {cache_err} from the target's")
+    if acceptance < SELF_DRAFT_ACCEPTANCE:
+        raise AssertionError(f"self-draft acceptance {acceptance:.4f} < "
+                             f"{SELF_DRAFT_ACCEPTANCE}")
+    return dict(launches=launches, launches_by_width=by_width, runs=runs,
+                self_draft=dict(tokens=n - p, verify_steps=it,
+                                acceptance=acceptance, zero_rows=zero_rows,
+                                cache_rel_err=cache_err,
+                                launches_by_width=widths.by_width()))
+
+
+def _push_stream(st, wave, block: int):
+    """(segments confirmed by pushes and finish, seconds)."""
+    t0 = time.perf_counter()
+    segs = []
+    for i in range(0, len(wave), block):
+        segs.extend(st.push(wave[i:i + block]))
+    segs.extend(st.finish())
+    torch.cuda.synchronize()
+    return segs, time.perf_counter() - t0
+
+
+def phase_streaming(tr, waves) -> dict:
+    """One StreamingTranscriber (beam 5, max_depth 100) over 20 s pushed in
+    1 s blocks, a decode every 4 s; then 4 sessions on 4 threads over 10 s
+    each, sharing one StreamDecodeBatcher(batch_size=4), against their
+    unbatched runs (reported, not asserted). Random weights decode
+    repetition loops, which the compression-ratio gate would drop at
+    confirmation: the gate is off here, so confirmation itself runs."""
+    import threading
+
+    from whisper_tpu_torch.pipeline.batch import BatchTranscriber
+    from whisper_tpu_torch.pipeline.streaming import (StreamDecodeBatcher,
+                                                      StreamingTranscriber)
+    from whisper_tpu_torch.pipeline.transcribe import DecodeOptions
+
+    sr = 16000
+    opts = DecodeOptions(max_depth=100, compression_ratio_threshold=None)
+    if opts.strategy != "beam" or opts.beam_size != 5:
+        raise AssertionError(f"default options are not beam 5: {opts}")
+    reset_counts()
+    st = StreamingTranscriber(None, None, None, options=opts,
+                              min_step_seconds=4.0, transcriber=tr)
+    segs, total = _push_stream(st, waves[0][:20 * sr], sr)
+    launches = launch_counts()
+    _check_segment_times("streaming", segs, 20.0)
+    log(f"streaming: 20 s in 1 s blocks, {st.decodes} decodes, "
+        f"{len(segs)} segments in {total:.3f} s; text {st.text[:120]!r}")
+    if not segs:
+        raise AssertionError("streaming: nothing confirmed")
+
+    bt = BatchTranscriber(tr.params, tr.cfg, tr.tok, batch_size=4)
+    clips = [w[a * sr:(a + 10) * sr] for w, a in ((waves[0], 0),
+                                                 (waves[0], 20),
+                                                 (waves[1], 0),
+                                                 (waves[1], 20))]
+    ref = []
+    for clip in clips:
+        s = StreamingTranscriber(None, None, None, options=opts,
+                                 min_step_seconds=4.0, transcriber=tr)
+        ref.append([(x.text, x.tokens) for x in _push_stream(s, clip, sr)[0]])
+    batcher = StreamDecodeBatcher(bt, batch_size=4, max_wait_s=1.0,
+                                  timeout_s=120.0)
+    sessions = [StreamingTranscriber(None, None, None, options=opts,
+                                     min_step_seconds=4.0, transcriber=bt,
+                                     batcher=batcher) for _ in clips]
+    outs, errors = [None] * 4, []
+
+    def run(i):
+        try:
+            outs[i] = _push_stream(sessions[i], clips[i], sr)[0]
+        except Exception as e:  # reported below, fails the phase
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(4)]
+    reset_counts()
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=300)
+    concurrent_s = time.perf_counter() - t0
+    batcher.stop(timeout=10)
+    concurrent_launches = launch_counts()
+    if errors or any(th.is_alive() for th in threads):
+        raise AssertionError(f"streaming sessions failed or hung: {errors}")
+    if batcher._thread.is_alive():
+        raise AssertionError("streaming: the batcher's thread outlived stop()")
+    decodes = sum(s.decodes for s in sessions)
+    same = [[(x.text, x.tokens) for x in o] == r for o, r in zip(outs, ref)]
+    log(f"streaming x4: {decodes} decodes in {batcher.batches} batches "
+        f"({batcher.batched_requests} batched) in {concurrent_s:.3f} s; "
+        f"each session equal to its unbatched run: {same}")
+    if not batcher.batches < decodes:
+        raise AssertionError("streaming x4: no decodes shared a batch")
+    for name in ("flash_attention", "encoder_mlp", "decode_attention",
+                 "decode_attention_group", "permute"):
+        if launches[name] + concurrent_launches[name] == 0:
+            raise AssertionError(f"streaming never launched {name}")
+    return dict(launches={n: launches[n] + concurrent_launches[n]
+                          for n in launches},
+                seconds=total, decodes=st.decodes, segments=len(segs),
+                sessions=dict(decodes=decodes, batches=batcher.batches,
+                              seconds=concurrent_s,
+                              same_as_unbatched=same))
+
+
+def _wav_bytes(wave) -> bytes:
+    import io
+    import wave as wave_mod
+
+    buf = io.BytesIO()
+    with wave_mod.open(buf, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(16000)
+        w.writeframes((np.clip(wave, -1, 1) * 32767).astype("<i2").tobytes())
+    return buf.getvalue()
+
+
+def _http(url, path, body=None):
+    """(status, body bytes, seconds) of one request."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url + path, data=body,
+                                 method="GET" if body is None else "POST")
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return r.status, r.read(), time.perf_counter() - t0
+    except urllib.error.HTTPError as e:
+        return e.code, e.read(), time.perf_counter() - t0
+
+
+def phase_serve(tr, waves) -> dict:
+    """The server as the tests build it (a BatchTranscriber of batch 4 on
+    the greedy slice's weights, `serve.warm_up`, BatchingWorker,
+    make_handler, a threading HTTP server on a free port): 3 concurrent
+    greedy requests through the window pool, equal to `transcribe_many`; a
+    timestamped SRT request on the grouped path; a /stream session;
+    /healthz and /metrics; then both workers stopped and joined. The
+    launch counts are read around the requests, with the server quiet on
+    both sides."""
+    import threading
+    from http.server import ThreadingHTTPServer
+
+    from whisper_tpu_torch import serve as SV
+    from whisper_tpu_torch.pipeline.batch import BatchTranscriber
+
+    sr = 16000
+    bt = BatchTranscriber(tr.params, tr.cfg, tr.tok, batch_size=4)
+    warm_s = SV.warm_up(bt)  # what serve() runs before it reports ready
+    worker = SV.BatchingWorker(bt, max_batch=4, max_wait_s=0.05)
+    streams = SV.StreamSessions(bt, max_sessions=4)
+    worker.start()
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), SV.make_handler(
+        worker, sr, request_timeout_s=300.0, streams=streams))
+    server_thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server_thread.start()
+    url = f"http://127.0.0.1:{httpd.server_port}"
+    try:
+        audio = [waves[0], waves[1], synthetic_speech(10 * sr, SEED + 3)]
+        bodies = [_wav_bytes(w) for w in audio]
+        # what the server decodes: the WAV's 16-bit samples
+        heard = [np.frombuffer(b[44:], "<i2").astype(np.float32) / 32767.0
+                 for b in bodies]
+        results = [None] * 3
+        reset_counts()
+
+        def call(i):
+            results[i] = _http(url, "/transcribe?lang=en&greedy=1", bodies[i])
+
+        threads = [threading.Thread(target=call, args=(i,)) for i in range(3)]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=300)
+        pooled_s = time.perf_counter() - t0
+        status, srt, srt_s = _http(
+            url, "/transcribe?lang=en&greedy=1&timestamps=1&format=srt",
+            bodies[2])
+        if status != 200 or b"-->" not in srt:
+            raise AssertionError(f"serve: SRT request gave {status} {srt!r}")
+        code, out, _ = _http(url, "/stream/start?lang=en&greedy=1", b"")
+        sid = json.loads(out)["session"]
+        s16 = (np.clip(audio[2], -1, 1) * 32767).astype("<i2")
+        t0 = time.perf_counter()
+        for i in range(0, len(s16), 2 * sr):
+            code, out, _ = _http(url, f"/stream/{sid}/push?format=s16",
+                                 s16[i:i + 2 * sr].tobytes())
+            if code != 200:
+                raise AssertionError(f"serve: stream push gave {code}")
+        code, out, _ = _http(url, f"/stream/{sid}/finish", b"")
+        stream_s = time.perf_counter() - t0
+        if code != 200:
+            raise AssertionError(f"serve: stream finish gave {code}")
+        stream_text = json.loads(out)["text"]
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        health = json.loads(_http(url, "/healthz")[1])
+        metrics = {}
+        for line in _http(url, "/metrics")[1].decode().splitlines():
+            if line and not line.startswith("#"):
+                name, val = line.rsplit(" ", 1)
+                metrics[name] = float(val)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        t0 = time.perf_counter()
+        worker.stop(timeout=10)
+        streams.stop(timeout=10)
+        stop_s = time.perf_counter() - t0
+    if worker.is_alive() or (streams.batcher._thread is not None
+                             and streams.batcher._thread.is_alive()):
+        raise AssertionError("serve: a worker outlived stop()")
+    if any(r is None or r[0] != 200 for r in results):
+        raise AssertionError(f"serve: pooled requests gave "
+                             f"{[r and r[:2] for r in results]}")
+    texts = [json.loads(r[1])["text"] for r in results]
+    req = SV._Request(np.zeros(1, np.float32), "en", True)
+    with torch.inference_mode():
+        want = [t for t, _ in bt.transcribe_many(
+            heard, options=SV.BatchingWorker._opts(req))]
+    latencies = [r[2] for r in results]
+    log(f"serve: 3 pooled greedy requests ({[len(w) / sr for w in audio]} s) "
+        f"in {pooled_s:.3f} s, latencies "
+        + ", ".join(f"{x:.3f}" for x in latencies)
+        + f" s; SRT {srt_s:.3f} s; stream 10 s in 2 s blocks {stream_s:.3f} "
+        f"s ({stream_text!r}); healthz {health}; batches_total "
+        f"{metrics['whisper_batches_total']:.0f}; stopped in {stop_s:.3f} s; "
+        f"warm-up {warm_s:.3f} s")
+    log(f"serve launches: {launches}")
+    if texts != want:
+        raise AssertionError("serve: pooled texts differ from transcribe_many's")
+    if metrics["whisper_batches_total"] < 1 or health["status"] != "ok":
+        raise AssertionError(f"serve: metrics {metrics}, health {health}")
+    if stop_s > 10.0:
+        raise AssertionError(f"serve: stop and join took {stop_s:.1f} s")
+    for name in ("flash_attention", "encoder_mlp", "decode_attention"):
+        if launches[name] == 0:
+            raise AssertionError(f"serve never launched {name}")
+    return dict(launches=launches, pooled_seconds=pooled_s,
+                latencies=latencies, srt_seconds=srt_s,
+                stream_seconds=stream_s, stop_seconds=stop_s,
+                warm_up_seconds=warm_s,
+                batches_total=metrics["whisper_batches_total"])
 
 
 def _forcing_hook(n_prompt: int, eot_id: int, eot_at=None):

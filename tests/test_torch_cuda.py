@@ -1416,6 +1416,41 @@ def test_w8a8_big_route_raises_on_tiles_it_does_not_take(gen, monkeypatch):
         KQ.quantized_matmul_big(x, wq, scale)
 
 
+def test_tiny_draft_runs_the_kernels_at_d384(gen, tmp_path):
+    """`Transcriber(draft=...)` with tiny's widths (d 384, 6 heads of 64,
+    4 decoder layers) for both models, random bf16 weights: the greedy
+    window decodes speculatively, K1, K2 and K3 launch at d 384, and the
+    text equals the draftless greedy's."""
+    from whisper_tpu_torch.config import preset
+    from whisper_tpu_torch.decode import speculative as S
+    from whisper_tpu_torch.params import init_params
+    from whisper_tpu_torch.pipeline.transcribe import (DecodeOptions,
+                                                       Transcriber)
+    from whisper_tpu_torch.text.tokenizer import (
+        WhisperTokenizer, build_full_scale_tokenizer_json)
+
+    cfg = preset("tiny")
+    build_full_scale_tokenizer_json(str(tmp_path / "tok.json"))
+    tok = WhisperTokenizer(str(tmp_path / "tok.json"))
+    params = init_params(cfg, gen, dtype=torch.bfloat16)
+    draft = init_params(cfg, torch.Generator(device="cuda").manual_seed(1),
+                        dtype=torch.bfloat16)
+    t = np.arange(5 * 16000) / 16000.0
+    wave = (0.3 * np.sin(2 * np.pi * 220.0 * t)).astype(np.float32)
+    opt = DecodeOptions(strategy="greedy", max_depth=40)
+    plain = Transcriber(params, cfg, tok).transcribe(wave, 16000, opt)
+    spec = Transcriber(params, cfg, tok, draft=(draft, cfg), draft_k=4)
+    names = ((KA.attention_bhsd, "launches"), (KB.fused_mlp_block, "launches"),
+             (KC.decode_attention_stacked, "launches"))
+    before = [getattr(f, a) for f, a in names]
+    S.speculative_greedy_decode.iterations = 0
+    got = spec.transcribe(wave, 16000, opt)
+    launched = [getattr(f, a) - b for (f, a), b in zip(names, before)]
+    assert S.speculative_greedy_decode.iterations > 0
+    assert all(n > 0 for n in launched), launched
+    assert got == plain
+
+
 def test_profiler_records_cuda_events_after_the_cli_tests(gen):
     """In this process, after the CLI tests above, the process's first
     profiling sessions: two that run one PyTorch op, then two that run one

@@ -48,6 +48,9 @@ def _port_modules():
     "whisper_tpu_torch.ops.kernels.dequant_matmul",
     "whisper_tpu_torch.align, whisper_tpu_torch.io.convert_pt, "
     "whisper_tpu_torch.io.mpk, whisper_tpu_torch.decode.host_beam",
+    "whisper_tpu_torch.decode.speculative, "
+    "whisper_tpu_torch.pipeline.streaming, whisper_tpu_torch.serve, "
+    "whisper_tpu_torch.utils.logging",
 ])
 def test_import_leaves_out_jax_triton_and_cuda_build(modules):
     out = _run(

@@ -429,7 +429,7 @@ def test_cli_flags_match_jax_cli(cli_dir, monkeypatch, capsys, request,
 @pytest.mark.parametrize("flags,message", [
     (["--format", "srt"], "requires --timestamps"),
     (["--clip", "0,1", "--parallel-windows"], "incompatible"),
-    (["--greedy", "--draft", "dump"], "item 11"),
+    (["--draft", "dump"], "--draft requires --greedy"),
     (["--clip", "2,1"], "Bad --clip"),
     (["--timestamps", "--parallel-windows"], "incompatible"),
     (["--condition-on-previous-text", "--parallel-windows"],

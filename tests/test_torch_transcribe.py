@@ -363,9 +363,12 @@ def test_unported_options_raise(setup, change, ported):
 
 
 def test_draft_raises(setup):
+    """Speculative decoding is ported (tests/test_torch_speculative.py);
+    a draft still raises on a block size below 1, as in JAX."""
     params, cfg, tok, _ = setup
-    with pytest.raises(NotImplementedError, match="item 11"):
-        TT.Transcriber(params, cfg, tok, draft=(params, cfg), device="cpu")
+    with pytest.raises(ValueError, match="draft_k"):
+        TT.Transcriber(params, cfg, tok, draft=(params, cfg), draft_k=0,
+                       device="cpu")
 
 
 @pytest.fixture(scope="module")

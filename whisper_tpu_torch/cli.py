@@ -7,6 +7,7 @@
     python -m whisper_tpu_torch.cli quant-check <model>
     python -m whisper_tpu_torch.cli convert <dump dir> [--out NAME] [--mpk]
     python -m whisper_tpu_torch.cli convert-pt <model.pt> <out name>
+    python -m whisper_tpu_torch.cli serve <model> [--port 8000] ...
 
 Keeps the reference's positional contract (whisper-burn
 src/bin/transcribe/main.rs:85-94) and its progress lines, as
@@ -25,7 +26,9 @@ fallback ladder), `--no-speech-threshold`, `--vad`, `--timestamps` with
 fallback ladder with `--temperature a,b` or `--no-speech-threshold`) and
 `--words` (word timings with `--timestamps`: a `words` list per JSON
 segment, word lines in the text form, highlighted cues with `--format
-vtt`); `--draft` exits 1 naming its ROADMAP item (11). `detect-lang`
+vtt`) and `--draft MODEL --draft-k N` (speculative greedy decoding with a
+smaller model sharing the tokenizer; requires `--greedy`, refused with
+`--parallel-windows`). `detect-lang`
 prints the JSON line of `whisper_tpu.cli detect-lang`.
 `transcribe-many` (as `whisper_tpu.cli transcribe-many`) decodes several
 files' full windows together in batches of `--batch-size` and writes
@@ -39,7 +42,8 @@ the reference's Burn `<name>.mpk.gz`) and `convert-pt` (an OpenAI or
 HuggingFace `.pt`/`.bin` checkpoint to the same pair, `--dump-tree` adding
 the npy tree, `--alignment-heads` the word-timing heads) run on the host
 and write what `whisper_tpu.cli` writes, with its progress lines and exit
-codes.
+codes. `serve` runs the HTTP server of `whisper_tpu_torch.serve` (its
+flags, `--device` included).
 """
 
 from __future__ import annotations
@@ -225,8 +229,14 @@ def cmd_transcribe(argv) -> int:
                         "(BatchTranscriber; identical output; a temperature "
                         "list runs the batched fallback ladder)")
     p.add_argument("--draft", default=None, metavar="MODEL",
-                   help="speculative decoding (not ported: ROADMAP queue 1 "
-                        "item 11)")
+                   help="speculative decoding (with --greedy): a smaller "
+                        "model sharing the tokenizer (e.g. multilingual "
+                        "tiny for large-v2) drafts tokens, the main model "
+                        "verifies them in one step -- identical output, "
+                        "fewer large-model steps on the B=1 latency path")
+    p.add_argument("--draft-k", type=int, default=4,
+                   help="speculative block size: 1 committed + k-1 drafted "
+                        "tokens per verify step (default 4)")
     p.add_argument("--resample", action="store_true",
                    help="resample input to 16 kHz instead of rejecting it")
     _add_device_args(p)
@@ -234,10 +244,6 @@ def cmd_transcribe(argv) -> int:
     args = p.parse_args(argv)
 
     if _no_card(args.device):
-        return 1
-    if args.draft is not None:
-        print("--draft (speculative decoding) is ROADMAP queue 1 item 11, "
-              "not ported to whisper_tpu_torch yet", file=sys.stderr)
         return 1
 
     from .config import WhisperConfig
@@ -263,13 +269,33 @@ def cmd_transcribe(argv) -> int:
     except Exception as e:
         print(f"Failed to load whisper model file: {e}", file=sys.stderr)
         return 1
+    draft = None
+    if args.draft is not None:
+        if not args.greedy:
+            print("--draft requires --greedy (speculative decoding is "
+                  "exact only at temperature-0 greedy)", file=sys.stderr)
+            return 1
+        if args.parallel_windows:
+            print("--draft is incompatible with --parallel-windows "
+                  "(speculative decoding is the B=1 latency path)",
+                  file=sys.stderr)
+            return 1
+        d_cfg_path = f"{args.draft}.cfg"
+        d_cfg = (WhisperConfig.load(d_cfg_path)
+                 if os.path.exists(d_cfg_path) else None)
+        try:
+            draft = checkpoint.load_params(args.draft, d_cfg)
+        except Exception as e:
+            print(f"Failed to load draft model file: {e}", file=sys.stderr)
+            return 1
     if args.lang != "auto" and args.lang not in LANGUAGES_V3:
         print(f"Invalid language abbreviation: {args.lang}", file=sys.stderr)
         return 1
 
     try:
         t = Transcriber(params, cfg, tokenizer, dtype=_dtype(args),
-                        device=args.device)
+                        device=args.device, draft=draft,
+                        draft_k=args.draft_k)
     except ValueError as e:
         print(f"Failed to set up the model: {e}", file=sys.stderr)
         return 1
@@ -691,13 +717,20 @@ def cmd_convert_pt(argv) -> int:
     return 0
 
 
+def cmd_serve(argv) -> int:
+    """The HTTP server (`whisper_tpu_torch.serve.main`)."""
+    from .serve import main as serve_main
+
+    return serve_main(argv)
+
+
 COMMANDS = {"transcribe": cmd_transcribe,
             "transcribe-many": cmd_transcribe_many,
             "detect-lang": cmd_detect_lang,
             "eval": cmd_eval,
             "quant-check": cmd_quant_check,
             "convert": cmd_convert,
-            "convert-pt": cmd_convert_pt}
+            "convert-pt": cmd_convert_pt, "serve": cmd_serve}
 
 
 def main(argv=None) -> int:
@@ -711,7 +744,8 @@ def main(argv=None) -> int:
               "--format "
               "txt|json|srt|vtt|tsv]] [--condition-on-previous-text] "
               "[--clip S0,E0,...] [--initial-prompt TEXT] "
-              "[--parallel-windows] [--kv-quant] [--self-quant] [--resample] "
+              "[--parallel-windows] [--draft MODEL [--draft-k N]] "
+              "[--kv-quant] [--self-quant] [--resample] "
               "[--device cuda|cpu] [--dtype float32|bfloat16] "
               "[--tokenizer PATH]\n"
               "       python -m whisper_tpu_torch.cli transcribe-many <model> "
@@ -734,7 +768,9 @@ def main(argv=None) -> int:
               "       python -m whisper_tpu_torch.cli convert <dump dir> "
               "[--out NAME] [--mpk]\n"
               "       python -m whisper_tpu_torch.cli convert-pt <model.pt> "
-              "<out name> [--dump-tree] [--alignment-heads JSON|PATH]",
+              "<out name> [--dump-tree] [--alignment-heads JSON|PATH]\n"
+              "       python -m whisper_tpu_torch.cli serve <model> "
+              "[--port N] [--batch-size B] [--device cuda|cpu] ...",
               file=sys.stderr)
         return 2
     return COMMANDS[argv[0]](argv[1:])

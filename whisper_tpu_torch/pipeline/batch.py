@@ -25,8 +25,13 @@ word (its CLI refuses it with `--parallel-windows`), and the port's raises
 ValueError instead; `transcribe_many_with_timestamps` runs each stream
 through the sequential path, as JAX's does. Clip ranges raise ValueError
 on the batched path (JAX's batched entries ignore them; its CLI refuses
-`--clip` with `--parallel-windows`). `WindowPool` and `BatchingWorker` are
-not ported yet (ROADMAP queue 1 item 13).
+`--clip` with `--parallel-windows`).
+
+`WindowPool` is the open-ended version of `transcribe_many` that the
+server's `BatchingWorker` (serve.py) drives: requests join at any time,
+each `step()` decodes one batch of `batch_size` full windows drawn across
+every admitted request, padded as `_decode_windows` pads a short batch,
+and finished requests are stitched as `transcribe_many` stitches them.
 """
 
 from __future__ import annotations
@@ -314,4 +319,179 @@ class BatchTranscriber(Transcriber):
                 self._attach_words(np.asarray(waveforms[s], np.float32),
                                    sample_rate, segs, opt)
             out.append((" ".join(x.text.strip() for x in segs), segs))
+        return out
+
+
+class WindowPool:
+    """Continuous batching at WINDOW granularity (batch.py:427-620 of the
+    JAX package).
+
+    Requests are `add`ed at any time; every `step()` decodes ONE batch of
+    pending full windows drawn across all admitted requests (newest
+    included), then the tail windows of requests whose full windows are
+    done (one at a time, through `_decode`), and returns the requests that
+    are complete, stitched. A short batch is padded to `batch_size` by
+    repeating its first window, as `_decode_windows` pads it, so the
+    encoder's row count -- and with it the GEMM shapes and the W8A8 kernel
+    route -- are `transcribe_many`'s, and so are the texts and tokens.
+    Scope: the plain single-temperature path; the ladder, timestamps,
+    prev-text conditioning and clip ranges take the grouped path
+    (`poolable()` says which). `step()` enters `torch.inference_mode()`
+    itself: the serving worker calls it on its own thread."""
+
+    def __init__(self, transcriber: BatchTranscriber,
+                 options: Optional[DecodeOptions] = None,
+                 sample_rate: int = SAMPLE_RATE):
+        opt = options or DecodeOptions()
+        reason = self.unpoolable_reason(opt)
+        if reason:
+            raise ValueError(f"WindowPool: {reason}")
+        _check_supported(opt)
+        self.t = transcriber
+        self.opt = opt
+        self.sr = sample_rate
+        self._n_window = max_waveform_samples(
+            transcriber.cfg.encoder_ctx_size - opt.padding)
+        overlap = int(sample_rate * opt.chunk_overlap_seconds)
+        if overlap >= self._n_window:
+            overlap = self._n_window // 2
+        self._overlap = overlap
+        self._prompt, self._n_cond = transcriber._build_prompt(opt)
+        self._sup_len = opt.suppress_until_len + self._n_cond
+        # a 1-tuple temperature is poolable (no ladder)
+        self._temperature = float(Transcriber._ladder_temps(opt)[0][0])
+        self._queue: List[Tuple[object, int, np.ndarray]] = []  # full wins
+        self._tails: dict = {}  # rid -> [(w, chunk)]
+        self._results: dict = {}  # rid -> {w: tokens}
+        self._n_windows: dict = {}  # rid -> window count
+        self._undecoded: dict = {}  # rid -> full + tail windows left
+        self._order: List[object] = []  # admission order
+
+    @staticmethod
+    def unpoolable_reason(opt: DecodeOptions) -> Optional[str]:
+        _, use_ladder = Transcriber._ladder_temps(opt)
+        if use_ladder:
+            return "temperature ladder re-decodes failing windows"
+        if opt.no_speech_threshold is not None:
+            return "no-speech gate needs the quality decode"
+        if opt.timestamps:
+            return "timestamped decoding uses the segment pipeline"
+        if opt.condition_on_previous_text:
+            return "prev-text conditioning makes windows sequential"
+        if opt.clip_timestamps is not None:
+            return "clip ranges transcribe independently"
+        return None
+
+    @classmethod
+    def poolable(cls, opt: DecodeOptions) -> bool:
+        return cls.unpoolable_reason(opt) is None
+
+    def add(self, rid, waveform: np.ndarray) -> None:
+        """Admit one request's audio; its windows join the shared pool."""
+        if rid in self._n_windows:
+            raise ValueError(f"duplicate request id {rid!r}")
+        wave = np.asarray(waveform, np.float32)
+        self._results[rid] = {}
+        self._n_windows[rid] = 0
+        self._undecoded[rid] = 0
+        self._tails[rid] = []
+        self._order.append(rid)
+        for w, (start, end) in enumerate(window_waveform(
+                wave, self.sr, self._n_window, self._overlap)):
+            chunk = np.ascontiguousarray(wave[start:end])
+            self._n_windows[rid] = w + 1
+            if self.opt.vad and vad.is_silent(
+                    chunk, self.sr, self.opt.vad_threshold_db,
+                    self.opt.vad_min_speech_seconds):
+                continue  # stitching skips missing windows
+            if len(chunk) == self._n_window:
+                self._queue.append((rid, w, chunk))
+                self._undecoded[rid] += 1
+            elif len(chunk) >= 400:
+                self._tails[rid].append((w, chunk))
+                self._undecoded[rid] += 1
+
+    def cancel(self, rid) -> None:
+        """Drop a request's still-queued windows (an abandoned waiter)."""
+        self._queue = [q for q in self._queue if q[0] != rid]
+        self._tails.pop(rid, None)
+        self._undecoded.pop(rid, None)
+        self._n_windows.pop(rid, None)
+        self._results.pop(rid, None)
+        if rid in self._order:
+            self._order.remove(rid)
+
+    def pending(self) -> int:
+        """Windows (full + tail) not yet decoded."""
+        return len(self._queue) + sum(len(v) for v in self._tails.values())
+
+    def step(self) -> List[Tuple[object, str, List[int]]]:
+        """Decode ONE batch of pending windows (and the tails whose
+        request's full windows are done); returns the newly completed
+        requests as [(rid, text, tokens)] in admission order."""
+        opt, t = self.opt, self.t
+        with torch.inference_mode():
+            if self._queue:
+                group = self._queue[:t.batch_size]
+                self._queue = self._queue[t.batch_size:]
+                waves = np.stack([g[2] for g in group])
+                if len(group) < t.batch_size:
+                    waves = np.concatenate(
+                        [waves, np.repeat(waves[:1],
+                                          t.batch_size - len(group), axis=0)])
+                toks, lengths, _, _ = t._decode_batch(
+                    waves, self._prompt, self._sup_len, opt,
+                    temperature=self._temperature, sot_pos=self._n_cond)
+                for j, (rid, w, _) in enumerate(group):
+                    if rid not in self._undecoded:  # cancelled mid-flight
+                        continue
+                    self._results[rid][w] = [
+                        int(x) for x in toks[j, :lengths[j]]][self._n_cond:]
+                    self._undecoded[rid] -= 1
+            # tails take the single-window path once their request's full
+            # windows are done (as `_decode_windows` decodes them last)
+            for rid in list(self._order):
+                if self._undecoded.get(rid, 1) == len(
+                        self._tails.get(rid, ())):
+                    for w, chunk in self._tails.pop(rid, ()):
+                        self._results[rid][w] = t._decode(
+                            chunk, self._prompt, self._sup_len,
+                            opt)[0][self._n_cond:]
+                        self._undecoded[rid] -= 1
+        return self.sweep()
+
+    def sweep(self) -> List[Tuple[object, str, List[int]]]:
+        """Collect the requests whose windows are all decoded (no
+        decoding), stitched as `transcribe_many` stitches."""
+        opt, t = self.opt, self.t
+        done: List[Tuple[object, str, List[int]]] = []
+        for rid in list(self._order):
+            if self._undecoded.get(rid) != 0:
+                continue
+            res = self._results.pop(rid)
+            tokens: List[int] = []
+            for w in range(self._n_windows[rid]):
+                new_tokens = res.get(w)
+                if new_tokens is None:
+                    continue
+                spliced = find_chunk_overlap(tokens, new_tokens,
+                                             opt.stitch_max_offsets,
+                                             opt.stitch_min_overlaps)
+                if spliced is not None:
+                    prev_index, curr_index = spliced
+                    tokens = tokens[:prev_index] + new_tokens[curr_index:]
+                else:
+                    tokens.extend(new_tokens)
+            done.append((rid, t.tok.decode(tokens, skip_special=True),
+                         tokens))
+            self._order.remove(rid)
+            del self._n_windows[rid], self._undecoded[rid]
+        return done
+
+    def flush(self) -> List[Tuple[object, str, List[int]]]:
+        """step() until the pool drains; returns every completion."""
+        out: List[Tuple[object, str, List[int]]] = []
+        while self.pending():
+            out.extend(self.step())
+        out.extend(self.sweep())  # zero-window requests
         return out

@@ -10,9 +10,9 @@ prompt, suppression while seq len <= 5, token-overlap stitching, and the
 greedy, plus what the JAX `Transcriber` adds beyond the reference: the
 temperature fallback ladder with its quality gates, timestamped segments
 (`transcribe_with_timestamps`) with word timings (`align.py`), clip
-ranges, language detection, `initial_prompt` and
-`condition_on_previous_text`; and `waveform_to_text`, the reference's
-one-shot entry.
+ranges, language detection, `initial_prompt`,
+`condition_on_previous_text` and speculative greedy decoding with a draft
+model (`draft=`); and `waveform_to_text`, the reference's one-shot entry.
 
 The JAX pipeline dispatches window i+1 before fetching window i; this port
 runs windows one after another (the result is the same: windows are
@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import dataclasses
 import logging
+import threading
 import time
 import zlib
 from typing import Callable, List, Optional, Sequence, Tuple
@@ -38,6 +39,7 @@ from ..align import WordTiming, find_word_timings
 from ..config import SAMPLE_RATE, WhisperConfig
 from ..decode.beam import beam_search
 from ..decode.greedy import greedy_decode
+from ..decode.speculative import speculative_greedy_decode
 from ..models.whisper import encoder_forward
 from ..ops.audio import max_waveform_samples, prep_audio
 from ..params import ParamTree, from_numpy_tree
@@ -206,16 +208,19 @@ class Transcriber:
     bfloat16, so "flash" on CUDA with other weights raises ValueError.
     `matmul_precision="highest"` is the f32 parity mode: it turns TF32 off
     for matmuls and cuDNN convolutions, process-wide.
+
+    `draft`: optional (params, cfg) of a smaller model sharing the
+    tokenizer (multilingual tiny for large-v2). Greedy temperature-0
+    windows then decode speculatively (`decode/speculative.py`, the draft
+    proposing `draft_k - 1` tokens a target step) with the same output;
+    beam search, sampling rungs and the batched paths ignore it, as in
+    JAX. The draft's weights go to `device` and `dtype`.
     """
 
     def __init__(self, params, cfg: WhisperConfig, tokenizer, dtype=None,
                  attention: str = "auto",
                  matmul_precision: Optional[str] = None, device=None,
-                 draft=None):
-        if draft is not None:
-            raise NotImplementedError(
-                "speculative decoding (draft=) is ROADMAP queue 1 item 11, "
-                "not ported yet")
+                 draft=None, draft_k: int = 4):
         self.device = torch.device("cuda" if device is None else device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -263,6 +268,60 @@ class Transcriber:
         except KeyError:
             self._ts_begin = None
             self._suppress_ts = self._suppress
+        # serializes decodes from threads that share this Transcriber (the
+        # streaming sessions of one server, pipeline/streaming.py)
+        self._decode_lock = threading.Lock()
+        self._draft_params = None
+        self._draft_cfg: Optional[WhisperConfig] = None
+        self._draft_k = int(draft_k)
+        if draft is not None:
+            self._draft_params, self._draft_cfg = self._load_draft(
+                draft, dtype, attention)
+
+    def _load_draft(self, draft, dtype, attention: str):
+        """(params, cfg) of the draft model, on the Transcriber's device and
+        dtype, after the JAX checks (transcribe.py:334-370): a shared
+        vocabulary, the same mel frontend and draft_k >= 1."""
+        d_params, d_cfg = draft
+        cfg = self.cfg
+        if d_cfg.text_decoder_config.n_vocab != cfg.text_decoder_config.n_vocab:
+            raise ValueError(
+                f"draft model vocab {d_cfg.text_decoder_config.n_vocab} != "
+                f"target vocab {cfg.text_decoder_config.n_vocab} -- the "
+                "draft must share the tokenizer (e.g. multilingual tiny for "
+                "large-v2, NOT tiny.en)")
+        if d_cfg.n_mels != cfg.n_mels:
+            raise ValueError(
+                f"draft n_mels {d_cfg.n_mels} != target n_mels {cfg.n_mels}: "
+                "both models must consume the same mel frontend")
+        if self._draft_k < 1:
+            raise ValueError("draft_k must be >= 1")
+        if isinstance(d_params, ParamTree):
+            d_params = d_params.to(device=self.device)
+            if dtype is not None:
+                d_params = d_params.to(dtype=dtype)
+        else:
+            d_params = from_numpy_tree(d_params, self.device, dtype)
+        d_dtype = d_params["encoder"]["conv1_w"].dtype
+        if (attention == "flash" and self.device.type == "cuda"
+                and d_dtype != torch.bfloat16):
+            raise ValueError(
+                f"the draft's weights are {d_dtype}; the kernels take "
+                "bfloat16: pass dtype=torch.bfloat16")
+        return d_params, dataclasses.replace(d_cfg, attention=attention)
+
+    def _speculates(self, opt: DecodeOptions, temperature: float,
+                    n_prompt: int) -> bool:
+        """Whether a window decodes speculatively (transcribe.py:507-523):
+        a draft is attached, the window is greedy at temperature 0, and
+        prompt + max_depth + draft_k fits both decoder contexts; an
+        oversized prompt takes the plain greedy loop instead."""
+        if (self._draft_cfg is None or opt.strategy != "greedy"
+                or temperature != 0.0):
+            return False
+        room = min(self.cfg.text_decoder_config.n_text_ctx,
+                   self._draft_cfg.text_decoder_config.n_text_ctx)
+        return n_prompt + opt.max_depth + self._draft_k <= room
 
     def _build_prompt(self, opt: DecodeOptions, prev_tokens=()):
         """Prompt ids (P,) plus the conditioning-prefix length: with
@@ -286,18 +345,23 @@ class Transcriber:
             n_cond = len(cond)
         return torch.tensor(ids, dtype=torch.long, device=self.device), n_cond
 
-    def _encode_windows(self, waves: np.ndarray, opt: DecodeOptions
-                        ) -> torch.Tensor:
-        """(B, n) windows -> encoder output: log-mel with a per-window
-        dynamic-range clamp (a window's mel does not depend on its batch
-        mates), clipped to (encoder_ctx - padding) frames and zero-padded
-        by `padding` frames (transcribe.py:548-560, batch.py:114-122)."""
+    def _window_mel(self, waves: np.ndarray, opt: DecodeOptions
+                    ) -> torch.Tensor:
+        """(B, n) windows -> log-mel with a per-window dynamic-range clamp
+        (a window's mel does not depend on its batch mates), clipped to
+        (encoder_ctx - padding) frames and zero-padded by `padding` frames
+        (transcribe.py:548-560, batch.py:114-122)."""
         cfg = self.cfg
         x = torch.from_numpy(np.ascontiguousarray(waves)).to(self.device)
         mel = prep_audio(x, per_sample_max=True, n_mels=cfg.n_mels)
         keep = min(mel.shape[2], cfg.encoder_ctx_size - opt.padding)
-        mel = F.pad(mel[:, :, :keep], (0, opt.padding))
-        return encoder_forward(self.params, mel, cfg)
+        return F.pad(mel[:, :, :keep], (0, opt.padding))
+
+    def _encode_windows(self, waves: np.ndarray, opt: DecodeOptions
+                        ) -> torch.Tensor:
+        """(B, n) windows -> encoder output of `_window_mel`."""
+        return encoder_forward(self.params, self._window_mel(waves, opt),
+                               self.cfg)
 
     def _decode_args(self, opt: DecodeOptions, suppress_until_len: int,
                      timestamps: bool, max_initial_ts_idx: int,
@@ -332,16 +396,25 @@ class Transcriber:
         """One window, as the JAX window program runs it
         (transcribe.py:548-609): log-mel, clip + pad, encoder, then beam
         search at temperature 0 with strategy "beam", else greedy (sampling
-        at temperature > 0 with `generator`). Returns (the decoded
-        sequence, prompt included; sum_logp; p(<|nospeech|>) at `sot_pos`
-        when `quality`, -1 when not asked or when the tokenizer lacks the
-        token)."""
-        enc = self._encode_windows(window[None, :], opt)
+        at temperature > 0 with `generator`), speculative greedy when a
+        draft is attached and `_speculates` allows it (the draft encodes
+        the same mel). Returns (the decoded sequence, prompt included;
+        sum_logp; p(<|nospeech|>) at `sot_pos` when `quality`, -1 when not
+        asked or when the tokenizer lacks the token)."""
+        mel = self._window_mel(window[None, :], opt)
+        enc = encoder_forward(self.params, mel, self.cfg)
         common = self._decode_args(opt, suppress_until_len, timestamps,
                                    max_initial_ts_idx, quality, sot_pos)
         if opt.strategy == "beam" and temperature == 0.0:
             out = beam_search(self.params, enc, prompt, self.cfg,
                               beam_size=opt.beam_size, **common)
+        elif self._speculates(opt, temperature, int(prompt.shape[0])):
+            enc_d = encoder_forward(self._draft_params, mel, self._draft_cfg)
+            out = speculative_greedy_decode(
+                self.params, enc, prompt, self.cfg,
+                draft_params=self._draft_params, draft_enc_out=enc_d,
+                draft_cfg=self._draft_cfg, n_draft=self._draft_k, **common)
+            out = [x[0] for x in out]
         else:
             out = greedy_decode(self.params, enc, prompt, self.cfg,
                                 temperature=temperature, generator=generator,
