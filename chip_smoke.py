@@ -110,7 +110,23 @@ Phases, in order; any failure raises and the script exits non-zero:
                 `transcribe_many`'s; a timestamped SRT request; a /stream
                 session of 10 s in 2 s s16 blocks; /healthz and /metrics
                 (batches_total >= 1); both workers stopped and joined
-                within 10 s.
+                within 10 s;
+ 20. finetune -- K1 (`attention_bhsd`) and K2 (`fused_mlp_block`) on
+                CUDA bf16 inputs that require grad must raise (no
+                backward) and launch nothing, and launch once each under
+                `torch.no_grad()`; then large-v2 in f32 (random weights from
+                SEED + 3): one train step from `build_batch` (batch 1, one
+                15 s window) without and with remat, each twice from a
+                fresh optimizer state at learning rate 0, loss and
+                grad_norm within REMAT_RTOL, seconds, peak memory and
+                rates; the `finetune` command as a user runs it on that
+                checkpoint over 4 clips (4 steps, batch 2, remat, a train
+                state at step 3): 4 finite losses, the last below the
+                first, then `--resume` of that state; the tuned
+                checkpoint in bf16 transcribed greedy on the card (K1, K2,
+                K3 launched) and held against the plain path within
+                PATH_RTOL. The phase's files (~37 GB written) go to a
+                temporary directory, deleted at its end.
 The kernel phase holds the packed-int4 variants of K3s, K5, K6 and K7
 beside their int8 rows (the *_int4 entries, counted apart). The kernel
 phase also prints, for the kernels redesigned for Hopper (REDESIGNED: K1,
@@ -1082,6 +1098,7 @@ def main() -> int:
         dict(slices["greedy"], text=text["greedy"]))
     slices["streaming"] = timed("streaming", phase_streaming, tr, waves)
     slices["serve"] = timed("serve", phase_serve, tr, waves)
+    slices["finetune"] = timed("finetune", phase_finetune, tr.tok)
     # every kernel must run on some slice's main path, K8 and K9 at their
     # call sites
     launches = {n: sum(sl["launches"][n] for sl in slices.values())
@@ -1977,6 +1994,351 @@ def phase_serve(tr, waves) -> dict:
                 batches_total=metrics["whisper_batches_total"])
 
 
+# ----------------------------------------------------------------------
+# Training: phase 20, "finetune".
+# ----------------------------------------------------------------------
+
+# The remat step recomputes each block's forward in the backward pass with
+# the same operations on the same inputs: loss and grad_norm within 1e-5
+# relative of the step without remat.
+REMAT_RTOL = 1e-5
+# the transcript of every training clip: 24 pieces of the full-scale
+# tokenizer's synthetic vocabulary, as words of `word_tokenizer_json`
+FT_TEXT = " ".join(f"w{i}" for i in np.random.default_rng(SEED + 3)
+                   .integers(0, 50257, 24))
+# a train state of large-v2 in f32 is params + two moments, ~18.5 GB a
+# file; the phase writes a checkpoint, one train state and two exports
+FT_DISK_BYTES = 40e9
+
+
+def word_tokenizer_json(dst: str) -> None:
+    """The full-scale tokenizer of `slice_setup` (the real added-token
+    layout) with its synthetic base pieces as whole words: "w123" encodes
+    to id 123. Its BPE base has no merges, so it encodes no text at all,
+    and every transcript would train on EOT alone."""
+    with open(tokenizer_path()) as f:
+        doc = json.load(f)
+    vocab = {k.strip(): v for k, v in doc["model"]["vocab"].items()}
+    doc["model"] = {"type": "WordLevel", "vocab": vocab, "unk_token": "w0"}
+    doc["pre_tokenizer"] = {"type": "WhitespaceSplit"}
+    with open(dst, "w") as f:
+        json.dump(doc, f)
+
+
+def _work_dir() -> str:
+    """A new directory where the phase's files fit: the roomier of the
+    temporary directory and the build directory."""
+    import shutil
+    import tempfile
+
+    from whisper_tpu_torch.ops.kernels import _build
+
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    free = {d: shutil.disk_usage(d).free
+            for d in (tempfile.gettempdir(), str(_build.BUILD_DIR))}
+    log("finetune: free disk " + ", ".join(f"{d} {b / 1e9:.1f} GB"
+                                           for d, b in free.items()))
+    where = max(free, key=free.get)
+    if free[where] < FT_DISK_BYTES:
+        raise AssertionError(f"finetune needs {FT_DISK_BYTES / 1e9:.0f} GB "
+                             f"of disk, {where} has {free[where] / 1e9:.1f}")
+    return tempfile.mkdtemp(prefix="finetune_", dir=where)
+
+
+def check_refusals(d: int, n_head: int, h: int) -> dict:
+    """K1 (`attention_bhsd`) and K2 (`fused_mlp_block`) on CUDA bf16
+    inputs that require grad: each raises and launches nothing; under
+    `torch.no_grad()` the same calls launch once each."""
+    from whisper_tpu_torch.ops.kernels import encoder_block as KB
+    from whisper_tpu_torch.ops.kernels import flash_attention as KA
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    q, k, v = (_randn((1, 750, d), gen) for _ in "qkv")
+    mlp = (_randn((750, d), gen), _randn((d,), gen, 0.1) + 1,
+           _randn((d,), gen, 0.1), _randn((d, h), gen, d ** -0.5),
+           _randn((h,), gen, 0.05), _randn((h, d), gen, h ** -0.5),
+           _randn((d,), gen, 0.05))
+    calls = {"flash_attention": (lambda: KA.attention_bhsd(q, k, v, n_head),
+                                 q, KA.attention_bhsd),
+             "encoder_mlp": (lambda: KB.fused_mlp_block(*mlp), mlp[3],
+                             KB.fused_mlp_block)}
+    out = {}
+    for name, (call, marked, fn) in calls.items():
+        marked.requires_grad_(True)
+        before = fn.launches
+        try:
+            call()
+        except RuntimeError as e:
+            message = str(e)
+        else:
+            raise AssertionError(f"{name} launched on an input that "
+                                 "requires grad")
+        if fn.launches != before or "no backward" not in message:
+            raise AssertionError(f"{name}: {message!r}, launches "
+                                 f"{fn.launches - before}")
+        with torch.no_grad():
+            call()
+        torch.cuda.synchronize()
+        if fn.launches != before + 1:
+            raise AssertionError(f"{name} did not launch under no_grad")
+        out[name] = message
+        log(f"finetune: {name} under grad raised {message!r}; under "
+            "no_grad it launched once")
+    return out
+
+
+def measure_train_steps(params, cfg, batch, window_s: float) -> dict:
+    """One train step without and with remat, each twice from a fresh
+    optimizer state (count 0: learning rate 0, so the params never
+    change and all four steps see the same weights): loss and grad_norm of
+    the two within REMAT_RTOL, seconds per step (the second run of each),
+    peak device memory, and rates."""
+    from whisper_tpu_torch.training import train as ttrain
+
+    opt = ttrain.make_optimizer(learning_rate=1e-5, warmup_steps=10,
+                                total_steps=100)
+    tok_emb = params["decoder"]["tok_emb"].detach().clone()
+    res = {}
+    for remat in (False, True):
+        step = ttrain.make_train_step(cfg, opt, remat=remat)
+        runs = []
+        for _ in range(2):
+            torch.cuda.empty_cache()
+            held = torch.cuda.memory_allocated()
+            state = ttrain.init_train_state(params, opt)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            metrics = {k: float(v) for k, v in metrics.items()}
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            runs.append(dict(metrics, seconds=seconds,
+                             peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                             held_gb=held / 1e9))
+            del state
+        warm = runs[1]
+        b, s = batch.tokens.shape
+        key = "remat" if remat else "no_remat"
+        res[key] = dict(
+            runs=runs, seconds=warm["seconds"], peak_gb=warm["peak_gb"],
+            scored_tokens_per_s=warm["tokens"] / warm["seconds"],
+            positions_per_s=b * s / warm["seconds"],
+            audio_s_per_s=b * window_s / warm["seconds"])
+        log(f"finetune: train step {key}: loss {warm['loss']:.6f} grad_norm "
+            f"{warm['grad_norm']:.6f}; {runs[0]['seconds']:.3f} s cold, "
+            f"{warm['seconds']:.3f} s warm; peak "
+            f"{warm['peak_gb']:.2f} GB allocated ({warm['held_gb']:.2f} GB "
+            f"held before the state); {res[key]['scored_tokens_per_s']:.1f} "
+            f"scored tokens/s, {res[key]['positions_per_s']:.0f} decoder "
+            f"positions/s, {res[key]['audio_s_per_s']:.1f} s of audio/s")
+    res["profile"] = profile_train_step(
+        ttrain.make_train_step(cfg, opt), params, opt, batch,
+        res["no_remat"]["seconds"])
+    for key in ("loss", "grad_norm"):
+        a, b = res["no_remat"]["runs"][1][key], res["remat"]["runs"][1][key]
+        err = abs(a - b) / abs(a)
+        res[f"{key}_rel_err"] = err
+        if not (np.isfinite(a) and err <= REMAT_RTOL):
+            raise AssertionError(f"remat changes the {key}: {a} vs {b}")
+    if not torch.equal(params["decoder"]["tok_emb"], tok_emb):
+        raise AssertionError("a step at learning rate 0 changed the params")
+    return res
+
+
+def profile_train_step(step, params, opt, batch, wall_s: float) -> dict:
+    """One more step without remat under `torch.profiler` (from a fresh
+    state, learning rate 0): device ms by kernel, launches, and the busy
+    share against the unprofiled step's `wall_s`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from whisper_tpu_torch.training import train as ttrain
+
+    state = ttrain.init_train_state(params, opt)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+    del state
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_us = sum(e.self_device_time_total for e in events)
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:10]
+    res = {"device_ms": device_us / 1e3,
+           "busy_share": device_us / 1e6 / wall_s,
+           "launches": sum(e.count for e in events),
+           "top_kernels_ms": {e.key[:80]: e.self_device_time_total / 1e3
+                              for e in top}}
+    log(f"finetune: profiled step (no remat): {res['device_ms']:.1f} device "
+        f"ms, {res['launches']} launches, busy {res['busy_share']:.2f} of the "
+        f"{wall_s:.3f} s step; top kernels (ms): " + ", ".join(
+            f"{k} {v:.1f}" for k, v in res["top_kernels_ms"].items()))
+    return res
+
+
+def _step_losses(out: str) -> list:
+    return [float(line.split("loss ")[1].split()[0])
+            for line in out.splitlines() if line.startswith("step ")]
+
+
+def run_finetune_cli(work: str, device: str = "cuda") -> dict:
+    """`cli.main(["finetune", ...])` on the checkpoint in `work` over the
+    4-clip manifest: 4 steps with remat and a train state at step 3
+    (`--save-every 3`: one 18.5 GB file, so the phase writes ~37 GB in
+    all), then `--resume` of that state to step 4. `device` other than
+    "cuda" is passed as --device (a rehearsal off the card); on the card
+    the command runs on its default device."""
+    import contextlib
+    import io
+    import os
+
+    from whisper_tpu_torch import cli
+
+    dev = [] if device == "cuda" else ["--device", device]
+    base = ["finetune", os.path.join(work, "model.safetensors"),
+            os.path.join(work, "train.tsv"), "en", "--steps", "4",
+            "--batch-size", "2", "--lr", "1e-4", "--warmup", "1", "--remat",
+            "-v", *dev]
+    state = os.path.join(work, "tuned.ckpt")
+    runs = {}
+    for label, extra in (
+            ("train", ["--save-every", "3", "--out",
+                       os.path.join(work, "tuned")]),
+            ("resume", ["--resume", state, "--out",
+                        os.path.join(work, "resumed")])):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(base + extra)
+        seconds = time.perf_counter() - t0
+        out = buf.getvalue()
+        log(f"finetune CLI {label} (rc {rc}, {seconds:.1f} s):\n"
+            + out.rstrip())
+        if rc != 0:
+            raise AssertionError(f"finetune CLI {label} exited {rc}")
+        runs[label] = dict(losses=_step_losses(out), seconds=seconds, out=out)
+        if label == "train":
+            runs[label]["state_gb"] = os.path.getsize(state) / 1e9
+    losses = runs["train"]["losses"]
+    if len(losses) != 4 or not all(np.isfinite(losses)):
+        raise AssertionError(f"finetune CLI losses {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"finetune CLI: the loss did not fall: {losses}")
+    if "Saved " not in runs["train"]["out"]:
+        raise AssertionError("finetune CLI did not report its export")
+    resumed = runs["resume"]
+    if "Resumed at step 3" not in resumed["out"]:
+        raise AssertionError("finetune CLI --resume did not resume at step 3")
+    if len(resumed["losses"]) != 1 or not np.isfinite(resumed["losses"][0]):
+        raise AssertionError(f"resumed losses {resumed['losses']}")
+    return {label: {k: v for k, v in r.items() if k != "out"}
+            for label, r in runs.items()}
+
+
+def phase_finetune(tok) -> dict:
+    """Phase 20: the kernels refuse a gradient; one large-v2 f32 train
+    step without and with remat; the `finetune` CLI on a large-v2
+    checkpoint with `--resume`; the tuned checkpoint transcribed on the
+    kernels with `tok`, the full-scale tokenizer (training encodes its
+    transcripts with `word_tokenizer_json`, the same ids). The launch
+    counts are set to 0 just before that transcription and read just
+    after."""
+    import os
+    import shutil
+
+    from whisper_tpu_torch.config import preset
+    from whisper_tpu_torch.io import checkpoint
+    from whisper_tpu_torch.ops import audio
+    from whisper_tpu_torch.params import (from_numpy_tree, init_params,
+                                          numpy_tree, trainable)
+    from whisper_tpu_torch.pipeline.transcribe import (DecodeOptions,
+                                                       Transcriber)
+    from whisper_tpu_torch.text.tokenizer import WhisperTokenizer
+    from whisper_tpu_torch.training import data as tdata
+
+    torch.cuda.empty_cache()
+    cfg = preset("large-v2")
+    if cfg.attention != "xla":
+        raise AssertionError(f"the preset's attention is {cfg.attention}")
+    res = {"refusals": check_refusals(cfg.n_state,
+                                      cfg.audio_encoder_config.n_audio_head,
+                                      4 * cfg.n_state)}
+    sr = 16000
+    n_window = audio.max_waveform_samples(cfg.encoder_ctx_size)
+    work = _work_dir()
+    try:
+        t0 = time.perf_counter()
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+        start = init_params(cfg, gen)
+        ckpt = os.path.join(work, "model.safetensors")
+        checkpoint.save_safetensors(numpy_tree(start), cfg, ckpt)
+        cfg.save(os.path.join(work, "model.cfg"))
+        word_tokenizer_json(os.path.join(work, "tokenizer.json"))
+        words = WhisperTokenizer(os.path.join(work, "tokenizer.json"))
+        if (len(words.encode(FT_TEXT)) != 24
+                or words.prompt_ids("en") != tok.prompt_ids("en")):
+            raise AssertionError("the word tokenizer does not encode the "
+                                 "transcript with the full-scale ids")
+        tok_emb = start["decoder"]["tok_emb"].cpu()
+        params = trainable(start)
+        del start
+        log(f"finetune: large-v2 f32 weights from SEED + 3, written as "
+            f"{os.path.getsize(ckpt) / 1e9:.2f} GB, in "
+            f"{time.perf_counter() - t0:.1f} s")
+
+        batch = tdata.build_batch([synthetic_speech(n_window, SEED + 3)],
+                                  [FT_TEXT], words, cfg)
+        res["train_step"] = measure_train_steps(params, cfg, batch,
+                                                n_window / sr)
+        del params, batch
+        torch.cuda.empty_cache()
+
+        lines = []
+        for i in range(4):
+            with open(os.path.join(work, f"a{i}.wav"), "wb") as f:
+                f.write(_wav_bytes(synthetic_speech(8 * sr, SEED + 10 + i)))
+            lines.append(f"a{i}.wav\t{FT_TEXT}")
+        with open(os.path.join(work, "train.tsv"), "w") as f:
+            f.write("\n".join(lines) + "\n")
+        res["cli"] = run_finetune_cli(work)
+        torch.cuda.empty_cache()
+
+        tree, tcfg = checkpoint.load_params(os.path.join(work,
+                                                         "tuned.safetensors"))
+        res["tok_emb_changed"] = not np.array_equal(
+            tree["decoder"]["tok_emb"], tok_emb.numpy())
+        if not res["tok_emb_changed"]:
+            raise AssertionError("the tuned tok_emb equals the starting one")
+        tuned = from_numpy_tree(tree, device="cuda", dtype=torch.bfloat16)
+        del tree
+        tr = Transcriber(tuned, tcfg, tok)
+        opts = DecodeOptions(strategy="greedy", max_depth=100)
+        window = synthetic_speech(10 * sr, SEED + 3)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        text, tokens = tr.transcribe(window, sr, opts)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        res["launches"] = launch_counts()
+        log(f"finetune: the tuned checkpoint (bf16) transcribed 10 s greedy "
+            f"on the kernels: {len(tokens)} tokens in {seconds:.3f} s; "
+            f"launches {res['launches']}")
+        for name in ("flash_attention", "encoder_mlp", "decode_attention"):
+            if res["launches"][name] == 0:
+                raise AssertionError(f"the tuned checkpoint never launched "
+                                     f"{name}")
+        res["paths"] = compare_kernel_and_plain_paths(
+            tuned, tr.cfg, tok, window, opts, label="tuned window")
+        res["transcribe_seconds"] = seconds
+        res["n_tokens"] = len(tokens)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return res
+
+
 def _forcing_hook(n_prompt: int, eot_id: int, eot_at=None):
     """A logits_hook that fixes the tokens: at depth t (tokens after the
     prompt) it adds 1e4 to text token 300 + 7 t, or to EOT once t reaches
@@ -2174,19 +2536,25 @@ def rel_err(a, b) -> float:
 PATH_RTOL = 5e-2
 
 
+def tokenizer_path():
+    """Where `slice_setup` writes the full-scale tokenizer."""
+    from whisper_tpu_torch.ops.kernels import _build
+
+    return _build.BUILD_DIR / "tokenizer_large_v2.json"
+
+
 def slice_setup() -> tuple:
     """Large-v2 bf16 random weights from the seed, its full-scale
     tokenizer, the Transcriber (on the card by default) and 35 s of
     synthetic audio: 3 windows."""
     from whisper_tpu_torch.config import preset
-    from whisper_tpu_torch.ops.kernels import _build
     from whisper_tpu_torch.params import init_params
     from whisper_tpu_torch.pipeline.transcribe import Transcriber
     from whisper_tpu_torch.text.tokenizer import (
         WhisperTokenizer, build_full_scale_tokenizer_json)
 
     cfg = preset("large-v2")
-    tok_path = _build.BUILD_DIR / "tokenizer_large_v2.json"
+    tok_path = tokenizer_path()
     tok_path.parent.mkdir(parents=True, exist_ok=True)
     build_full_scale_tokenizer_json(str(tok_path))
     tok = WhisperTokenizer(str(tok_path))

@@ -1451,6 +1451,137 @@ def test_tiny_draft_runs_the_kernels_at_d384(gen, tmp_path):
     assert got == plain
 
 
+def _kernel_entry_points(gen):
+    """name -> (call, the floating input to mark as requiring grad,
+    (wrapper, counter)): one valid call of every kernel entry point."""
+    from whisper_tpu_torch.ops.kernels import dequant_matmul as KQ
+
+    q, k, v = (_randn((2, 64, 128), gen) for _ in "qkv")
+    hq, hk, hv = (_randn((2, 64, 2, 64), gen).transpose(1, 2) for _ in "qkv")
+    mlp = (_randn((64, 256), gen), _randn((256,), gen, 0.1) + 1,
+           _randn((256,), gen, 0.1), _randn((256, 1024), gen, 0.06),
+           _randn((1024,), gen, 0.05), _randn((1024, 256), gen, 0.03),
+           _randn((256,), gen, 0.05))
+    dq = _randn((3, 128), gen, 0.125)
+    kc, vc = (_randn((3, 4, 50, 128), gen) for _ in "kv")
+    pos = torch.tensor([0, 17, 39], dtype=torch.int32, device="cuda")
+    arrays = [_randn((6, 2, 64, 128), gen) for _ in range(2)]
+    out = [torch.empty_like(a) for a in arrays]
+    parents = torch.tensor([1, 1, 0, 5, 2, 2], dtype=torch.int32,
+                           device="cuda")
+    b, d = 10, 256
+    ints = [torch.randint(-127, 128, (b, 2, 64, d), generator=gen,
+                          device="cuda", dtype=torch.int8) for _ in "kv"]
+    scales = [0.01 + 0.04 * torch.rand((b, 2, 64), generator=gen,
+                                       device="cuda") for _ in "kv"]
+    new = [torch.randint(-127, 128, (b, d), generator=gen, device="cuda",
+                         dtype=torch.int8) for _ in "kv"]
+    new_s = [0.01 + 0.04 * torch.rand(b, generator=gen, device="cuda")
+             for _ in "kv"]
+    fq = _randn((b, d), gen)
+    lanes = torch.arange(b, device="cuda")
+    x6, w6, s6 = _w8a8_operands(gen, 5, 256, 384, torch.bfloat16)
+    x7, w7, s7 = _w8a8_operands(gen, 10, 256, 384, torch.bfloat16)
+    return {
+        "K1 attention_bhsd": (lambda: KA.attention_bhsd(q, k, v, 2), q,
+                              (KA.attention_bhsd, "launches")),
+        "K9 flash_attention": (lambda: KA.flash_attention(hq, hk, hv), hq,
+                               (KA.flash_attention, "launches")),
+        "K2 fused_mlp_block": (lambda: KB.fused_mlp_block(*mlp), mlp[3],
+                               (KB.fused_mlp_block, "launches")),
+        "K3 decode_attention_stacked": (
+            lambda: KC.decode_attention_stacked(dq, kc, vc, pos, 2, 2,
+                                                batch_major=True),
+            kc, (KC.decode_attention_stacked, "launches")),
+        "K8 decode_attention": (
+            lambda: KC.decode_attention(dq, kc[:, 2], vc[:, 2], pos, 2), dq,
+            (KC.decode_attention, "flat_launches")),
+        "K4 permute_lanes_arrays": (
+            lambda: KP.permute_lanes_arrays(arrays, parents, out),
+            arrays[0], (KP.permute_lanes_arrays, "launches")),
+        "K5 decode_attention_permute_fused": (
+            lambda: KF.decode_attention_permute_fused(
+                fq, *ints, *scales, *new, *new_s, lanes, 37, 1, 4, 5),
+            fq, (KF.decode_attention_permute_fused, "launches")),
+        "K6 quantized_matmul": (lambda: KQ.quantized_matmul(x6, w6, s6), x6,
+                                (KQ.quantized_matmul, "launches")),
+        "K7 quantized_matmul_big": (
+            lambda: KQ.quantized_matmul_big(x7, w7, s7), s7,
+            (KQ.quantized_matmul_big, "launches")),
+    }
+
+
+KERNEL_ENTRY_POINTS = ["K1 attention_bhsd", "K9 flash_attention",
+                       "K2 fused_mlp_block", "K3 decode_attention_stacked",
+                       "K8 decode_attention", "K4 permute_lanes_arrays",
+                       "K5 decode_attention_permute_fused",
+                       "K6 quantized_matmul", "K7 quantized_matmul_big"]
+
+
+@pytest.mark.parametrize("name", KERNEL_ENTRY_POINTS)
+def test_kernels_refuse_a_gradient_and_launch_without_one(gen, name):
+    """On a CUDA input that requires grad, under grad mode, every kernel
+    entry point raises RuntimeError and launches nothing (no plain
+    version in its place); under no_grad the same call launches once."""
+    call, marked, (fn, counter) = _kernel_entry_points(gen)[name]
+    marked.requires_grad_(True)
+    before = getattr(fn, counter)
+    with pytest.raises(RuntimeError, match="no backward"):
+        call()
+    assert getattr(fn, counter) == before
+    with torch.no_grad():
+        call()
+    torch.cuda.synchronize()
+    assert getattr(fn, counter) == before + 1
+
+
+def test_train_step_on_the_card_equals_the_cpu(gen, monkeypatch):
+    """One `make_train_step` (remat, learning rate above 0 from the first
+    step) at a tiny f32 config on the card and on the CPU from the same
+    weights and batch: loss, grad_norm and every leaf within 1e-4
+    relative (full f32: TF32 off for matmuls and convolutions)."""
+    from whisper_tpu_torch.config import tiny_test_config
+    from whisper_tpu_torch.params import init_params, trainable
+    from whisper_tpu_torch.training import train as TT
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    cfg = tiny_test_config(n_state=64, n_head=2, n_layer=2, n_vocab=300,
+                           n_audio_ctx=64, n_text_ctx=32)
+    start = init_params(cfg, torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    batch = TT.Batch(
+        torch.from_numpy(rng.standard_normal((2, 80, 64)).astype(np.float32)),
+        torch.from_numpy(rng.integers(0, 300, (2, 32)).astype(np.int32)),
+        torch.from_numpy((rng.random((2, 32)) < 0.6).astype(np.float32)))
+    opt = TT.make_optimizer(learning_rate=1e-3, warmup_steps=0,
+                            total_steps=10)
+    step = TT.make_train_step(cfg, opt, remat=True)
+    results = {}
+    for device in ("cpu", "cuda"):
+        state, metrics = step(TT.init_train_state(
+            trainable(start, device=device), opt), batch)
+        results[device] = (metrics, dict(state.params.named_parameters()))
+    (mc, pc), (mg, pg) = results["cpu"], results["cuda"]
+    for key in ("loss", "grad_norm", "accuracy", "tokens"):
+        np.testing.assert_allclose(float(mg[key]), float(mc[key]),
+                                   rtol=1e-4, err_msg=key)
+    # the key bias (qkv_b[:, 1], cross_kv_b[:, 0]) has a zero gradient up
+    # to rounding noise, which AdamW scales to updates of up to the
+    # learning rate that depend on the noise: bounded apart
+    k_bias = {"encoder.blocks.qkv_b": 1, "decoder.blocks.qkv_b": 1,
+              "decoder.blocks.cross_kv_b": 0}
+    for name, p in pc.items():
+        got, want = pg[name].detach().cpu(), p.detach()
+        if name in k_bias:
+            col = k_bias[name]
+            assert float((got[:, col] - want[:, col]).abs().max()) <= 1e-3
+            keep = [i for i in range(want.shape[1]) if i != col]
+            got, want = got[:, keep], want[:, keep]
+        rel = float((got - want).norm() / want.norm())
+        assert rel <= 1e-4, (name, rel)
+
+
 def test_profiler_records_cuda_events_after_the_cli_tests(gen):
     """In this process, after the CLI tests above, the process's first
     profiling sessions: two that run one PyTorch op, then two that run one

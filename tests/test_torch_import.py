@@ -51,6 +51,9 @@ def _port_modules():
     "whisper_tpu_torch.decode.speculative, "
     "whisper_tpu_torch.pipeline.streaming, whisper_tpu_torch.serve, "
     "whisper_tpu_torch.utils.logging",
+    "whisper_tpu_torch.training.train, whisper_tpu_torch.training.data, "
+    "whisper_tpu_torch.training.checkpointing, "
+    "whisper_tpu_torch.utils.profiling, whisper_tpu_torch.utils.debug",
 ])
 def test_import_leaves_out_jax_triton_and_cuda_build(modules):
     out = _run(
@@ -142,9 +145,37 @@ def test_convert_runs_with_jax_and_the_jax_package_blocked(tiny_cli_dir):
         assert (tiny_cli_dir / name).exists(), name
 
 
+def test_finetune_runs_with_jax_and_the_jax_package_blocked(tiny_cli_dir):
+    """With `whisper_tpu`, `jax`, `optax` and `orbax` unimportable,
+    `finetune` trains 2 steps on the CPU with a train-state checkpoint,
+    resumes from it, and its exported checkpoint transcribes."""
+    (tiny_cli_dir / "ft.tsv").write_text("audio.wav\thello\n" * 2)
+    out = _run(
+        "import sys\n"
+        "for m in ('whisper_tpu', 'jax', 'optax', 'orbax'):\n"
+        "    sys.modules[m] = None\n"
+        "from whisper_tpu_torch.cli import main\n"
+        "print('RC', main(['finetune', 'dump', 'ft.tsv', 'en', '--steps', "
+        "'2', '--batch-size', '2', '--save-every', '1', '--spec-augment', "
+        "'--device', 'cpu', '--out', 'ft']))\n"
+        "print('RC', main(['finetune', 'dump', 'ft.tsv', '--steps', '3', "
+        "'--batch-size', '2', '--resume', 'ft.ckpt', '--device', 'cpu', "
+        "'--out', 'ft2']))\n"
+        "print('RC', main(['transcribe', 'ft', 'audio.wav', 'en', "
+        "'ft.txt', '--greedy', '--max-depth', '4', '--device', "
+        "'cpu']))\n", cwd=str(tiny_cli_dir))
+    assert [line for line in out.splitlines() if line.startswith("RC")] == [
+        "RC 0"] * 3, out
+    assert "Resumed at step 2" in out
+    for name in ("ft.safetensors", "ft.cfg", "ft.ckpt", "ft2.safetensors",
+                 "ft.txt"):
+        assert (tiny_cli_dir / name).exists(), name
+
+
 def test_no_port_file_imports_the_jax_package():
     pattern = re.compile(r"^\s*(from|import)\s+whisper_tpu(\.|\s|$)")
-    jax_pattern = re.compile(r"^\s*(from|import)\s+jax(\.|\s|$)")
+    jax_pattern = re.compile(r"^\s*(from|import)\s+(jax|optax|orbax)"
+                             r"(\.|\s|$)")
     files = [*Path(REPO, "whisper_tpu_torch").rglob("*.py"),
              Path(REPO, "chip_smoke.py"),
              *(Path(REPO, "tools", f) for f in (

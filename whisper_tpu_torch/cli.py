@@ -8,6 +8,7 @@
     python -m whisper_tpu_torch.cli convert <dump dir> [--out NAME] [--mpk]
     python -m whisper_tpu_torch.cli convert-pt <model.pt> <out name>
     python -m whisper_tpu_torch.cli serve <model> [--port 8000] ...
+    python -m whisper_tpu_torch.cli finetune <model> <dataset> [lang] ...
 
 Keeps the reference's positional contract (whisper-burn
 src/bin/transcribe/main.rs:85-94) and its progress lines, as
@@ -43,7 +44,13 @@ HuggingFace `.pt`/`.bin` checkpoint to the same pair, `--dump-tree` adding
 the npy tree, `--alignment-heads` the word-timing heads) run on the host
 and write what `whisper_tpu.cli` writes, with its progress lines and exit
 codes. `serve` runs the HTTP server of `whisper_tpu_torch.serve` (its
-flags, `--device` included).
+flags, `--device` included). `finetune` (as `whisper_tpu.cli finetune`:
+its flags, progress lines and exit codes, plus `--device`) trains the
+checkpoint in its own dtype on the plain path and writes
+`<out>.safetensors` + `<out>.cfg`; `--save-every N` writes the train state
+to the file `<out>.ckpt` (`training/checkpointing.py`), and `--resume` of
+that file restarts the batch order from `--seed` and runs steps
+[saved step, --steps), as JAX's does.
 """
 
 from __future__ import annotations
@@ -717,6 +724,123 @@ def cmd_convert_pt(argv) -> int:
     return 0
 
 
+def cmd_finetune(argv) -> int:
+    p = argparse.ArgumentParser(
+        prog="whisper_tpu_torch finetune",
+        description="Teacher-forced fine-tuning on (audio, text) pairs "
+                    "(LibriSpeech-style directory or .tsv/.jsonl manifest). "
+                    "Writes <out>.safetensors + <out>.cfg; optionally "
+                    "train-state checkpoints for resume. Trains in the "
+                    "checkpoint's dtype on the plain path.")
+    p.add_argument("model", help="starting checkpoint")
+    p.add_argument("dataset", help="LibriSpeech-style dir or manifest "
+                                   "(audio<TAB>text)")
+    p.add_argument("lang", nargs="?", default="en")
+    p.add_argument("--out", default=None,
+                   help="output basename (default <model>-ft)")
+    p.add_argument("--tokenizer", default=None)
+    p.add_argument("--task", choices=["transcribe", "translate"],
+                   default="transcribe")
+    p.add_argument("--steps", type=int, default=100)
+    p.add_argument("--batch-size", type=int, default=8)
+    p.add_argument("--lr", type=float, default=1e-5)
+    p.add_argument("--warmup", type=int, default=10)
+    p.add_argument("--weight-decay", type=float, default=0.01)
+    p.add_argument("--spec-augment", action="store_true",
+                   help="SpecAugment (freq + time masking)")
+    p.add_argument("--remat", action="store_true",
+                   help="rematerialize transformer blocks (less device "
+                        "memory)")
+    p.add_argument("--limit", type=int, default=None,
+                   help="use only the first N dataset examples")
+    p.add_argument("--save-every", type=int, default=0,
+                   help="write a train-state checkpoint to <out>.ckpt "
+                        "every N steps (0 = off)")
+    p.add_argument("--resume", default=None,
+                   help="resume from a train-state checkpoint file")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                   help="where the model trains (default: the CUDA card; "
+                        "the CPU only when asked for)")
+    p.add_argument("-v", "--verbose", action="count", default=0)
+    args = p.parse_args(argv)
+
+    if _no_card(args.device):
+        return 1
+    import numpy as np
+    import torch
+
+    from .eval import wer as werlib
+    from .io import checkpoint
+    from .params import trainable
+    from .training import checkpointing as ckpt
+    from .training import data as tdata
+    from .training import train as ttrain
+    from .utils.logging import configure
+
+    configure(args.verbose)
+    tok, err = _load_tokenizer(args.tokenizer, args.model)
+    if err:
+        print(err, file=sys.stderr)
+        return 1
+    try:
+        tree, cfg = checkpoint.load_params(args.model)
+        params = trainable(tree, device=args.device)
+    except Exception as e:  # the CLI boundary: report, exit non-zero
+        print(f"Failed to load whisper model file: {e}", file=sys.stderr)
+        return 1
+    del tree
+
+    items = (werlib.iter_librispeech(args.dataset)
+             if os.path.isdir(args.dataset)
+             else werlib.iter_manifest(args.dataset))
+    try:
+        examples = tdata.load_examples(items, limit=args.limit)
+    except Exception as e:  # the CLI boundary: report, exit non-zero
+        print(f"Failed to load dataset: {e}", file=sys.stderr)
+        return 1
+    print(f"Loaded {len(examples)} examples")
+
+    opt = ttrain.make_optimizer(
+        learning_rate=args.lr, weight_decay=args.weight_decay,
+        warmup_steps=args.warmup, total_steps=args.steps)
+    state = ttrain.init_train_state(params, opt)
+    if args.resume:
+        state = ckpt.restore_train_state(args.resume, state)
+        print(f"Resumed at step {int(state.step)}")
+    step_fn = ttrain.make_train_step(cfg, opt, remat=args.remat)
+
+    out = args.out or f"{args.model.rstrip('/')}-ft"
+    aug_gen = torch.Generator().manual_seed(args.seed + 1)
+    batches = tdata.iter_batches(
+        examples, tok, cfg, args.batch_size, lang=args.lang, task=args.task,
+        seed=args.seed)
+    t0 = time.perf_counter()
+    start = int(state.step)
+    for i in range(start, args.steps):
+        batch = next(batches)
+        if args.spec_augment:
+            batch = batch._replace(mel=tdata.spec_augment(batch.mel, aug_gen))
+        state, metrics = step_fn(state, batch)
+        loss = float(metrics["loss"])
+        if not np.isfinite(loss):
+            print(f"step {i}: non-finite loss {loss}; aborting",
+                  file=sys.stderr)
+            return 1
+        if args.verbose or i % 10 == 0 or i == args.steps - 1:
+            print(f"step {i}: loss {loss:.4f} "
+                  f"acc {float(metrics['accuracy']):.3f} "
+                  f"grad_norm {float(metrics['grad_norm']):.3f}")
+        if args.save_every and (i + 1) % args.save_every == 0:
+            ckpt.save_train_state(os.path.abspath(f"{out}.ckpt"), state)
+    dt = time.perf_counter() - t0
+    ckpt.export_params(state, cfg, f"{out}.safetensors")
+    cfg.save(f"{out}.cfg")
+    print(f"Saved {out}.safetensors + {out}.cfg "
+          f"({args.steps - start} steps in {dt:.1f}s)")
+    return 0
+
+
 def cmd_serve(argv) -> int:
     """The HTTP server (`whisper_tpu_torch.serve.main`)."""
     from .serve import main as serve_main
@@ -730,7 +854,8 @@ COMMANDS = {"transcribe": cmd_transcribe,
             "eval": cmd_eval,
             "quant-check": cmd_quant_check,
             "convert": cmd_convert,
-            "convert-pt": cmd_convert_pt, "serve": cmd_serve}
+            "convert-pt": cmd_convert_pt, "serve": cmd_serve,
+            "finetune": cmd_finetune}
 
 
 def main(argv=None) -> int:
@@ -770,7 +895,13 @@ def main(argv=None) -> int:
               "       python -m whisper_tpu_torch.cli convert-pt <model.pt> "
               "<out name> [--dump-tree] [--alignment-heads JSON|PATH]\n"
               "       python -m whisper_tpu_torch.cli serve <model> "
-              "[--port N] [--batch-size B] [--device cuda|cpu] ...",
+              "[--port N] [--batch-size B] [--device cuda|cpu] ...\n"
+              "       python -m whisper_tpu_torch.cli finetune <model> "
+              "<dataset> [lang] [--out NAME] [--steps N] [--batch-size B] "
+              "[--lr LR] [--warmup N] [--weight-decay W] [--spec-augment] "
+              "[--remat] [--limit N] [--save-every N] [--resume PATH] "
+              "[--seed S] [--task transcribe|translate] [--device cuda|cpu] "
+              "[--tokenizer PATH]",
               file=sys.stderr)
         return 2
     return COMMANDS[argv[0]](argv[1:])

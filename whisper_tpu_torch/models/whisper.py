@@ -30,10 +30,12 @@ packed int4 with one f32 scale per row (`self_quant`), appended through
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from ..config import WhisperConfig
 from ..ops.kernels.decode_attention import (decode_attention,
@@ -214,11 +216,22 @@ def _encoder_block(x, p: Layer, n_head: int, eps: float, impl: str = "xla",
     return x + h
 
 
+def _remat(block, remat: bool):
+    """The block, or with `remat` the block under activation checkpointing
+    (JAX's `jax.checkpoint` of each block, whisper.py:404-405): under
+    autograd only its inputs are kept, and its forward runs again in the
+    backward pass, trading FLOPs for device memory in training."""
+    if not remat:
+        return block
+    return functools.partial(torch.utils.checkpoint.checkpoint, block,
+                             use_reentrant=False)
+
+
 def encoder_forward(params: ParamTree, mel: torch.Tensor,
-                    cfg: WhisperConfig) -> torch.Tensor:
+                    cfg: WhisperConfig, remat: bool = False) -> torch.Tensor:
     """AudioEncoder: mel (B, n_mels, T) -> (B, ceil(T/2), d)
     (src/model/mod.rs:228-260); the positional embedding is sliced to the
-    post-conv length."""
+    post-conv length. `remat` checkpoints each block (`_remat`)."""
     enc = params["encoder"]
     enc_cfg = cfg.audio_encoder_config
     if mel.shape[1] != enc_cfg.n_mels:
@@ -231,9 +244,10 @@ def encoder_forward(params: ParamTree, mel: torch.Tensor,
     x = F.gelu(_conv1d_nhc(x, enc["conv2_w"], enc["conv2_b"], 2))
     x = x + enc["pos_emb"][: x.shape[1]]
     n_head, eps = enc_cfg.n_audio_head, cfg.ln_eps
+    block = _remat(_encoder_block, remat)
     for p in enc["blocks"].layers():
-        x = _encoder_block(x, p, n_head, eps, cfg.attention,
-                           cfg.knobs.int8_impl, _flash_impl(cfg))
+        x = block(x, p, n_head, eps, cfg.attention, cfg.knobs.int8_impl,
+                  _flash_impl(cfg))
     return layer_norm(x, enc["ln_post_g"], enc["ln_post_b"], eps)
 
 
@@ -273,9 +287,11 @@ def _logits(x, dec) -> torch.Tensor:
 
 
 def decoder_forward(params: ParamTree, tokens: torch.Tensor,
-                    enc_out: torch.Tensor, cfg: WhisperConfig) -> torch.Tensor:
+                    enc_out: torch.Tensor, cfg: WhisperConfig,
+                    remat: bool = False) -> torch.Tensor:
     """TextDecoder: tokens (B, S) + enc_out (B, Sa, d) -> f32 logits
-    (B, S, V) (src/model/mod.rs:131-157), full recompute."""
+    (B, S, V) (src/model/mod.rs:131-157), full recompute. `remat`
+    checkpoints each block (`_remat`)."""
     dec = params["decoder"]
     dec_cfg = cfg.text_decoder_config
     seq_len = tokens.shape[1]
@@ -285,17 +301,19 @@ def decoder_forward(params: ParamTree, tokens: torch.Tensor,
     x = dec["tok_emb"][tokens.long()] + dec["pos_emb"][:seq_len]
     mask = causal_mask(seq_len, seq_len, device=x.device)
     n_head, eps = dec_cfg.n_text_head, cfg.ln_eps
+    block = _remat(_decoder_block, remat)
     for p in dec["blocks"].layers():
-        x = _decoder_block(x, p, enc_out, mask, n_head, eps, cfg.attention,
-                           cfg.knobs.int8_impl, _flash_impl(cfg))
+        x = block(x, p, enc_out, mask, n_head, eps, cfg.attention,
+                  cfg.knobs.int8_impl, _flash_impl(cfg))
     return _logits(layer_norm(x, dec["ln_g"], dec["ln_b"], eps), dec)
 
 
 def whisper_forward(params: ParamTree, mel: torch.Tensor, tokens: torch.Tensor,
-                    cfg: WhisperConfig) -> torch.Tensor:
+                    cfg: WhisperConfig, remat: bool = False) -> torch.Tensor:
     """`Whisper::forward` (src/model/mod.rs:48-50)."""
-    return decoder_forward(params, tokens, encoder_forward(params, mel, cfg),
-                           cfg)
+    return decoder_forward(params, tokens,
+                           encoder_forward(params, mel, cfg, remat), cfg,
+                           remat)
 
 
 # ----------------------------------------------------------------------------

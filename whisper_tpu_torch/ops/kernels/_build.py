@@ -146,6 +146,24 @@ def check(err: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA error {err} (cudaError_t)")
 
 
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise RuntimeError where autograd would record a launch: when grad
+    mode is on and a floating input requires grad. The kernels write
+    `torch.empty` outputs through ctypes, so autograd would see no
+    `grad_fn` and every weight below the launch would get a zero or
+    missing gradient. No kernel has a backward (nor has any TPU kernel a
+    VJP in the JAX package), so training runs the plain path
+    (attention="xla"); the serving paths run under `inference_mode`."""
+    import torch
+
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward and cannot run on "
+            "inputs that require grad; call it under torch.no_grad() or "
+            "train with attention='xla' (the plain path)")
+
+
 def stream_ptr(t) -> int:
     """The current CUDA stream of tensor `t`'s device, as a raw pointer.
     The raw query skips the Stream object that `torch.cuda.current_stream`

@@ -56,7 +56,7 @@ from typing import Optional, Union
 import torch
 
 from ...quantize import int_values
-from ._build import check, library, stream_ptr
+from ._build import check, library, refuse_grad, stream_ptr
 
 TOL = {torch.bfloat16: (1e-2, 1e-2), torch.float32: (1e-5, 1e-5)}
 NEG_INF = -1e30  # the TPU kernel's mask value
@@ -222,6 +222,8 @@ def decode_attention_stacked(
         return decode_attention_stacked_plain(
             q, k_cache, v_cache, pos, layer, n_head, batch_major, kv_rep,
             k_rowscale, v_rowscale, c_used)
+    refuse_grad("decode_attention_stacked", q, k_cache, v_cache, k_rowscale,
+                v_rowscale)
     out = _launch(q, k_cache, v_cache, pos, layer, n_head, batch_major,
                   kv_rep, k_rowscale, v_rowscale, c_used, splits)
     if k_rowscale is not None and k_cache.dtype == torch.uint8:
@@ -368,6 +370,7 @@ def decode_attention(
                          f" and {tuple(v_cache.shape)}")
     if q.device.type == "cpu":
         return decode_attention_plain(q, k_cache, v_cache, pos, n_head)
+    refuse_grad("decode_attention", q, k_cache, v_cache)
     out = _launch(q, k_cache[:, None], v_cache[:, None], pos, 0, n_head,
                   True, 1, None, None, None)
     decode_attention.flat_launches += 1

@@ -36,7 +36,7 @@ from typing import Optional, Tuple
 import torch
 
 from ...quantize import int_values
-from ._build import check, library, stream_ptr
+from ._build import check, library, refuse_grad, stream_ptr
 
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 
@@ -200,6 +200,7 @@ def quantized_matmul(x: torch.Tensor,  # (M, K) bf16 / f32
     are also counted in `.tile_launches`."""
     if x.device.type == "cpu":
         return quantized_matmul_plain(x, wq, scale, out_dtype)
+    refuse_grad("quantized_matmul", x, scale)
     out, tiled = _launch(x, wq, scale, out_dtype, False, plan)
     _count(quantized_matmul, wq)
     quantized_matmul.tile_launches += tiled
@@ -213,6 +214,7 @@ def quantized_matmul_big(x: torch.Tensor, wq: torch.Tensor,
     """K7: as `quantized_matmul`, with the large-M kernel's rounding."""
     if x.device.type == "cpu":
         return quantized_matmul_big_plain(x, wq, scale, out_dtype)
+    refuse_grad("quantized_matmul_big", x, scale)
     out, _ = _launch(x, wq, scale, out_dtype, True)
     _count(quantized_matmul_big, wq)
     return out

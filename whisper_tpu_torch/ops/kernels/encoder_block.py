@@ -27,7 +27,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from ._build import check, library, stream_ptr
+from ._build import check, library, refuse_grad, stream_ptr
 
 ATOL = 2e-2
 RTOL = 1e-2
@@ -76,6 +76,7 @@ def fused_mlp_block(x, ln_g, ln_b, w1, b1, w2, b2, eps: float = 1e-5):
     `.launches`."""
     if x.device.type == "cpu":
         return fused_mlp_block_plain(x, ln_g, ln_b, w1, b1, w2, b2, eps)
+    refuse_grad("fused_mlp_block", x, ln_g, ln_b, w1, b1, w2, b2)
     lead, d = x.shape[:-1], x.shape[-1]
     h = w1.shape[-1]
     if w1.shape != (d, h) or w2.shape != (h, d):

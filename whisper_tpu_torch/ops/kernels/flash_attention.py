@@ -37,7 +37,7 @@ from __future__ import annotations
 import torch
 
 from ...config import FLASH_IMPLS
-from ._build import check, library, stream_ptr
+from ._build import check, library, refuse_grad, stream_ptr
 
 ATOL = 1e-2
 RTOL = 1.2e-2
@@ -125,6 +125,7 @@ def attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return o.transpose(1, 2).reshape(b, s, d)
     if q.device.type == "cpu":
         return attention_bhsd_plain(q, k, v, n_head, causal)
+    refuse_grad("attention_bhsd", q, k, v)
     if d != n_head * _HD:
         raise ValueError(f"head dim {d // n_head} != {_HD}")
     out = torch.empty((b, s, d), dtype=q.dtype, device=q.device)
@@ -170,6 +171,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     free. Counted in `.launches`."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal)
+    refuse_grad("flash_attention", q, k, v)
     b, h, s, hd = q.shape
     out = torch.empty((b, s, h, hd), dtype=v.dtype,
                       device=q.device).transpose(1, 2)

@@ -28,7 +28,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from ._build import check, library, stream_ptr
+from ._build import check, library, refuse_grad, stream_ptr
 
 MAX_ARRAYS = 8  # the kernel's argument block holds this many arrays
 
@@ -105,6 +105,7 @@ def permute_lanes_arrays(
     if arrays[0].device.type == "cpu":
         return permute_lanes_arrays_plain(arrays, parents, out, valid_len,
                                           chunk, chunk_mask)
+    refuse_grad("permute_lanes_arrays", *arrays, *out)
     mask = _check_args(arrays, out, chunk, chunk_mask, valid_len)
     n = len(arrays)
     if n > MAX_ARRAYS:

@@ -47,7 +47,7 @@ from typing import Optional, Union
 
 import torch
 
-from ._build import check, library, stream_ptr
+from ._build import check, library, refuse_grad, stream_ptr
 from .decode_attention import _HD, _rows, decode_attention_stacked_plain
 
 
@@ -140,6 +140,8 @@ def decode_attention_permute_fused(
         return decode_attention_permute_fused_plain(
             q, k_cache, v_cache, k_scale, v_scale, new_k, new_v, new_ks,
             new_vs, parents, pos, layer, n_head, beam_k, c_used, dests, stage)
+    refuse_grad("decode_attention_permute_fused", q, k_scale, v_scale,
+                new_ks, new_vs)
     sd = k_cache.dtype
     if (sd not in (torch.int8, torch.uint8)
             or any(t.dtype != sd for t in (v_cache, new_k, new_v))

@@ -3,10 +3,17 @@
 The layout is the JAX package's (`whisper_tpu/models/whisper.py::
 init_params`): blocks are STACKED on a leading layer axis, the fused
 projections keep their projection axis (`qkv_w` (L, d, 3, d), `cross_kv_w`
-(L, d, 2, d)), and the conv weights are HIO (3, C_in, C_out). Tensors are
-buffers (the port serves only; nothing needs gradients), so `.to(device)`
-and `.to(dtype)` move the whole tree. Index it like the JAX pytree:
+(L, d, 2, d)), and the conv weights are HIO (3, C_in, C_out). For serving,
+tensors are buffers that need no gradients, so `.to(device)` and
+`.to(dtype)` move the whole tree. Index it like the JAX pytree:
 `params["decoder"]["blocks"]["qkv_w"]`.
+
+For training, `trainable` gives a tree whose floating leaves are
+`nn.Parameter`s (`requires_grad`, the dtype they were loaded in: JAX trains
+in that dtype too), and `numpy_tree` takes any tree back to the numpy
+pytree that the checkpoint writers take. A tree that holds parameters
+builds its per-layer views anew at every `layers()` call, so a view taken
+before an optimizer step never reaches a later step's graph.
 
 Quantized leaves (`quantize.QTensor`, from `quantize_params` or from the
 JAX package's quantized tree) are child modules holding `q` and `scale`;
@@ -57,6 +64,8 @@ class ParamTree(nn.Module):
                 self.add_module(k, ParamTree(v))
             elif isinstance(v, QTensor):
                 self.add_module(k, _QLeaf(v))
+            elif isinstance(v, nn.Parameter):
+                self.register_parameter(k, v)
             else:
                 self.register_buffer(k, v)
 
@@ -65,11 +74,22 @@ class ParamTree(nn.Module):
         return v.qtensor() if isinstance(v, _QLeaf) else v
 
     def __contains__(self, key: str) -> bool:
-        return key in self._buffers or key in self._modules
+        return (key in self._buffers or key in self._parameters
+                or key in self._modules)
 
     def layers(self):
         """Per-layer views [{name: tensor[l]}] of this node's stacked
-        tensors, built once and reused until the tree is moved or cast."""
+        tensors. A buffer tree builds them once and reuses them until it is
+        moved or cast; a tree of parameters builds them at every call
+        (inside the forward that records them), never caching a view."""
+        if self._parameters:
+            # one unbind a tensor: its backward stacks the layers'
+            # gradients once, where a view per layer would scatter each
+            # into a zero tensor of the whole stack
+            views = {k: t.unbind(0) for k, t in
+                     {**self._buffers, **self._parameters}.items()}
+            n = len(next(iter(views.values())))
+            return [{k: v[l] for k, v in views.items()} for l in range(n)]
         if self._layer_views is None:
             n = next(iter(self._buffers.values())).shape[0]
             quant = {k: m for k, m in self._modules.items()
@@ -86,7 +106,7 @@ class ParamTree(nn.Module):
 
     def tree(self) -> Dict[str, Any]:
         """The same tree as plain nested dicts of tensors and QTensors."""
-        out: Dict[str, Any] = dict(self._buffers)
+        out: Dict[str, Any] = {**self._buffers, **self._parameters}
         out.update({k: m.qtensor() if isinstance(m, _QLeaf) else m.tree()
                     for k, m in self._modules.items()})
         return out
@@ -132,6 +152,58 @@ def from_numpy_tree(tree: Dict[str, Any], device="cpu",
         return _to_tensor(node, device, dtype)
 
     return ParamTree(conv(tree))
+
+
+def trainable(tree, device=None) -> ParamTree:
+    """The tree as a ParamTree of trainable leaves: every leaf becomes an
+    `nn.Parameter` (`requires_grad`) in its own dtype, on `device` (default:
+    where it lies). `tree` is a ParamTree or a nested dict of tensors or
+    numpy arrays (the loaders' pytree, `from_numpy_tree`'s rules). Torch
+    leaves are copied, so the caller's tensors are never updated. Quantized
+    (QTensor) or integer leaves raise ValueError: they have no gradient, as
+    JAX's `value_and_grad` refuses integer leaves."""
+
+    def conv(node, path):
+        if isinstance(node, ParamTree):
+            node = node.tree()
+        if isinstance(node, dict):
+            return {k: conv(v, f"{path}{k}.") for k, v in node.items()}
+        if isinstance(node, QTensor) or getattr(node, "_fields", None) == (
+                "q", "scale"):
+            raise ValueError(f"{path[:-1]}: a quantized tree cannot be "
+                             "trained (integer weights have no gradient)")
+        if isinstance(node, torch.Tensor):
+            t = node.detach().clone()
+        else:
+            t = _to_tensor(node, "cpu", None)
+        if not t.is_floating_point():
+            raise ValueError(f"{path[:-1]}: {t.dtype} leaves cannot be "
+                             "trained")
+        return nn.Parameter(t if device is None else t.to(device))
+
+    return ParamTree(conv(tree, ""))
+
+
+def numpy_tree(params) -> Dict[str, Any]:
+    """A ParamTree (or nested dict of tensors) as the nested dict of numpy
+    arrays that `io.checkpoint.save_safetensors` and the JAX package take,
+    every leaf detached and copied to the host in its dtype (bf16 as
+    `ml_dtypes.bfloat16`). Quantized trees raise ValueError."""
+    tree = params.tree() if isinstance(params, ParamTree) else params
+
+    def conv(node):
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        if isinstance(node, QTensor):
+            raise ValueError("numpy_tree takes unquantized trees")
+        t = node.detach().to("cpu", copy=True)
+        if t.dtype == torch.bfloat16:
+            import ml_dtypes
+
+            return t.view(torch.uint16).numpy().view(ml_dtypes.bfloat16)
+        return t.numpy()
+
+    return conv(tree)
 
 
 def init_params(cfg: WhisperConfig, generator: torch.Generator,
