@@ -1,6 +1,7 @@
 """On-card smoke run of the PyTorch/CUDA port (`whisper_tpu_torch`).
 
     python3 chip_smoke.py            # needs one CUDA card and nvcc
+    python3 chip_smoke.py --parallel-depth 100   # phase 21 decodes deeper
 
 Phases, in order; any failure raises and the script exits non-zero:
   1. device  -- require CUDA, print the card's name and power limit;
@@ -8,6 +9,8 @@ Phases, in order; any failure raises and the script exits non-zero:
                 (one nvcc per source, all at once);
   3. kernels -- each hand-written kernel against its plain PyTorch version
                 at the large-v2 shapes of the slices, then larger ones,
+                then (K1, K3, K3g, K3s, K5, K4) at the local widths of
+                phase 21's tp ranks (10 heads over d 640, 5 over d 320),
                 with error, tolerance, CUDA-event times of the kernel, its
                 plain version and one PyTorch library call computing the
                 same function (where there is one), and the kernel's bound
@@ -126,7 +129,35 @@ Phases, in order; any failure raises and the script exits non-zero:
                 checkpoint in bf16 transcribed greedy on the card (K1, K2,
                 K3 launched) and held against the plain path within
                 PATH_RTOL. The phase's files (~37 GB written) go to a
-                temporary directory, deleted at its end.
+                temporary directory, deleted at its end;
+ 21. parallel -- the port's mesh as SPMD ranks (`parallel/launch.spawn`,
+                gloo, every rank on cuda:0, each loading the library the
+                build phase compiled), after the parent has dropped its
+                weights. The decodes run to PARALLEL_DEPTH tokens a window
+                (--parallel-depth; a tp all-reduce costs ~2 ms with two
+                processes time-sliced on one card: PERF.md), and the
+                meshless references are taken at that depth before
+                spawning. A text that differs from the meshless one is
+                printed with its first differing window and position and
+                the logit margin there on both paths (a near tie or a
+                fault), not asserted. Two
+                ranks: (a) tp=2 (10 heads, d 640 a rank) greedy and beam 5
+                over the 35 s stream, (b) tp=2 beam 5 over an int4 cross
+                and an int8 self cache (K5, K3s on d 640); each gated on
+                window 0's encoder output and the first S=1 step's logits
+                within PATH_RTOL of the meshless kernel path, the texts
+                against the meshless ones printed; the seconds and device
+                ms a decoder step, tp=2 against meshless, and the tp
+                collectives a step; (c) dp=2 `transcribe_many` over the two
+                streams at batch 4 (each rank decodes 2 windows; the texts
+                against the meshless batch's printed); (e) one f32 train
+                step at tp=2 (batch 1, the plain path): loss and grad_norm
+                within REMAT_RTOL of phase 20's meshless step, no
+                checkpoint. Then four ranks: (d) tp=4 (5 heads, d 320) one
+                greedy window, gated as (a). The ranks' launch counts are
+                the slice "parallel"; K2 must launch under dp and never
+                under tp; a rank that fails or outlasts PARALLEL_TIMEOUT_S
+                fails the phase.
 The kernel phase holds the packed-int4 variants of K3s, K5, K6 and K7
 beside their int8 rows (the *_int4 entries, counted apart). The kernel
 phase also prints, for the kernels redesigned for Hopper (REDESIGNED: K1,
@@ -151,6 +182,7 @@ int4) apart from those at decode rows, as launches_tiles.
 
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import sys
@@ -428,8 +460,8 @@ def phase_kernels() -> dict:
             library_ms=None if library_call is None else time_ms(library_call),
             **{k: time_ms(f) for k, f in extra.items()}))
 
-    def heads_view(x, n):  # (B, n, d) -> (B, H, n, hd), a view
-        return x.view(x.shape[0], n, heads, hd).transpose(1, 2)
+    def heads_view(x, n, h=heads):  # (B, n, h * hd) -> (B, h, n, hd), a view
+        return x.view(x.shape[0], n, h, hd).transpose(1, 2)
 
     # A: self-attention q/k/v are the strided slices of one fused QKV
     # output, as in the encoder; causal and Sq != Sk are off the slice's path.
@@ -437,9 +469,7 @@ def phase_kernels() -> dict:
     # keys past Sk in (a lost key-length mask) would shrink every output by
     # far more than the tolerance; Sk = 705 leaves 63 of its last 64-key
     # tile padded.
-    for b, sq, sk, causal in ((1, 750, 750, False), (1, 705, 705, False),
-                              (1, 1500, 1500, False), (4, 1500, 1500, False),
-                              (1, 448, 448, True), (1, 4, 1500, False)):
+    def flash_row(b, sq, sk, causal, d=d, h=heads, tag=""):
         if sq == sk:
             qkv = _randn((b, sq, 3, d), gen)
             qkv[:, :, 2] += 1
@@ -449,14 +479,20 @@ def phase_kernels() -> dict:
             v = _randn((b, sk, d), gen) + 1
         pairs = sq * (sq + 1) / 2 if causal else sq * sk
         record("flash_attention",
-               f"B={b} Sq={sq} Sk={sk} H={heads}{' causal' if causal else ''}",
-               lambda: KA.attention_bhsd(q, k, v, heads, causal),
-               lambda: KA.attention_bhsd_plain(q, k, v, heads, causal),
+               f"{tag}B={b} Sq={sq} Sk={sk} H={h}"
+               + (" causal" if causal else ""),
+               lambda: KA.attention_bhsd(q, k, v, h, causal),
+               lambda: KA.attention_bhsd_plain(q, k, v, h, causal),
                KA.ATOL, KA.RTOL,
-               ((2 * b * sq * d + 2 * b * sk * d) * 2, 4 * b * heads * pairs * hd),
+               ((2 * b * sq * d + 2 * b * sk * d) * 2, 4 * b * h * pairs * hd),
                lambda: F.scaled_dot_product_attention(
-                   heads_view(q, sq), heads_view(k, sk), heads_view(v, sk),
-                   is_causal=causal))
+                   heads_view(q, sq, h), heads_view(k, sk, h),
+                   heads_view(v, sk, h), is_causal=causal))
+
+    for case in ((1, 750, 750, False), (1, 705, 705, False),
+                 (1, 1500, 1500, False), (4, 1500, 1500, False),
+                 (1, 448, 448, True), (1, 4, 1500, False)):
+        flash_row(*case)
 
     # A.legacy: K9 on (B, H, S, hd) views of the (B, S, H, hd) projections,
     # q pre-scaled, as `attention_bhsd(impl="legacy")` hands them over: a
@@ -510,34 +546,9 @@ def phase_kernels() -> dict:
     # the model's folded K scale leaves it; no PyTorch attention call takes
     # integer K/V, so their library column is empty.
     bf16, f32 = torch.bfloat16, torch.float32
-    for name, kind, b, rep, n_layer, c, st, pos, cu in (
-            ("decode_attention", "self", 5, 1, 32, 128, "bf16",
-             [40] * 5, None),
-            ("decode_attention", "self", 1, 1, 32, 128, "bf16", [37], None),
-            ("decode_attention", "cross", 1, 1, 32, 750, "bf16", None, None),
-            ("decode_attention", "cross", 1, 1, 32, 750, "int8", None, None),
-            ("decode_attention", "cross", 1, 1, 32, 750, "int4", None, None),
-            ("decode_attention", "cross", 4, 1, 32, 750, "bf16", None, None),
-            ("decode_attention", "self", 8, 1, 32, 128, "bf16",
-             [0, 5, 17, 63, 64, 100, 126, 127], None),
-            ("decode_attention", "cross", 8, 1, 32, 1500, "bf16", None, None),
-            ("decode_attention", "self", 2, 1, 2, 64, "f32", [3, 40], 48),
-            ("decode_attention_group", "cross", 5, 5, 32, 750, "bf16", None,
-             None),
-            ("decode_attention_group", "cross", 5, 5, 32, 750, "int8", None,
-             None),
-            ("decode_attention_group", "cross", 5, 5, 32, 750, "int4", None,
-             None),
-            ("decode_attention_group", "cross", 10, 10, 32, 750, "bf16",
-             None, None),
-            ("decode_attention_group", "cross", 16, 16, 32, 750, "bf16",
-             None, None),
-            ("decode_attention_group", "cross", 40, 5, 32, 1500, "bf16", None,
-             None),
-            ("decode_attention_group", "cross", 20, 5, 32, 750, "bf16", None,
-             None),
-            ("decode_attention_group", "cross", 10, 5, 4, 128, "f32", None,
-             None)):
+
+    def cache_row(name, kind, b, rep, n_layer, c, st, pos, cu, d=d,
+                  h=heads, tag=""):
         bm = kind == "self"
         bk = b // rep
         shape = (bk, n_layer, c, d) if bm else (n_layer, bk, c, d)
@@ -571,14 +582,14 @@ def phase_kernels() -> dict:
         if lim is None:
             kl = kc[:, layer] if bm else kc[layer]
             vl = vc[:, layer] if bm else vc[layer]
-            kh, vh = heads_view(kl[:, :ncu], ncu), heads_view(vl[:, :ncu],
-                                                              ncu)
+            kh, vh = (heads_view(kl[:, :ncu], ncu, h),
+                      heads_view(vl[:, :ncu], ncu, h))
             if rep == 1:
-                qh = heads_view(q[:, None], 1)
+                qh = heads_view(q[:, None], 1, h)
                 mask = (torch.arange(ncu, device="cuda")[None, None, None, :]
                         <= pos_t[:, None, None, None])
             else:  # the R lanes of a window as R queries of one head row
-                qh = heads_view(q.view(bk, rep, d), rep)
+                qh = heads_view(q.view(bk, rep, d), rep, h)
                 mask = None
 
             def library(qh=qh, kh=kh, vh=vh, mask=mask):
@@ -586,16 +597,46 @@ def phase_kernels() -> dict:
                                                       attn_mask=mask,
                                                       scale=1.0)
         record(name,
-               f"{kind} {st} B={b}" + (f" R={rep}" if rep > 1 else "")
+               f"{tag}{kind} {st} B={b}" + (f" R={rep}" if rep > 1 else "")
                + f" L={n_layer} C={c}" + (f" c_used={cu}" if cu else ""),
                lambda: KC.decode_attention_stacked(
-                   q, kc, vc, pos_t, layer, heads, batch_major=bm,
+                   q, kc, vc, pos_t, layer, h, batch_major=bm,
                    kv_rep=rep, c_used=cu),
                lambda: KC.decode_attention_stacked_plain(
-                   q, kc, vc, pos_t, layer, heads, batch_major=bm,
+                   q, kc, vc, pos_t, layer, h, batch_major=bm,
                    kv_rep=rep, c_used=cu),
                *KC.TOL[dt], work, library, dtype=dt)
         del kc, vc, library
+
+    for case in (
+            ("decode_attention", "self", 5, 1, 32, 128, "bf16",
+             [40] * 5, None),
+            ("decode_attention", "self", 1, 1, 32, 128, "bf16", [37], None),
+            ("decode_attention", "cross", 1, 1, 32, 750, "bf16", None, None),
+            ("decode_attention", "cross", 1, 1, 32, 750, "int8", None, None),
+            ("decode_attention", "cross", 1, 1, 32, 750, "int4", None, None),
+            ("decode_attention", "cross", 4, 1, 32, 750, "bf16", None, None),
+            ("decode_attention", "self", 8, 1, 32, 128, "bf16",
+             [0, 5, 17, 63, 64, 100, 126, 127], None),
+            ("decode_attention", "cross", 8, 1, 32, 1500, "bf16", None, None),
+            ("decode_attention", "self", 2, 1, 2, 64, "f32", [3, 40], 48),
+            ("decode_attention_group", "cross", 5, 5, 32, 750, "bf16", None,
+             None),
+            ("decode_attention_group", "cross", 5, 5, 32, 750, "int8", None,
+             None),
+            ("decode_attention_group", "cross", 5, 5, 32, 750, "int4", None,
+             None),
+            ("decode_attention_group", "cross", 10, 10, 32, 750, "bf16",
+             None, None),
+            ("decode_attention_group", "cross", 16, 16, 32, 750, "bf16",
+             None, None),
+            ("decode_attention_group", "cross", 40, 5, 32, 1500, "bf16", None,
+             None),
+            ("decode_attention_group", "cross", 20, 5, 32, 750, "bf16", None,
+             None),
+            ("decode_attention_group", "cross", 10, 5, 4, 128, "f32", None,
+             None)):
+        cache_row(*case)
 
     # C.flat: K8, one layer's flat (B, C, d) cache sliced out of a stacked
     # buffer: a self cache of C = 448 rows at pos 60 (one lane, then 5 lanes
@@ -649,7 +690,7 @@ def phase_kernels() -> dict:
     # (1 lane, C = 128), then 8 lanes with mixed pos and a NaN scale on
     # each lane's first masked row. No PyTorch call takes int8 K/V with row
     # scales.
-    for b, pos in ((1, [37]), (8, [0, 5, 17, 63, 64, 100, 125, 126])):
+    def scaled_row(b, pos, d=d, h=heads, tag=""):
         shape = (b, 32, 128, d)
         kc, vc = (torch.randint(-127, 128, shape, generator=gen,
                                 device="cuda", dtype=torch.int8)
@@ -665,15 +706,19 @@ def phase_kernels() -> dict:
         work = (sum(2 * n * (d + 4) for n in n_vis) + 2 * b * d * 2,
                 sum(4 * n * d for n in n_vis))
         record("decode_attention_scaled",
-               f"self int8 B={b} L=32 C=128" + (" mixed pos" if b > 1 else ""),
+               f"{tag}self int8 B={b} L=32 C=128"
+               + (" mixed pos" if b > 1 else ""),
                lambda: KC.decode_attention_stacked(
-                   q, kc, vc, pos_t, 7, heads, batch_major=True,
+                   q, kc, vc, pos_t, 7, h, batch_major=True,
                    k_rowscale=ks, v_rowscale=vs),
                lambda: KC.decode_attention_stacked_plain(
-                   q, kc, vc, pos_t, 7, heads, batch_major=True,
+                   q, kc, vc, pos_t, 7, h, batch_major=True,
                    k_rowscale=ks, v_rowscale=vs),
                *KC.TOL[bf16], work)
         del kc, vc, ks, vs
+
+    for b, pos in ((1, [37]), (8, [0, 5, 17, 63, 64, 100, 125, 126])):
+        scaled_row(b, pos)
 
     # E.int4: K3s over the packed-int4 self cache (values in [-7, 7], d / 2
     # bytes a row): the int4 agreement slice's greedy shape (1 lane, C =
@@ -718,14 +763,10 @@ def phase_kernels() -> dict:
     from whisper_tpu_torch.decode.beam import _cow_assign
 
     k, ps = 5, 60
-    for name, row, cases in (
-            ("permute_attention", d, (("random", True, 1),
-                                      ("collapsed", True, 1),
-                                      ("identity", True, 1),
-                                      ("random", False, 1))),
-            ("permute_attention_int4", d // 2, (("random", True, 1),
-                                                ("random", True, 2)))):
-        int4 = row != d
+
+    def fused_row(int4, kind, cow, w, d=d, h=heads, tag=""):
+        name = "permute_attention_int4" if int4 else "permute_attention"
+        row = d // 2 if int4 else d
 
         def ints(shape):
             if not int4:
@@ -734,68 +775,72 @@ def phase_kernels() -> dict:
             return pack_int4(torch.randint(-7, 8, shape, generator=gen,
                                            device="cuda", dtype=torch.int8))
 
-        for kind, cow, w in cases:
-            b = k * w
-            shape = (b, 32, 128, d)
-            caches = [ints(shape) for _ in "kv"]
-            caches += [0.002 + 0.01 * torch.rand(shape[:3], generator=gen,
-                                                 device="cuda") for _ in "kv"]
-            new = [ints((b, d)) for _ in "kv"]
-            new += [0.002 + 0.01 * torch.rand(b, generator=gen, device="cuda")
-                    for _ in "kv"]
-            q = _randn((b, d), gen, 0.125)
-            phys = torch.stack([torch.randperm(k, generator=gen, device="cuda")
-                                for _ in range(w)])
-            parent = {"random": torch.randint(0, k, (w, k), generator=gen,
-                                              device="cuda"),
-                      "collapsed": torch.full((w, k), 2, device="cuda"),
-                      "identity": torch.arange(k, device="cuda").repeat(w, 1)
-                      }[kind]
-            offs = (torch.arange(w, device="cuda") * k)[:, None]
-            dests = None
-            if cow:
-                parent, dests = _cow_assign(parent, phys)
-                dests = (dests + offs).reshape(-1)
-            parent = (parent + offs).reshape(-1)
-            par = parent.tolist()
-            moved = [True] * b if dests is None else [
-                a != c for a, c in zip(par, dests.tolist())]
-            n = ps + 1
-            read = (len(set(par)) * 2 * ps * (row + 4) + 2 * b * (row + 4)
-                    + b * d * 2)
-            written = (sum(2 * (n if m else 1) * (row + 4) for m in moved)
-                       + b * d * 2)
-            args = lambda arrays: (q, *arrays, *new, parent, ps, 7, heads, k)
-            mine = [x.clone() for x in caches]
-            plain = [x.clone() for x in caches]
-            got = KF.decode_attention_permute_fused(*args(mine), dests=dests)
-            want = KF.decode_attention_permute_fused_plain(*args(plain),
-                                                           dests=dests)
-            err, ratio = compare(f"{name} [{kind} W={w}]", got[0], want[0],
-                                 *KC.TOL[bf16])
-            compare(f"{name} [{kind} W={w}] caches", got[1:], want[1:],
-                    0.0, 0.0)
-            bound_ms, bound_by = bound(read + written, 4 * b * n * d)
-            rows[name].append(dict(
-                shape=("int4 " if int4 else "")
-                + f"B={b}" + (f" (W={w})" if w > 1 else "")
-                + f" L=32 C=128 pos={ps} {kind} parents "
-                + ("COW dests" if cow else "dests=None (staged)"),
-                max_abs_err=err, atol=KC.TOL[bf16][0], rtol=KC.TOL[bf16][1],
-                err_over_tol=ratio, caches_bit_equal=True,
-                ms=time_ms(lambda: KF.decode_attention_permute_fused(
-                    *args(mine), dests=dests)),
-                plain_ms=time_ms(
-                    lambda: KF.decode_attention_permute_fused_plain(
-                        *args(plain), dests=dests)),
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=None))
-            del mine, plain, caches
+        b = k * w
+        shape = (b, 32, 128, d)
+        caches = [ints(shape) for _ in "kv"]
+        caches += [0.002 + 0.01 * torch.rand(shape[:3], generator=gen,
+                                             device="cuda") for _ in "kv"]
+        new = [ints((b, d)) for _ in "kv"]
+        new += [0.002 + 0.01 * torch.rand(b, generator=gen, device="cuda")
+                for _ in "kv"]
+        q = _randn((b, d), gen, 0.125)
+        phys = torch.stack([torch.randperm(k, generator=gen, device="cuda")
+                            for _ in range(w)])
+        parent = {"random": torch.randint(0, k, (w, k), generator=gen,
+                                          device="cuda"),
+                  "collapsed": torch.full((w, k), 2, device="cuda"),
+                  "identity": torch.arange(k, device="cuda").repeat(w, 1)
+                  }[kind]
+        offs = (torch.arange(w, device="cuda") * k)[:, None]
+        dests = None
+        if cow:
+            parent, dests = _cow_assign(parent, phys)
+            dests = (dests + offs).reshape(-1)
+        parent = (parent + offs).reshape(-1)
+        par = parent.tolist()
+        moved = [True] * b if dests is None else [
+            a != c for a, c in zip(par, dests.tolist())]
+        n = ps + 1
+        read = (len(set(par)) * 2 * ps * (row + 4) + 2 * b * (row + 4)
+                + b * d * 2)
+        written = (sum(2 * (n if m else 1) * (row + 4) for m in moved)
+                   + b * d * 2)
+        args = lambda arrays: (q, *arrays, *new, parent, ps, 7, h, k)
+        mine = [x.clone() for x in caches]
+        plain = [x.clone() for x in caches]
+        got = KF.decode_attention_permute_fused(*args(mine), dests=dests)
+        want = KF.decode_attention_permute_fused_plain(*args(plain),
+                                                       dests=dests)
+        err, ratio = compare(f"{name} [{tag}{kind} W={w}]", got[0], want[0],
+                             *KC.TOL[bf16])
+        compare(f"{name} [{tag}{kind} W={w}] caches", got[1:], want[1:],
+                0.0, 0.0)
+        bound_ms, bound_by = bound(read + written, 4 * b * n * d)
+        rows[name].append(dict(
+            shape=tag + ("int4 " if int4 else "")
+            + f"B={b}" + (f" (W={w})" if w > 1 else "")
+            + f" L=32 C=128 pos={ps} {kind} parents "
+            + ("COW dests" if cow else "dests=None (staged)"),
+            max_abs_err=err, atol=KC.TOL[bf16][0], rtol=KC.TOL[bf16][1],
+            err_over_tol=ratio, caches_bit_equal=True,
+            ms=time_ms(lambda: KF.decode_attention_permute_fused(
+                *args(mine), dests=dests)),
+            plain_ms=time_ms(
+                lambda: KF.decode_attention_permute_fused_plain(
+                    *args(plain), dests=dests)),
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=None))
+        del mine, plain, caches
+
+    for case in ((False, "random", True, 1), (False, "collapsed", True, 1),
+                 (False, "identity", True, 1), (False, "random", False, 1),
+                 (True, "random", True, 1), (True, "random", True, 2)):
+        fused_row(*case)
 
     # D: the beam reshuffle of the self caches, window-local parents; the
     # slice's shape first (5 lanes, whole slabs, as the bf16 main path),
     # then 8 windows, then the prefix mode of the int8 path with two
     # rank-4 caches and two rank-3 per-row arrays. Bit-exact.
-    for w, valid in ((1, None), (8, None), (1, 37), (1, 128)):
+    def permute_row(w, valid, d=d, tag=""):
         b = 5 * w
         arrays = [_randn((b, 32, 128, d), gen) for _ in range(2)]
         if valid is not None:
@@ -814,7 +859,7 @@ def phase_kernels() -> dict:
         least = (len(set(par.tolist())) + b) * copied // b
         idx = par.long()
         record("permute",
-               f"{len(arrays)} arrays B={b} (W={w}) L=32 C=128 d={d}"
+               f"{tag}{len(arrays)} arrays B={b} (W={w}) L=32 C=128 d={d}"
                + (f" valid_len={valid}" if valid else " whole slabs"),
                lambda: KP.permute_lanes_arrays(arrays, par, out_k,
                                                valid_len=valid),
@@ -825,6 +870,41 @@ def phase_kernels() -> dict:
                    torch.index_select(a, 0, idx, out=o)
                    for a, o in zip(arrays, out_p)])
         del arrays, out_k, out_p
+
+    for w, valid in ((1, None), (8, None), (1, 37), (1, 128)):
+        permute_row(w, valid)
+
+    # H: the local widths of phase 21's ranks, which no row above takes:
+    # large-v2 at tp = 2 (10 heads, d 640) and tp = 4 (5 heads, d 320),
+    # head dim 64 at both. K1 at a window's encoder shape; K3 over the
+    # greedy lane's and beam 5's bf16 self caches and one window's bf16
+    # cross cache; K3g over beam 5's bf16 and int4 cross caches; K3s over
+    # int8 self caches (one lane, five lanes with mixed pos); K5 with
+    # random parents and COW dests; K4 over beam 5's whole slabs and the
+    # int8 path's prefix. Each held against its plain version at the
+    # tolerance of its full-width rows.
+    for h_l in (heads // 2, heads // 4):
+        d_l = h_l * hd
+        tag = f"tp-local H={h_l} d={d_l} "
+        flash_row(1, 750, 750, False, d_l, h_l, tag)
+        for case in (
+                ("decode_attention", "self", 1, 1, 32, 128, "bf16", [37],
+                 None),
+                ("decode_attention", "self", 5, 1, 32, 128, "bf16",
+                 [40] * 5, None),
+                ("decode_attention", "cross", 1, 1, 32, 750, "bf16", None,
+                 None),
+                ("decode_attention_group", "cross", 5, 5, 32, 750, "bf16",
+                 None, None),
+                ("decode_attention_group", "cross", 5, 5, 32, 750, "int4",
+                 None, None)):
+            cache_row(*case, d_l, h_l, tag)
+        scaled_row(1, [37], d_l, h_l, tag)
+        scaled_row(5, [0, 17, 63, 100, 126], d_l, h_l, tag)
+        fused_row(False, "random", True, 1, d_l, h_l, tag)
+        permute_row(1, None, d_l, tag)
+        permute_row(1, 37, d_l, tag)
+
     # G: K6 / K7 (W8A8) at the shapes of the w8a8 slice: decode steps of
     # 1, 5 and 20 rows (greedy, one window's beam, 4 windows' beam) at the
     # decoder's four weight shapes (qkv; attn_o, cross_q, cross_o; mlp1;
@@ -1056,7 +1136,14 @@ def timed(label: str, fn, *args):
     return out
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description="Drive the port's main paths "
+                                 "on one CUDA card (see the docstring).")
+    ap.add_argument("--parallel-depth", type=int, default=PARALLEL_DEPTH,
+                    help="tokens a window in phase 21's decodes (default "
+                    "%(default)s; the meshless references are taken at the "
+                    "same depth)")
+    args = ap.parse_args(argv)
     device = timed("device", phase_device)
     timed("build", phase_build)
     rows = timed("kernels", phase_kernels)
@@ -1099,6 +1186,14 @@ def main() -> int:
     slices["streaming"] = timed("streaming", phase_streaming, tr, waves)
     slices["serve"] = timed("serve", phase_serve, tr, waves)
     slices["finetune"] = timed("finetune", phase_finetune, tr.tok)
+    refs = timed("parallel references", parallel_references, tr, waves,
+                 args.parallel_depth)
+    tok_path = str(tokenizer_path())
+    del params, tr, setup
+    slices["parallel"] = timed(
+        "parallel", phase_parallel, refs, tok_path, waves,
+        slices["finetune"]["train_step"]["no_remat"]["runs"][1],
+        args.parallel_depth)
     # every kernel must run on some slice's main path, K8 and K9 at their
     # call sites
     launches = {n: sum(sl["launches"][n] for sl in slices.values())
@@ -3217,6 +3312,471 @@ def compare_beam_paths(params, cfg_k, tok, windows, opts, label: str,
     res = _check_paths(label, res, {
         "encoder": enc["flash"], "logits": torch.stack(out["flash"])}, limit)
     return dict(res, permuted_caches_equal=exact)
+
+
+# ----------------------------------------------------------------------------
+# Phase 21: the mesh as SPMD ranks on one card
+# ----------------------------------------------------------------------------
+
+# a spawn's join timeout at PARALLEL_DEPTH (longer in proportion at a
+# greater depth): a rank that fails or hangs fails the phase
+PARALLEL_TIMEOUT_S = 420.0
+PARALLEL_STEPS = 10  # S=1 decoder steps timed a rank
+# tokens a window, every decode of the phase (--parallel-depth)
+PARALLEL_DEPTH = 10
+
+
+def _first_step(tr, window, opts) -> tuple:
+    """(window's encoder output, the logits of the first S=1 step after the
+    prompt's prefill) through `tr`'s path and mesh, as f32 CPU tensors."""
+    from whisper_tpu_torch.models import whisper as M
+    from whisper_tpu_torch.parallel.context import kernel_mesh
+
+    with kernel_mesh(tr.mesh), torch.inference_mode():
+        enc = tr._encode_windows(window[None], opts)
+        prompt, _ = tr._build_prompt(opts)
+        cache = M.init_cache(tr.params, enc, tr.cfg, cache_len=128,
+                             kv_quant=opts.kv_quant,
+                             self_quant=opts.self_quant)
+        logits, cache = M.decoder_step(tr.params, prompt[None], 0, cache,
+                                       tr.cfg)
+        tok = logits[:, -1].argmax(-1)
+        logits, _ = M.decoder_step(tr.params, tok[:, None], len(prompt),
+                                   cache, tr.cfg)
+    return enc.float().cpu(), logits[:, -1].float().cpu()
+
+
+def _step_timing(tr, window, opts) -> dict:
+    """Seconds (host clock, synchronised) and device ms (the profiler's
+    CUDA time, None when it records none) a greedy S=1 decoder step over
+    one window's caches under `tr`'s mesh, and the tp collectives a step,
+    over PARALLEL_STEPS steps after 3 of warm-up."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from whisper_tpu_torch.models import whisper as M
+    from whisper_tpu_torch.parallel import context as pctx
+
+    with pctx.kernel_mesh(tr.mesh), torch.inference_mode():
+        enc = tr._encode_windows(window[None], opts)
+        prompt, _ = tr._build_prompt(opts)
+        cache = M.init_cache(tr.params, enc, tr.cfg, cache_len=128)
+        logits, cache = M.decoder_step(tr.params, prompt[None], 0, cache,
+                                       tr.cfg)
+        tok = logits[:, -1].argmax(-1)[:, None]
+        pos = len(prompt)
+
+        def run(n):
+            t = tok
+            for i in range(n):
+                lg, _ = M.decoder_step(tr.params, t, pos + i, cache, tr.cfg)
+                t = lg[:, -1].argmax(-1)[:, None]
+            torch.cuda.synchronize()
+
+        run(3)
+        n_coll = pctx.tp_collectives
+        t0 = time.perf_counter()
+        run(PARALLEL_STEPS)
+        seconds = (time.perf_counter() - t0) / PARALLEL_STEPS
+        n_coll = (pctx.tp_collectives - n_coll) / PARALLEL_STEPS
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run(PARALLEL_STEPS)
+    device_us = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+    return {"step_s": seconds,
+            "device_ms": device_us / 1e3 / PARALLEL_STEPS or None,
+            "tp_collectives": n_coll}
+
+
+def _parallel_options(depth: int) -> dict:
+    from whisper_tpu_torch.pipeline.transcribe import DecodeOptions
+
+    return {"greedy": DecodeOptions(strategy="greedy", max_depth=depth),
+            "beam": DecodeOptions(max_depth=depth),
+            "quant_beam": DecodeOptions(kv_quant="int4", self_quant="int8",
+                                        max_depth=depth)}
+
+
+def _tie(tr, window, opts, want, got) -> dict:
+    """`want` and `got`, two decodes of `window` (the prompt included),
+    first differ at position j: the logits of the S = 1 step that predicts
+    j through `tr`'s path and mesh, fed want[:j] (the common prefix, one
+    lane): their top-2 gap, and how far want[j]'s logit leads got[j]'s
+    there. A lead of a few hundredths of a logit is a near tie that a
+    rounding difference flips; a fault shows as a lead of whole logits."""
+    from whisper_tpu_torch.models import whisper as M
+    from whisper_tpu_torch.parallel.context import kernel_mesh
+
+    j = next((n for n, (a, b) in enumerate(zip(want, got)) if a != b),
+             min(len(want), len(got)))
+    n_prompt = len(tr._build_prompt(opts)[0])
+    with kernel_mesh(tr.mesh), torch.inference_mode():
+        enc = tr._encode_windows(window[None], opts)
+        toks = torch.tensor([want[:j]], device="cuda")
+        cache = M.init_cache(tr.params, enc, tr.cfg, cache_len=448,
+                             kv_quant=opts.kv_quant,
+                             self_quant=opts.self_quant)
+        logits, cache = M.decoder_step(tr.params, toks[:, :n_prompt], 0,
+                                       cache, tr.cfg)
+        for pos in range(n_prompt, j):
+            logits, cache = M.decoder_step(tr.params, toks[:, pos:pos + 1],
+                                           pos, cache, tr.cfg)
+    lg = logits[0, -1].float().cpu()
+    out = {"pos": j, "top2_gap": _top2_gap(lg)}
+    if j < min(len(want), len(got)):
+        out.update(want=want[j], got=got[j],
+                   lead=float(lg[want[j]] - lg[got[j]]))
+    return out
+
+
+def _window_divergence(tr, tr0, wave, opts):
+    """The first window of `wave` whose decode through the meshed `tr`
+    differs from the meshless `tr0`'s, with the tie at the first differing
+    position on both paths; None when every window decodes alike (the
+    texts then differ in their stitching only)."""
+    prompt, n_cond = tr._build_prompt(opts)
+    sup = opts.suppress_until_len + n_cond
+    for i, _, _, window in tr._windows(wave, 16000, opts):
+        with torch.inference_mode():
+            want = tr0._decode(window, prompt, sup, opts)[0]
+            got = tr._decode(window, prompt, sup, opts)[0]
+        if want != got:
+            return {"window": i,
+                    "meshless": _tie(tr0, window, opts, want, got),
+                    "meshed": _tie(tr, window, opts, want, got)}
+    return None
+
+
+def _dp_divergence(bt, bt0, waves, opts):
+    """The first window of `waves` whose tokens in the dp-meshed `bt`'s
+    batched decode differ from those of the meshless `bt0`'s, with the tie
+    at the first differing position on the meshless path; None when
+    every window decodes alike. (A window is decoded at batch 1 there,
+    where a dp mesh splits nothing.)"""
+    prompt, n_cond = bt._build_prompt(opts)
+    cond = prompt[:n_cond].tolist()
+    with torch.inference_mode():
+        got, _, bounds, _ = bt._decode_windows(waves, 16000, opts)
+        want = bt0._decode_windows(waves, 16000, opts)[0]
+    for key in sorted(want):
+        if want[key] != got.get(key):
+            a, b = bounds[key]
+            return {"stream": key[0], "window": key[1],
+                    "meshless": _tie(bt0, waves[key[0]][a:b], opts,
+                                     cond + want[key], cond + got[key])}
+    return None
+
+
+def parallel_references(tr, waves, depth: int) -> dict:
+    """The meshless kernel path's numbers phase 21 is held against, taken
+    before the parent drops its weights: window 0's encoder output and
+    first-step logits, greedy and over the quantized caches; the texts of
+    phase 21's decodes; the meshless decoder step's timing."""
+    from whisper_tpu_torch.pipeline.batch import BatchTranscriber
+
+    opts = _parallel_options(depth)
+    window = _full_windows(waves[:1], tr.cfg, opts["greedy"])[0]
+    enc, logits = _first_step(tr, window, opts["greedy"])
+    _, qlogits = _first_step(tr, window, opts["quant_beam"])
+    texts = {name: tr.transcribe(waves[0], 16000, o,
+                                 on_chunk=lambda i, t: None)[0]
+             for name, o in opts.items()}
+    bt = BatchTranscriber(tr.params, tr.cfg, tr.tok, batch_size=4,
+                          device=tr.device)
+    texts["dp"] = [r[0] for r in bt.transcribe_many(waves, 16000,
+                                                    opts["greedy"])]
+    texts["window"] = tr.transcribe(window, 16000, opts["greedy"],
+                                    on_chunk=lambda i, t: None)[0]
+    timing = _step_timing(tr, window, opts["greedy"])
+    log(f"parallel: meshless decoder step {timing['step_s'] * 1e3:.2f} ms, "
+        f"{timing['device_ms']} device ms")
+    return {"window": window, "enc": enc, "logits": logits,
+            "quant_logits": qlogits, "texts": texts, "step": timing}
+
+
+def _parallel_rank(rank: int, spec: dict) -> dict:
+    """One rank of phase 21 (see the module docstring): the sub-phases of
+    `spec["subphases"]` over a tp mesh of the world and, for "dp", a dp
+    mesh; returns what the parent gates and prints."""
+    import gc
+
+    import torch.distributed as dist
+
+    from whisper_tpu_torch.parallel import context as pctx
+    from whisper_tpu_torch.parallel.mesh import make_mesh
+    from whisper_tpu_torch.params import init_params
+    from whisper_tpu_torch.pipeline.batch import BatchTranscriber
+    from whisper_tpu_torch.pipeline.transcribe import Transcriber
+    from whisper_tpu_torch.text.tokenizer import WhisperTokenizer
+
+    world = dist.get_world_size()
+    cfg, sub = spec["cfg"], spec["subphases"]
+    tok = WhisperTokenizer(spec["tok"])
+    tp_mesh = make_mesh(dp=1, tp=world)
+    dp_mesh = make_mesh(dp=world, tp=1) if "dp" in sub else None
+    out = {"rank": rank, "device": torch.cuda.get_device_name(0)}
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = init_params(cfg, gen, dtype=torch.bfloat16)
+    tr = Transcriber(params, cfg, tok, mesh=tp_mesh, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    options = _parallel_options(spec["depth"])
+    greedy = options["greedy"]
+    reset_counts()
+    enc, logits = _first_step(tr, spec["window"], greedy)
+    out["enc"], out["logits"] = enc, logits
+    for name, opts in options.items():
+        if name not in sub:
+            continue
+        if name == "quant_beam":
+            out["quant_logits"] = _first_step(tr, spec["window"], opts)[1]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        text, tokens = tr.transcribe(spec["wave"], 16000, opts,
+                                     on_chunk=lambda i, t: None)
+        torch.cuda.synchronize()
+        out[name] = {"text": text, "tokens": tokens,
+                     "seconds": time.perf_counter() - t0}
+    if "window" in sub:  # one greedy window
+        t0 = time.perf_counter()
+        text, tokens = tr.transcribe(spec["window"], 16000, greedy,
+                                     on_chunk=lambda i, t: None)
+        torch.cuda.synchronize()
+        out["window"] = {"text": text, "tokens": tokens,
+                         "seconds": time.perf_counter() - t0}
+    # the tp sub-phases' launches, then the dp sub-phase's (K2 runs only
+    # there)
+    out["launches"] = launch_counts()
+    bt = None
+    if "dp" in sub:
+        bt = BatchTranscriber(params, cfg, tok, mesh=dp_mesh, batch_size=4,
+                              device="cuda")
+        reset_counts()
+        t0 = time.perf_counter()
+        res = bt.transcribe_many(spec["waves"], 16000, greedy)
+        torch.cuda.synchronize()
+        out["dp_launches"] = launch_counts()
+        out["dp"] = {"texts": [r[0] for r in res],
+                     "tokens": [r[1] for r in res],
+                     "seconds": time.perf_counter() - t0}
+    if "timing" in sub:
+        out["step"] = _step_timing(tr, spec["window"], greedy)
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    # where each text that differs from the meshless one first differs,
+    # and by what margin (after the launch counts and the peak are read;
+    # the same branches on every rank, as the texts are the same there)
+    tr0 = Transcriber(params, cfg, tok, device="cuda")
+    for name, opts in (*options.items(), ("window", greedy)):
+        if name in out and out[name]["text"] != spec["texts"][name]:
+            wave = spec["window"] if name == "window" else spec["wave"]
+            out[name]["divergence"] = _window_divergence(tr, tr0, wave, opts)
+    if "dp" in sub and out["dp"]["texts"] != spec["texts"]["dp"]:
+        out["dp"]["divergence"] = _dp_divergence(
+            bt, BatchTranscriber(params, cfg, tok, batch_size=4,
+                                 device="cuda"), spec["waves"], greedy)
+    del tr, tr0, bt, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    if "train" in sub:
+        out["train"] = _parallel_train_step(spec, tp_mesh)
+    out["tp_collectives"] = pctx.tp_collectives
+    return out
+
+
+def _parallel_train_step(spec: dict, mesh) -> dict:
+    """(e): phase 20's f32 train step (the weights from SEED + 3, the same
+    batch) over a tp mesh of this rank: loss, grad_norm, seconds, peak
+    memory. No checkpoint is written."""
+    import os
+
+    from whisper_tpu_torch.params import init_params, trainable
+    from whisper_tpu_torch.parallel.sharding import shard_params
+    from whisper_tpu_torch.text.tokenizer import WhisperTokenizer
+    from whisper_tpu_torch.training import data as tdata
+    from whisper_tpu_torch.training import train as ttrain
+
+    cfg = spec["cfg"]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    params = shard_params(trainable(init_params(cfg, gen)), mesh, cfg)
+    torch.cuda.empty_cache()
+    words = os.path.join(spec["work"], f"words_{os.getpid()}.json")
+    word_tokenizer_json(words)
+    batch = tdata.build_batch([synthetic_speech(spec["n_window"], SEED + 3)],
+                              [FT_TEXT], WhisperTokenizer(words), cfg)
+    opt = ttrain.make_optimizer(learning_rate=1e-5, warmup_steps=10,
+                                total_steps=100)
+    step = ttrain.make_train_step(cfg, opt, mesh=mesh)
+    state = ttrain.init_train_state(params, opt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, metrics = step(state, batch)
+    metrics = {k: float(v) for k, v in metrics.items()}
+    torch.cuda.synchronize()
+    return dict(metrics, seconds=time.perf_counter() - t0,
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+
+def _spawn_ranks(world: int, spec: dict) -> list:
+    import tempfile
+
+    from whisper_tpu_torch.parallel import launch
+
+    timeout = PARALLEL_TIMEOUT_S * max(1.0, spec["depth"] / PARALLEL_DEPTH)
+    with tempfile.TemporaryDirectory() as d:
+        return launch.spawn(_parallel_rank, world, (dict(spec, work=d),),
+                            init_method=launch.file_init_method(d),
+                            backend="gloo", timeout_s=timeout, threads=2)
+
+
+def _log_divergence(label: str, div) -> None:
+    """Print where a meshed text first differs from the meshless one (see
+    `_window_divergence`, `_dp_divergence`)."""
+    if div is None:
+        log(f"parallel {label}: every window's tokens equal the meshless "
+            "ones; the texts differ in their stitching")
+        return
+    where = ", ".join(f"{k} {div[k]}" for k in ("stream", "window")
+                      if k in div)
+    for path in ("meshless", "meshed"):
+        if path in div:
+            t = div[path]
+            log(f"parallel {label}: {where}, first differs at position "
+                f"{t['pos']} (meshless {t.get('want')}, meshed "
+                f"{t.get('got')}); {path} path fed the common prefix: top-2 "
+                f"logit gap {t['top2_gap']:.5f}, the meshless token's logit "
+                f"leads the meshed one's by {t.get('lead')}")
+
+
+def _gate(label: str, got, want) -> float:
+    err = rel_err(got, want)
+    if not (np.isfinite(err) and err <= PATH_RTOL):
+        raise AssertionError(f"parallel {label}: relative L2 {err:.4g} of "
+                             f"the meshless kernel path > {PATH_RTOL}")
+    return err
+
+
+def phase_parallel(refs: dict, tok_path: str, waves, train_ref: dict,
+                   depth: int) -> dict:
+    """Phase 21 (see the module docstring). `refs`: the meshless numbers of
+    `parallel_references` at `depth` tokens a window; `train_ref`: phase
+    20's meshless train step (no remat)."""
+    import gc
+
+    from whisper_tpu_torch.config import preset
+    from whisper_tpu_torch.ops import audio
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    log(f"parallel: before spawning, {free / 1e9:.1f} of {total / 1e9:.1f} "
+        f"GB free on the card")
+    cfg = preset("large-v2")
+    spec = {"cfg": cfg, "tok": tok_path, "window": refs["window"],
+            "wave": waves[0], "waves": waves, "depth": depth,
+            "texts": refs["texts"],
+            "n_window": audio.max_waveform_samples(cfg.encoder_ctx_size)}
+    res = {"launches": {n: 0 for n in _counters()}}
+    t0 = time.perf_counter()
+    two = _spawn_ranks(2, dict(spec, subphases=(
+        "greedy", "beam", "quant_beam", "dp", "timing", "train")))
+    res["two_ranks_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    four = _spawn_ranks(4, dict(spec, subphases=("window",)))
+    res["four_ranks_s"] = time.perf_counter() - t0
+    for out in two + four:
+        for counts in (out["launches"], out.get("dp_launches", {})):
+            for n, c in counts.items():
+                res["launches"][n] += c
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True).stdout.strip().splitlines()[0]
+    for label, outs, tp in (("tp=2", two, 2), ("tp=4", four, 4)):
+        r0 = outs[0]
+        errs = {"encoder": _gate(f"{label} encoder", r0["enc"], refs["enc"]),
+                "step_logits": _gate(f"{label} step logits", r0["logits"],
+                                     refs["logits"])}
+        if "quant_logits" in r0:
+            errs["quant_step_logits"] = _gate(
+                f"{label} quantized-cache step logits", r0["quant_logits"],
+                refs["quant_logits"])
+        for out in outs[1:]:  # every tp rank holds the same replicated output
+            if not torch.equal(out["logits"], r0["logits"]):
+                raise AssertionError(f"parallel {label}: rank {out['rank']}'s "
+                                     "logits differ from rank 0's")
+        res[label] = {"rel_err": errs,
+                      "peak_gb": [o["peak_gb"] for o in outs]}
+        log(f"parallel {label}: window 0 relative L2 vs meshless {errs}; "
+            f"peak {max(o['peak_gb'] for o in outs):.2f} GB a rank "
+            f"({smi})")
+        if "kind" not in res:
+            res["kind"] = r0["device"]
+    r0, texts = two[0], refs["texts"]
+    for name in ("greedy", "beam", "quant_beam"):
+        same = r0[name]["text"] == texts[name]
+        res["tp=2"][f"{name}_same_text"] = same
+        res["tp=2"][f"{name}_s"] = r0[name]["seconds"]
+        log(f"parallel tp=2 {name}: {len(r0[name]['tokens'])} tokens in "
+            f"{r0[name]['seconds']:.2f} s; text == meshless: {same}")
+        if not r0[name]["tokens"]:
+            raise AssertionError(f"parallel tp=2 {name}: no tokens")
+        if not same:
+            res["tp=2"][f"{name}_divergence"] = r0[name]["divergence"]
+            _log_divergence(f"tp=2 {name}", r0[name]["divergence"])
+    dp = r0["dp"]
+    if two[1]["dp"]["tokens"] != dp["tokens"] or not all(dp["tokens"]):
+        raise AssertionError("parallel dp=2: the ranks' gathered tokens "
+                             "differ, or a stream has none")
+    res["dp=2"] = {"same_text": [a == b for a, b in
+                                 zip(dp["texts"], texts["dp"])],
+                   "seconds": dp["seconds"]}
+    log(f"parallel dp=2 transcribe_many: {dp['seconds']:.2f} s; texts == "
+        f"meshless: {res['dp=2']['same_text']}")
+    if "divergence" in dp:
+        res["dp=2"]["divergence"] = dp["divergence"]
+        _log_divergence("dp=2", dp["divergence"])
+    w = four[0]["window"]
+    if not w["tokens"] or any(o["window"]["tokens"] != w["tokens"]
+                              for o in four):
+        raise AssertionError("parallel tp=4: no tokens, or the ranks differ")
+    res["tp=4"].update(window_s=w["seconds"],
+                       window_same_text=w["text"] == texts["window"])
+    log(f"parallel tp=4 window: {len(w['tokens'])} tokens in "
+        f"{w['seconds']:.2f} s; text == meshless: "
+        f"{res['tp=4']['window_same_text']}")
+    if "divergence" in w:
+        res["tp=4"]["window_divergence"] = w["divergence"]
+        _log_divergence("tp=4 window", w["divergence"])
+    step, meshless = r0["step"], refs["step"]
+    res["decoder_step"] = {"tp2": step, "meshless": meshless}
+    log(f"parallel decoder step: tp=2 {step['step_s'] * 1e3:.2f} ms "
+        f"({step['device_ms']} device ms, {step['tp_collectives']:.0f} tp "
+        f"collectives) against meshless {meshless['step_s'] * 1e3:.2f} ms "
+        f"({meshless['device_ms']} device ms); {smi}")
+    tr = r0["train"]
+    res["train_step"] = dict(tr)
+    for key in ("loss", "grad_norm"):
+        err = abs(tr[key] - train_ref[key]) / abs(train_ref[key])
+        res["train_step"][f"{key}_rel_err"] = err
+        if not (np.isfinite(tr[key]) and err <= REMAT_RTOL):
+            raise AssertionError(f"parallel tp=2 train step: {key} "
+                                 f"{tr[key]} vs meshless {train_ref[key]}")
+    log(f"parallel tp=2 f32 train step: loss {tr['loss']:.6f} grad_norm "
+        f"{tr['grad_norm']:.6f} (meshless {train_ref['loss']:.6f}, "
+        f"{train_ref['grad_norm']:.6f}); {tr['seconds']:.2f} s, peak "
+        f"{tr['peak_gb']:.2f} GB a rank ({smi})")
+    log(f"parallel launches (all ranks): {res['launches']}")
+    for name in ("flash_attention", "decode_attention",
+                 "decode_attention_scaled", "permute_attention"):
+        if res["launches"][name] == 0:
+            raise AssertionError(f"parallel: no rank launched {name}")
+    k2_tp = sum(o["launches"]["encoder_mlp"] for o in two + four)
+    k2_dp = sum(o["dp_launches"]["encoder_mlp"] for o in two)
+    res["k2_launches"] = {"tp": k2_tp, "dp": k2_dp}
+    if k2_tp or not k2_dp:
+        raise AssertionError(f"parallel: K2 launched {k2_tp} times under tp "
+                             f"(it has no tp decomposition) and {k2_dp} "
+                             "under dp=2 (where it runs)")
+    return res
 
 
 if __name__ == "__main__":

@@ -22,6 +22,8 @@ from whisper_tpu.pipeline import transcribe as JT
 from whisper_tpu_torch.pipeline import batch as TB
 from whisper_tpu_torch.pipeline import transcribe as TT
 
+from torch_one_thread import one_torch_thread  # noqa: F401 (fixture)
+
 
 @pytest.fixture(scope="module")
 def batchers(setup):

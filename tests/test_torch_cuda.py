@@ -1582,6 +1582,44 @@ def test_train_step_on_the_card_equals_the_cpu(gen, monkeypatch):
         assert rel <= 1e-4, (name, rel)
 
 
+def test_tp_ranks_on_one_card_match_the_meshless_kernel_path(gen, tmp_path):
+    """Two SPMD ranks (gloo) on cuda:0 at a tiny config (d 384, 6 heads:
+    3 heads and 192 channels a rank) through the kernels: a window's
+    encoder output and the first S=1 step's logits within 5e-2 relative L2
+    of the meshless kernel path on the same bf16 weights (chip_smoke's
+    PATH_RTOL), K1 and K3 launched on every rank, K2 never (it has no tp
+    decomposition)."""
+    import torch_parallel_rank as rank_side
+    from whisper_tpu_torch.ops.audio import max_waveform_samples
+    from whisper_tpu_torch.parallel import launch
+    from whisper_tpu_torch.pipeline.transcribe import DecodeOptions
+    from whisper_tpu_torch.text.tokenizer import build_test_tokenizer_json
+
+    tok = str(tmp_path / "tokenizer.json")
+    build_test_tokenizer_json(tok)
+    rng = np.random.default_rng(0)
+    n = max_waveform_samples(1490)
+    wave = (0.1 * rng.standard_normal(2 * n)).astype(np.float32)
+    case = dict(dims=dict(n_state=384, n_head=6, n_layer=2, n_vocab=366,
+                          n_audio_ctx=1500, n_text_ctx=448),
+                seed=0, tok=tok, tp=2, window=wave[:n], wave=wave,
+                opts=dict(strategy="greedy", max_depth=20))
+    outs = launch.spawn(rank_side.run_cuda_case, 2, (case,),
+                        init_method=launch.file_init_method(str(tmp_path)),
+                        backend="gloo", timeout_s=300.0)
+    tr = rank_side.cuda_transcriber(case)
+    enc, logits = rank_side.first_step(tr, case["window"],
+                                       DecodeOptions(**case["opts"]))
+    for out in outs:
+        assert out["device"].startswith("cuda")
+        for got, want in ((out["enc"], enc), (out["logits"], logits)):
+            rel = np.linalg.norm(got - want) / np.linalg.norm(want)
+            assert rel <= 5e-2, rel
+        k1, k2, k3 = out["launches"]
+        assert k1 > 0 and k3 > 0 and k2 == 0, out["launches"]
+    assert outs[0]["tokens"] == outs[1]["tokens"]
+
+
 def test_profiler_records_cuda_events_after_the_cli_tests(gen):
     """In this process, after the CLI tests above, the process's first
     profiling sessions: two that run one PyTorch op, then two that run one

@@ -51,6 +51,8 @@ from whisper_tpu_torch.params import from_numpy_tree
 from whisper_tpu_torch.pipeline import transcribe as TT
 from whisper_tpu_torch.quantize import int_values, pack_int4
 
+from torch_one_thread import one_torch_thread  # noqa: F401 (fixture)
+
 ENC_CTX = 96
 LOGP_ATOL = 1e-3
 MAX_DEPTH = 12

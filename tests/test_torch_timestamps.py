@@ -38,6 +38,8 @@ from whisper_tpu_torch.pipeline import formats as TF
 from whisper_tpu_torch.pipeline import segments as TS
 from whisper_tpu_torch.pipeline import transcribe as TT
 
+from torch_one_thread import one_torch_thread  # noqa: F401 (fixture)
+
 QUALITY_ATOL = 1e-5
 BASE = dict(max_depth=12, chunk_overlap_seconds=OVERLAP_S)
 

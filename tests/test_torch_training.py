@@ -411,13 +411,19 @@ def test_iter_batches_match_jax(tok, jtok, cfgs, caplog):
           for i, t in enumerate(["hello", "hi", "hello world", "hey",
                                  "world"])]
     ex.append((ex[0][0], "word " * 100))
-    logger = logging.getLogger("whisper_tpu_torch")
-    logger.addHandler(caplog.handler)
+    # both packages' loggers hand their records to caplog directly: once a
+    # JAX CLI test has run in this worker, `whisper_tpu.utils.logging.
+    # configure` has turned the JAX logger's propagation off
+    loggers = [logging.getLogger(n) for n in ("whisper_tpu_torch",
+                                              "whisper_tpu")]
+    for logger in loggers:
+        logger.addHandler(caplog.handler)
     try:
         got = list(TD.iter_batches(ex, tok, cfgs[1], 2, seed=5, epochs=2))
+        want = list(JD.iter_batches(ex, jtok, cfgs[0], 2, seed=5, epochs=2))
     finally:
-        logger.removeHandler(caplog.handler)
-    want = list(JD.iter_batches(ex, jtok, cfgs[0], 2, seed=5, epochs=2))
+        for logger in loggers:
+            logger.removeHandler(caplog.handler)
     assert len(got) == len(want) == 4
     for g, w in zip(got, want):
         _assert_batches_equal(g, w)

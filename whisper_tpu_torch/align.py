@@ -29,8 +29,10 @@ import torch
 import torch.nn.functional as F
 
 from .config import WhisperConfig
-from .models.whisper import (_kv_proj, _linear, _qkv_proj, causal_mask,
+from .models.whisper import (_kv_proj, _linear, _local_heads,
+                             _mlp, _qkv_proj, _row_linear, causal_mask,
                              layer_norm, qkv_attention)
+from .parallel import context as pctx
 from .params import ParamTree
 
 FRAME_SECONDS = 0.02  # one encoder position = two 10 ms mel frames
@@ -67,11 +69,14 @@ def cross_attention_weights(
     scale (d/h)^-0.25 on q AND k in their dtype, f32 scores and an f32
     softmax, whose weights (cast to v's dtype) also feed the block's
     output. Plain PyTorch on any device (the self-attention as well, as
-    JAX's `qkv_attention`); QTensor weights take the dequant matmul."""
+    JAX's `qkv_attention`); QTensor weights take the dequant matmul. Under
+    a tp mesh each rank computes its local heads (the model's tp layout,
+    models/whisper.py) and the weights are gathered over tp, so every rank
+    returns all H heads."""
     dec = params["decoder"]
     dec_cfg = cfg.text_decoder_config
-    n_head, eps = dec_cfg.n_text_head, cfg.ln_eps
-    d = dec_cfg.n_text_state
+    n_head, eps = _local_heads(dec_cfg.n_text_head), cfg.ln_eps
+    d = dec_cfg.n_text_state // pctx.tp_size()
     hd = d // n_head
     scale = (d / n_head) ** -0.25
     toks = tokens.long()[None, :]
@@ -83,11 +88,11 @@ def cross_attention_weights(
     for p in dec["blocks"].layers():
         hn = layer_norm(h, p["attn_ln_g"], p["attn_ln_b"], eps)
         q, k, v = _qkv_proj(hn, p["qkv_w"], p["qkv_b"])
-        h = h + _linear(qkv_attention(q, k, v, n_head, mask=mask),
-                        p["attn_o_w"], p["attn_o_b"])
+        h = h + _row_linear(qkv_attention(q, k, v, n_head, mask=mask),
+                            p["attn_o_w"], p["attn_o_b"])
 
         hn = layer_norm(h, p["cross_ln_g"], p["cross_ln_b"], eps)
-        q = _linear(hn, p["cross_q_w"], p["cross_q_b"])
+        q = _linear(pctx.copy_to_tp(hn), p["cross_q_w"], p["cross_q_b"])
         ck, cv = _kv_proj(enc_out.to(h.dtype), p["cross_kv_w"],
                           p["cross_kv_b"])
         qh = (q * scale).reshape(1, s, n_head, hd).transpose(1, 2)
@@ -97,14 +102,10 @@ def cross_attention_weights(
                           dim=-1)  # (1, H, S, Sa) f32
         out = torch.matmul(w.to(vh.dtype).float(), vh.float()).to(vh.dtype)
         out = out.transpose(1, 2).reshape(1, s, d)
-        h = h + _linear(out, p["cross_o_w"], p["cross_o_b"])
-
-        hn = layer_norm(h, p["mlp_ln_g"], p["mlp_ln_b"], eps)
-        hn = _linear(F.gelu(_linear(hn, p["mlp1_w"], p["mlp1_b"])),
-                     p["mlp2_w"], p["mlp2_b"])
-        h = h + hn
+        h = h + _row_linear(out, p["cross_o_w"], p["cross_o_b"])
+        h = _mlp(h, p, eps)
         ws.append(w[0])
-    return torch.stack(ws)  # (L, H, S, Sa)
+    return pctx.tp_all_gather(torch.stack(ws), 1)  # (L, H, S, Sa)
 
 
 def median_filter(x: np.ndarray, width: int = 7, device="cpu") -> np.ndarray:

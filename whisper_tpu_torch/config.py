@@ -45,7 +45,7 @@ class TextDecoderConfig:
     n_text_layer: int = 4
 
 
-INT8_IMPLS = ("xla", "pallas")
+INT8_IMPLS = ("xla", "pallas", "w8a8", "auto")
 FLASH_IMPLS = ("bsd", "legacy")
 
 
@@ -55,9 +55,10 @@ class KernelKnobs:
 
     `int8_impl` picks the product of an int8 weight: "xla" (the default)
     dequantizes the weight inside the matmul, "pallas" runs the W8A8
-    kernels (per-row int8 activations: K6 for M <= 1024 rows, K7 above;
-    `models/whisper.py::_matmul`). The JAX package's "w8a8" and "auto" are
-    XLA-only A/B variants and are not ported.
+    kernels (per-row int8 activations: K6 for M <= 1024 rows, K7 above),
+    "w8a8" quantizes the activations per row and takes an s8 x s8 -> s32
+    library product (JAX's XLA route), and "auto" is "w8a8" from 4096
+    rows and "xla" below (`models/whisper.py::_matmul`).
 
     `flash_impl` picks the encoder's (and the full decoder forward's)
     attention kernel on the flash path: "bsd" (the default) is K1 on the
@@ -71,11 +72,6 @@ class KernelKnobs:
     flash_impl: str = "bsd"
 
     def __post_init__(self) -> None:
-        if self.int8_impl in ("w8a8", "auto"):
-            raise NotImplementedError(
-                f"int8_impl={self.int8_impl!r} (an XLA A/B variant of the "
-                "JAX package) is ROADMAP queue 1 item 9, not ported; "
-                "use 'xla' or 'pallas'")
         if self.int8_impl not in INT8_IMPLS:
             raise ValueError(f"int8_impl must be one of {INT8_IMPLS}, got "
                              f"{self.int8_impl!r}")

@@ -20,6 +20,7 @@ import torch
 
 from ..config import WhisperConfig
 from ..models import whisper as M
+from ..parallel import context as pctx
 
 NEG_INF = float("-inf")
 
@@ -42,9 +43,18 @@ def sample_tokens(logp: torch.Tensor, temperature: float,
     tokens have probability 0 and are never drawn. JAX draws with
     `jax.random.categorical` from a PRNG key; the two generators give
     different numbers, so the draws never equal JAX's: only their
-    distribution does."""
+    distribution does.
+
+    The draw is `torch.multinomial`'s one-sample path written out:
+    argmax(p / q) with q ~ Exp(1) filled over the (rows, V) batch. When
+    the batch is split over dp (`parallel/context.dp_rows`), every rank
+    fills the whole batch's q and keeps its rows, so each row draws what
+    it draws in the meshless batch."""
     probs = torch.softmax(logp / temperature, dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)[:, 0]
+    first, total = pctx.dp_shard() or (0, probs.shape[0])
+    q = torch.empty((total, probs.shape[1]), dtype=probs.dtype,
+                    device=probs.device).exponential_(generator=generator)
+    return torch.argmax(probs / q[first:first + probs.shape[0]], dim=-1)
 
 
 def apply_timestamp_rules(logits: torch.Tensor, tokens: torch.Tensor,

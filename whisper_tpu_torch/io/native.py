@@ -1,10 +1,11 @@
-"""ctypes bindings for the C++ audio loader (`native/whisper_io.cpp`): the
-port's copy of the loading half of `whisper_tpu/io/native.py`.
+"""ctypes bindings for the C++ audio loader (`native/whisper_io.cpp`,
+`native/flac_decoder.cpp`): the port's copy of `whisper_tpu/io/native.py`.
 
 Looks for `native/libwhisper_io.so` at the repository root (build it with
-`make -C native`) at the first call, never at import. WAV decoding falls
-back to the pure-Python parser in `io/wav.py` (bit-identical output) when
-the library is missing; FLAC needs the library.
+`make -C native`) at the first call, never at import. WAV decoding and
+`window` fall back to pure Python (bit-identical output) when the library
+is missing; FLAC needs the library. `load_flac_raw` and `verify_flac_md5`
+check a decode against the encoder's STREAMINFO MD5.
 """
 
 from __future__ import annotations
@@ -65,6 +66,10 @@ def _lib() -> Optional[ctypes.CDLL]:
         ctypes.c_char_p, ctypes.c_int64,
         ctypes.POINTER(ctypes.c_float), ctypes.c_int64]
     lib.wio_decode.restype = ctypes.c_int
+    lib.wio_window.argtypes = [
+        ctypes.POINTER(ctypes.c_float), ctypes.c_int64,
+        ctypes.c_int64, ctypes.c_int64, ctypes.POINTER(ctypes.c_float)]
+    lib.wio_window.restype = ctypes.c_int
     if hasattr(lib, "flac_decode"):
         lib.flac_probe.argtypes = [
             ctypes.c_char_p, ctypes.c_int64, ctypes.POINTER(_FlacInfo)]
@@ -73,7 +78,40 @@ def _lib() -> Optional[ctypes.CDLL]:
             ctypes.c_char_p, ctypes.c_int64,
             ctypes.POINTER(ctypes.c_int32), ctypes.c_int64]
         lib.flac_decode.restype = ctypes.c_int64
+        if hasattr(lib, "flac_decode_raw"):
+            lib.flac_decode_raw.argtypes = lib.flac_decode.argtypes
+            lib.flac_decode_raw.restype = ctypes.c_int64
     return lib
+
+
+def available() -> bool:
+    """Whether the native library is built and loads."""
+    return _lib() is not None
+
+
+def flac_available() -> bool:
+    """Whether the library has the FLAC decoder."""
+    lib = _lib()
+    return lib is not None and hasattr(lib, "flac_decode")
+
+
+def window(wave: np.ndarray, start: int, count: int) -> np.ndarray:
+    """Zero-padded window slice [start, start+count)."""
+    wave = np.ascontiguousarray(wave, np.float32)
+    out = np.empty(count, np.float32)
+    lib = _lib()
+    if lib is None:
+        end = min(start + count, len(wave))
+        n = max(end - start, 0)
+        out[:n] = wave[start:start + n]
+        out[n:] = 0.0
+        return out
+    rc = lib.wio_window(
+        wave.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), len(wave),
+        start, count, out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)))
+    if rc != 0:
+        raise ValueError(f"wio_window failed: {rc}")
+    return out
 
 
 def load_wav(path: str) -> Tuple[np.ndarray, int]:
@@ -102,8 +140,17 @@ def load_flac(path: str) -> Tuple[np.ndarray, int]:
     Stereo is averaged to mono; normalization matches the WAV loader
     (/(2^(bits-1) - 1), reference main.rs:44-52 semantics).
     """
+    out, n, info = _flac_decode(path, False)
+    denom = float(2 ** (info.bits_per_sample - 1) - 1)
+    return (out[:n].astype(np.float32) / denom), int(info.sample_rate)
+
+
+def _flac_decode(path: str, raw: bool):
+    """(int32 buffer, samples decoded, info): the mono downmix, or with
+    `raw` every channel's integers interleaved."""
+    entry = "flac_decode_raw" if raw else "flac_decode"
     lib = _lib()
-    if lib is None or not hasattr(lib, "flac_decode"):
+    if not flac_available() or not hasattr(lib, entry):
         raise _pywav.WavFormatError(
             "FLAC support requires native/libwhisper_io.so (make -C native)")
     with open(path, "rb") as f:
@@ -112,10 +159,12 @@ def load_flac(path: str) -> Tuple[np.ndarray, int]:
     rc = lib.flac_probe(data, len(data), ctypes.byref(info))
     if rc != 0:
         raise _pywav.WavFormatError(f"{path}: FLAC probe failed ({rc})")
-    cap = int(info.total_samples) if info.total_samples else len(data) * 8
+    nch = max(int(info.n_channels), 1) if raw else 1
+    cap = (int(info.total_samples) if info.total_samples
+           else len(data) * 8) * nch
     while True:
         out = np.empty(cap, np.int32)
-        n = lib.flac_decode(
+        n = getattr(lib, entry)(
             data, len(data),
             out.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), out.size)
         if n != -5:  # FLAC_BUFFER_SMALL: only when total_samples is unknown
@@ -125,8 +174,45 @@ def load_flac(path: str) -> Tuple[np.ndarray, int]:
         cap *= 4
     if n < 0:
         raise _pywav.WavFormatError(f"{path}: FLAC decode failed ({n})")
-    denom = float(2 ** (info.bits_per_sample - 1) - 1)
-    return (out[:n].astype(np.float32) / denom), int(info.sample_rate)
+    return out, int(n), info
+
+
+def load_flac_raw(path: str) -> Tuple[np.ndarray, "_FlacInfo"]:
+    """Decode a FLAC file -> ((n, channels) int32 raw samples, info).
+
+    No downmix, no normalization: the exact per-channel integers the
+    encoder hashed into the STREAMINFO MD5 (RFC 9639 §8.2), which
+    `verify_flac_md5` checks."""
+    out, n, info = _flac_decode(path, True)
+    nch = max(int(info.n_channels), 1)
+    return out[:n * nch].reshape(n, nch), info
+
+
+def verify_flac_md5(path: str) -> Optional[bool]:
+    """Check the decoded samples against the encoder's STREAMINFO MD5:
+    True/False, or None when the stream carries no MD5 (an all-zero
+    field). The hash covers the raw interleaved little-endian samples at
+    the stream's bit width (RFC 9639 §8.2)."""
+    import hashlib
+
+    samples, info = load_flac_raw(path)
+    with open(path, "rb") as f:
+        f.seek(4)
+        # STREAMINFO is the mandatory first block; MD5 is its last 16 bytes
+        hdr = f.read(4)
+        size = int.from_bytes(hdr[1:4], "big")
+        block = f.read(size)
+    embedded = block[size - 16:size]
+    if embedded == b"\x00" * 16:
+        return None
+    nbytes = (int(info.bits_per_sample) + 7) // 8
+    flat = samples.reshape(-1)
+    if nbytes in (1, 2, 4):
+        raw = flat.astype(f"<i{nbytes}").tobytes()
+    else:  # 24-bit: low 3 bytes of the little-endian i32
+        b4 = flat.astype("<i4").view(np.uint8).reshape(-1, 4)
+        raw = np.ascontiguousarray(b4[:, :3]).tobytes()
+    return hashlib.md5(raw).hexdigest() == embedded.hex()
 
 
 def load_audio(path: str) -> Tuple[np.ndarray, int]:

@@ -26,6 +26,17 @@ int4, dequantized inside the matmul; int8 through the W8A8 kernels with
 scale per (layer, channel) (`kv_quant`), and the self cache int8 or
 packed int4 with one f32 scale per row (`self_quant`), appended through
 `_q8_rows`.
+
+Under a mesh (`parallel/context.kernel_mesh`), the parameters are this
+rank's Megatron shards (`parallel/sharding.py`): every attention runs at
+n_head / tp local heads (the kernels unchanged, on the local shard), the
+column-parallel projections (qkv, cross q and kv, mlp1) need no
+communication, and each row-parallel one (attn_o, cross_o, mlp2) sums its
+f32 partial product over tp before the cast and the bias
+(`_row_linear`). Training puts Megatron's f and g around them
+(`context.copy_to_tp` / `reduce_from_tp`). The self cache's row scales
+take a tp MAX (`_q8_rows`), and the cross cache's channel scales a dp MAX
+when the batch is split over dp (`_quantize_cross`).
 """
 
 from __future__ import annotations
@@ -45,6 +56,7 @@ from ..ops.kernels.encoder_block import fused_mlp_block
 from ..ops.kernels.flash_attention import attention_bhsd
 from ..ops.kernels.permute_attention import decode_attention_permute_fused
 from ..params import ParamTree
+from ..parallel import context as pctx
 from ..quantize import QTensor, int_values, pack_int4
 
 NEG_INF = float("-inf")
@@ -79,6 +91,10 @@ def _matmul(x: torch.Tensor, w, int8_impl: str = "xla") -> torch.Tensor:
         port on any device: on CPU tensors the wrappers run their plain
         versions, so the port on the CPU computes what JAX computes on a
         TPU;
+      * int8_impl="w8a8" with m <= 1024, or "auto" with m >= 4096, k and n
+        multiples of 128 (JAX's XLA route, whisper.py:173-221, not a
+        kernel): `_w8a8` quantizes x per row and takes an s8 x s8 -> s32
+        library product;
       * otherwise (int8_impl="xla", the default, or widths not multiples of
         128, JAX's own rule): x @ q (int4 unpacked first; the integers are
         exact in bf16) with the product kept in f32, as JAX's
@@ -90,14 +106,16 @@ def _matmul(x: torch.Tensor, w, int8_impl: str = "xla") -> torch.Tensor:
     if isinstance(w, QTensor):
         k = w.q.shape[0]
         n = w.scale.numel()  # out channels (int4 q packs two per byte)
-        if int8_impl == "pallas":
-            lead = x.shape[:-1]
-            m = x[..., 0].numel()
-            if k % 128 == 0 and n % 128 == 0:
-                mm = quantized_matmul if m <= 1024 else quantized_matmul_big
-                y = mm(x.reshape(m, k).contiguous(), w.q.reshape(k, -1),
-                       w.scale.reshape(n), out_dtype=x.dtype)
-                return y.reshape(*lead, *w.scale.shape)
+        aligned = k % 128 == 0 and n % 128 == 0
+        m = x[..., 0].numel()
+        if int8_impl == "pallas" and aligned:
+            mm = quantized_matmul if m <= 1024 else quantized_matmul_big
+            y = mm(x.reshape(m, k).contiguous(), w.q.reshape(k, -1),
+                   w.scale.reshape(n), out_dtype=x.dtype)
+            return y.reshape(*x.shape[:-1], *w.scale.shape)
+        if aligned and ((int8_impl == "w8a8" and m <= 1024)
+                        or (int8_impl == "auto" and m >= 4096)):
+            return _w8a8(x, w)
         q = int_values(w.q)
         x2, q2 = x.reshape(-1, k), q.reshape(k, -1)
         if x.is_cuda and x.dtype == torch.bfloat16:
@@ -110,22 +128,66 @@ def _matmul(x: torch.Tensor, w, int8_impl: str = "xla") -> torch.Tensor:
     return y.reshape(*x.shape[:-1], *w.shape[1:])
 
 
+def _w8a8(x: torch.Tensor, w: QTensor) -> torch.Tensor:
+    """JAX's "w8a8" product (whisper.py:203-215): x's rows quantized to
+    int8 with one scale each (absmax / 127, 1 for a zero row), an exact
+    s8 x s8 -> s32 product (`torch._int_mm`; int4 weights unpacked to
+    int8 first), times the row and the channel scales in f32, cast once to
+    x's dtype. On CUDA `_int_mm` takes more than 16 rows: fewer are padded
+    with zero rows, whose products are dropped."""
+    q = int_values(w.q)
+    k = q.shape[0]
+    x32 = x.reshape(-1, k).float()
+    m = x32.shape[0]
+    absmax = x32.abs().amax(dim=1, keepdim=True)
+    xs = torch.where(absmax > 0, absmax * (1.0 / 127.0), 1.0)
+    xq = torch.clamp(torch.round(x32 / xs), -127, 127).to(torch.int8)
+    if xq.is_cuda and m <= 16:
+        xq = F.pad(xq, (0, 0, 0, 17 - m))
+    acc = torch._int_mm(xq, q.reshape(k, -1).contiguous())[:m]
+    y = (acc.float() * xs * w.scale.reshape(-1)).to(x.dtype)
+    return y.reshape(*x.shape[:-1], *q.shape[1:])
+
+
 def _linear(x: torch.Tensor, w, b: Optional[torch.Tensor] = None,
             int8_impl: str = "xla") -> torch.Tensor:
     y = _matmul(x, w, int8_impl)
     return y if b is None else y + b
 
 
+def _row_linear(x: torch.Tensor, w, b: torch.Tensor,
+                int8_impl: str = "xla") -> torch.Tensor:
+    """A row-parallel projection (attn_o_w, cross_o_w, mlp2_w): `_linear`
+    without tp. Under tp, w holds the rows of this rank's channels of x,
+    and the sum runs as GSPMD runs it in JAX (whisper.py:219-229): the f32
+    partial product, summed over tp (`reduce_from_tp`, Megatron's g), cast
+    to x's dtype, then the replicated bias, added once."""
+    if pctx.tp_size() == 1:
+        return _linear(x, w, b, int8_impl)
+    x2 = x.reshape(-1, x.shape[-1])
+    if x.is_cuda and x.dtype == torch.bfloat16:
+        y = torch.mm(x2, w, out_dtype=torch.float32)
+    else:
+        y = torch.mm(x2.float(), w.float())
+    y = pctx.reduce_from_tp(y).to(x.dtype)
+    return y.reshape(*x.shape[:-1], w.shape[-1]) + b
+
+
+def _local_heads(n_head: int) -> int:
+    """The heads this rank holds: n_head / tp under the active mesh."""
+    return n_head // pctx.tp_size()
+
+
 def _qkv_proj(x, w, b, int8_impl: str = "xla"):
     """Fused QKV projection: x (..., d) @ w (d, 3, d) + b (3, d) -> q, k, v
     (strided views of one GEMM output)."""
-    y = _matmul(x, w, int8_impl) + b
+    y = _matmul(pctx.copy_to_tp(x), w, int8_impl) + b
     return y[..., 0, :], y[..., 1, :], y[..., 2, :]
 
 
 def _kv_proj(x, w, b, int8_impl: str = "xla"):
     """Fused KV projection: x (..., d) @ w (d, 2, d) + b (2, d) -> k, v."""
-    y = _matmul(x, w, int8_impl) + b
+    y = _matmul(pctx.copy_to_tp(x), w, int8_impl) + b
     return y[..., 0, :], y[..., 1, :]
 
 
@@ -190,12 +252,14 @@ def _flash_impl(cfg: WhisperConfig) -> str:
 
 def _use_fused_mlp(x: torch.Tensor, w1, impl: str) -> bool:
     """True when the encoder MLP runs as the fused kernel: the flash config
-    on a CUDA tensor with plain (not quantized) weights (the JAX gate,
-    whisper.py:329-341, with "tensor on CUDA" in place of "backend is tpu";
-    the port has no mesh yet). The kernel's wrapper launches or raises for
-    the dtypes and widths it does not take: the card never runs the plain
-    MLP in its place."""
-    return impl == "flash" and x.is_cuda and not isinstance(w1, QTensor)
+    on a CUDA tensor with plain (not quantized) weights and no tp (the JAX
+    gate, whisper.py:329-351, with "tensor on CUDA" in place of "backend is
+    tpu": the kernel has no tp decomposition, so under tp the MLP runs as
+    column- and row-parallel matmuls; a dp-only mesh keeps it). The
+    kernel's wrapper launches or raises for the dtypes and widths it does
+    not take: the card never runs the plain MLP in its place."""
+    return (impl == "flash" and x.is_cuda and not isinstance(w1, QTensor)
+            and pctx.tp_size() == 1)
 
 
 def _encoder_block(x, p: Layer, n_head: int, eps: float, impl: str = "xla",
@@ -205,25 +269,33 @@ def _encoder_block(x, p: Layer, n_head: int, eps: float, impl: str = "xla",
     take K6/K7."""
     h = layer_norm(x, p["attn_ln_g"], p["attn_ln_b"], eps)
     q, k, v = _qkv_proj(h, p["qkv_w"], p["qkv_b"], int8_impl)
-    x = x + _linear(_attention(q, k, v, n_head, impl, flash_impl=flash_impl),
-                    p["attn_o_w"], p["attn_o_b"], int8_impl)
+    x = x + _row_linear(_attention(q, k, v, n_head, impl,
+                                   flash_impl=flash_impl),
+                        p["attn_o_w"], p["attn_o_b"], int8_impl)
     if _use_fused_mlp(x, p["mlp1_w"], impl):
         return fused_mlp_block(x, p["mlp_ln_g"], p["mlp_ln_b"], p["mlp1_w"],
                                p["mlp1_b"], p["mlp2_w"], p["mlp2_b"], eps=eps)
-    h = layer_norm(x, p["mlp_ln_g"], p["mlp_ln_b"], eps)
-    h = _linear(F.gelu(_linear(h, p["mlp1_w"], p["mlp1_b"], int8_impl)),
-                p["mlp2_w"], p["mlp2_b"], int8_impl)
-    return x + h
+    return _mlp(x, p, eps, int8_impl)
 
 
 def _remat(block, remat: bool):
     """The block, or with `remat` the block under activation checkpointing
     (JAX's `jax.checkpoint` of each block, whisper.py:404-405): under
     autograd only its inputs are kept, and its forward runs again in the
-    backward pass, trading FLOPs for device memory in training."""
+    backward pass, trading FLOPs for device memory in training. Under a
+    mesh the recompute issues the forward's collectives again, in the same
+    order on every rank."""
     if not remat:
         return block
-    return functools.partial(torch.utils.checkpoint.checkpoint, block,
+    mesh = pctx.active_mesh()
+
+    def run(*args):
+        # the recompute may run in autograd's device thread, which does
+        # not see this thread's context: the block re-enters the mesh
+        with pctx.kernel_mesh(mesh):
+            return block(*args)
+
+    return functools.partial(torch.utils.checkpoint.checkpoint, run,
                              use_reentrant=False)
 
 
@@ -243,7 +315,7 @@ def encoder_forward(params: ParamTree, mel: torch.Tensor,
     x = F.gelu(_conv1d_nhc(x, enc["conv1_w"], enc["conv1_b"], 1))
     x = F.gelu(_conv1d_nhc(x, enc["conv2_w"], enc["conv2_b"], 2))
     x = x + enc["pos_emb"][: x.shape[1]]
-    n_head, eps = enc_cfg.n_audio_head, cfg.ln_eps
+    n_head, eps = _local_heads(enc_cfg.n_audio_head), cfg.ln_eps
     block = _remat(_encoder_block, remat)
     for p in enc["blocks"].layers():
         x = block(x, p, n_head, eps, cfg.attention, cfg.knobs.int8_impl,
@@ -257,10 +329,10 @@ def encoder_forward(params: ParamTree, mel: torch.Tensor,
 
 
 def _mlp(h, p: Layer, eps: float, int8_impl: str = "xla"):
-    hn = layer_norm(h, p["mlp_ln_g"], p["mlp_ln_b"], eps)
-    return h + _linear(F.gelu(_linear(hn, p["mlp1_w"], p["mlp1_b"],
-                                      int8_impl)),
-                       p["mlp2_w"], p["mlp2_b"], int8_impl)
+    hn = pctx.copy_to_tp(layer_norm(h, p["mlp_ln_g"], p["mlp_ln_b"], eps))
+    return h + _row_linear(F.gelu(_linear(hn, p["mlp1_w"], p["mlp1_b"],
+                                          int8_impl)),
+                           p["mlp2_w"], p["mlp2_b"], int8_impl)
 
 
 def _decoder_block(x, p: Layer, xa, mask, n_head: int, eps: float,
@@ -269,15 +341,15 @@ def _decoder_block(x, p: Layer, xa, mask, n_head: int, eps: float,
     """Pre-LN residual decoder block (src/model/mod.rs:344-350)."""
     h = layer_norm(x, p["attn_ln_g"], p["attn_ln_b"], eps)
     q, k, v = _qkv_proj(h, p["qkv_w"], p["qkv_b"], int8_impl)
-    x = x + _linear(_attention(q, k, v, n_head, impl, causal=True, mask=mask,
-                               flash_impl=flash_impl),
-                    p["attn_o_w"], p["attn_o_b"], int8_impl)
+    x = x + _row_linear(_attention(q, k, v, n_head, impl, causal=True,
+                                   mask=mask, flash_impl=flash_impl),
+                        p["attn_o_w"], p["attn_o_b"], int8_impl)
     h = layer_norm(x, p["cross_ln_g"], p["cross_ln_b"], eps)
-    q = _linear(h, p["cross_q_w"], p["cross_q_b"], int8_impl)
+    q = _linear(pctx.copy_to_tp(h), p["cross_q_w"], p["cross_q_b"], int8_impl)
     ck, cv = _kv_proj(xa, p["cross_kv_w"], p["cross_kv_b"], int8_impl)
-    x = x + _linear(_attention(q, ck, cv, n_head, impl,
-                               flash_impl=flash_impl),
-                    p["cross_o_w"], p["cross_o_b"], int8_impl)
+    x = x + _row_linear(_attention(q, ck, cv, n_head, impl,
+                                   flash_impl=flash_impl),
+                        p["cross_o_w"], p["cross_o_b"], int8_impl)
     return _mlp(x, p, eps, int8_impl)
 
 
@@ -300,7 +372,7 @@ def decoder_forward(params: ParamTree, tokens: torch.Tensor,
                          f"{dec_cfg.n_text_ctx}.")
     x = dec["tok_emb"][tokens.long()] + dec["pos_emb"][:seq_len]
     mask = causal_mask(seq_len, seq_len, device=x.device)
-    n_head, eps = dec_cfg.n_text_head, cfg.ln_eps
+    n_head, eps = _local_heads(dec_cfg.n_text_head), cfg.ln_eps
     block = _remat(_decoder_block, remat)
     for p in dec["blocks"].layers():
         x = block(x, p, enc_out, mask, n_head, eps, cfg.attention,
@@ -350,11 +422,13 @@ def _q8_rows(x: torch.Tensor, qdtype=torch.int8
     cache it is written into --, scale f32 (...)), one scale per cache row
     with no trailing 1 (whisper.py:521): scale = max|x| / lim (1 for an
     all-zero row), q = round(x / scale) clipped to +-lim, lim 127 for int8
-    and 7 for int4."""
+    and 7 for int4. Under tp a row's channels lie on tp ranks: the absmax
+    takes a tp MAX, so every rank quantizes with the whole row's scale
+    (JAX: GSPMD's reduction, permute_attention.py:367-370)."""
     int4 = qdtype == torch.uint8
     lim = 7.0 if int4 else 127.0
     x32 = x.float()
-    a = x32.abs().amax(dim=-1, keepdim=True)
+    a = pctx.tp_max(x32.abs().amax(dim=-1, keepdim=True))
     scale = torch.where(a > 0, a / lim, 1.0)
     q = torch.clamp(torch.round(x32 / scale), -lim, lim).to(torch.int8)
     return (pack_int4(q) if int4 else q), scale[..., 0]
@@ -362,10 +436,15 @@ def _q8_rows(x: torch.Tensor, qdtype=torch.int8
 
 def _quantize_cross(x: torch.Tensor, bits: int) -> QTensor:
     """(L, W, Sa, d) cross K or V -> QTensor with one f32 scale per (layer,
-    channel) (whisper.py:613-620); int4 packed along d."""
+    channel) (whisper.py:613-620); int4 packed along d. The scale is taken
+    over every window, so when the windows are split over dp
+    (`context.dp_rows`) the absmax takes a dp MAX: each rank's shard then
+    quantizes with the whole batch's scale, as in the meshless batch."""
     lim = float(2 ** (bits - 1) - 1)
     x32 = x.float()
     absmax = x32.abs().amax(dim=(1, 2))  # (L, d)
+    if pctx.dp_shard() is not None:
+        absmax = pctx.dp_max(absmax)
     scale = torch.where(absmax > 0, absmax / lim, torch.ones_like(absmax))
     q = torch.clamp(torch.round(x32 / scale[:, None, None, :]), -lim,
                     lim).to(torch.int8)
@@ -406,7 +485,8 @@ def init_cache(params: ParamTree, enc_out: torch.Tensor, cfg: WhisperConfig,
         raise ValueError(f"unsupported self_quant: {self_quant!r}")
     dec = params["decoder"]
     dec_cfg = cfg.text_decoder_config
-    n_layer, d = dec_cfg.n_text_layer, dec_cfg.n_text_state
+    n_layer = dec_cfg.n_text_layer
+    d = dec_cfg.n_text_state // pctx.tp_size()  # this rank's channels
     b_enc, sa, _ = enc_out.shape
     b = batch or b_enc
     if b % b_enc:
@@ -549,9 +629,10 @@ def _decoder_step_fused(params, tokens, pos: int, cache: DecoderCache,
     (copy-on-write slots), all in one pass."""
     dec = params["decoder"]
     dec_cfg = cfg.text_decoder_config
-    n_head, eps = dec_cfg.n_text_head, cfg.ln_eps
+    n_head, eps = _local_heads(dec_cfg.n_text_head), cfg.ln_eps
     b = tokens.shape[0]
-    scale = float(dec_cfg.n_text_state // n_head) ** -0.5
+    # the head dim (64 at every Whisper width), from the full widths
+    scale = float(dec_cfg.n_text_state // dec_cfg.n_text_head) ** -0.5
     ck_arr, ck_scale = _split(cache.cross_k)
     cv_arr, cv_scale = _split(cache.cross_v)
     _, b_cross, sa, _ = ck_arr.shape
@@ -586,10 +667,10 @@ def _decoder_step_fused(params, tokens, pos: int, cache: DecoderCache,
             attn = decode_attention_stacked(
                 q1, sk, sv, pos, l, n_head, batch_major=True,
                 c_used=c_self)
-        h = h + _linear(attn[:, None], p["attn_o_w"], p["attn_o_b"], ii)
+        h = h + _row_linear(attn[:, None], p["attn_o_w"], p["attn_o_b"], ii)
 
         hn = layer_norm(h, p["cross_ln_g"], p["cross_ln_b"], eps)
-        q = _linear(hn, p["cross_q_w"], p["cross_q_b"], ii)
+        q = _linear(pctx.copy_to_tp(hn), p["cross_q_w"], p["cross_q_b"], ii)
         if ck_scale is None:
             q1 = q[:, 0] * scale
         else:
@@ -598,7 +679,8 @@ def _decoder_step_fused(params, tokens, pos: int, cache: DecoderCache,
             q1, ck_arr, cv_arr, sa - 1, l, n_head, kv_rep=kv_rep)
         if cv_scale is not None:
             cross = (cross.float() * cv_scale[l]).to(h.dtype)
-        h = h + _linear(cross[:, None], p["cross_o_w"], p["cross_o_b"], ii)
+        h = h + _row_linear(cross[:, None], p["cross_o_w"], p["cross_o_b"],
+                            ii)
         h = _mlp(h, p, eps, ii)
     return _logits(layer_norm(h, dec["ln_g"], dec["ln_b"], eps), dec), cache
 
@@ -638,7 +720,7 @@ def decoder_step(params: ParamTree, tokens: torch.Tensor, pos: int,
             "permute the cache explicitly before this call")
     dec = params["decoder"]
     dec_cfg = cfg.text_decoder_config
-    n_head, eps = dec_cfg.n_text_head, cfg.ln_eps
+    n_head, eps = _local_heads(dec_cfg.n_text_head), cfg.ln_eps
     s = tokens.shape[1]
     device = tokens.device
     causal_vis = pos + torch.arange(s, device=device)
@@ -669,13 +751,13 @@ def decoder_step(params: ParamTree, tokens: torch.Tensor, pos: int,
         attn = _cached_attention(q, layer_of(sk, l, True),
                                  layer_of(sv, l, True), causal_vis, n_head,
                                  cfg.attention)
-        h = h + _linear(attn, p["attn_o_w"], p["attn_o_b"], ii)
+        h = h + _row_linear(attn, p["attn_o_w"], p["attn_o_b"], ii)
 
         hn = layer_norm(h, p["cross_ln_g"], p["cross_ln_b"], eps)
-        q = _linear(hn, p["cross_q_w"], p["cross_q_b"], ii)
+        q = _linear(pctx.copy_to_tp(hn), p["cross_q_w"], p["cross_q_b"], ii)
         cross = _cached_attention(q, layer_of(cache.cross_k, l, False),
                                   layer_of(cache.cross_v, l, False),
                                   cross_vis, n_head, cfg.attention)
-        h = h + _linear(cross, p["cross_o_w"], p["cross_o_b"], ii)
+        h = h + _row_linear(cross, p["cross_o_w"], p["cross_o_b"], ii)
         h = _mlp(h, p, eps, ii)
     return _logits(layer_norm(h, dec["ln_g"], dec["ln_b"], eps), dec), cache

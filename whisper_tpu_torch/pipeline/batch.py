@@ -1,7 +1,7 @@
 """Batched multi-stream transcription.
 
-Counterpart of `whisper_tpu/pipeline/batch.py::BatchTranscriber` (:49-426)
-without its mesh. Every stream is windowed as `Transcriber.transcribe`
+Counterpart of `whisper_tpu/pipeline/batch.py::BatchTranscriber`
+(:49-426). Every stream is windowed as `Transcriber.transcribe`
 windows it (the same ~14.9 s windows, overlap and zero padding); the FULL
 windows of all streams are packed into batches of `batch_size` and each
 batch runs log-mel (per-sample dynamic-range clamp, so a window's mel does
@@ -27,6 +27,15 @@ through the sequential path, as JAX's does. Clip ranges raise ValueError
 on the batched path (JAX's batched entries ignore them; its CLI refuses
 `--clip` with `--parallel-windows`).
 
+Under a mesh (`Transcriber(mesh=)`), `batch_size` is rounded up to a
+multiple of dp, and `_decode_batch` is the split point: each dp rank
+decodes its rows of the batch, then the host outputs (tokens, lengths,
+sum_logp, p(<|nospeech|>)) are gathered over dp before any decision, so
+the ladder, the quality gates and the tails are decided identically on
+every rank from the whole batch. A sampling rung draws the whole batch's
+noise on every rank and keeps its rows (`decode/greedy.py::
+sample_tokens`), so a meshed ladder draws what the meshless one draws.
+
 `WindowPool` is the open-ended version of `transcribe_many` that the
 server's `BatchingWorker` (serve.py) drives: requests join at any time,
 each `step()` decodes one batch of `batch_size` full windows drawn across
@@ -48,9 +57,10 @@ from ..config import SAMPLE_RATE
 from ..decode.beam import beam_search_batched
 from ..decode.greedy import greedy_decode
 from ..ops.audio import max_waveform_samples
+from ..parallel.context import dp_all_gather, dp_axis, dp_rows
 from . import vad
 from .transcribe import (DecodeOptions, Transcriber, _check_supported,
-                         _rung_generator, compression_ratio,
+                         _meshed, _rung_generator, compression_ratio,
                          evaluate_window_quality, find_chunk_overlap,
                          window_waveform)
 
@@ -84,8 +94,18 @@ class BatchTranscriber(Transcriber):
         super().__init__(*args, **kwargs)
         if batch_size < 1:
             raise ValueError(f"batch_size must be >= 1, got {batch_size}")
+        if self.mesh is not None:
+            dp = self.mesh.shape.get("dp", 1)
+            if batch_size % dp != 0:
+                rounded = -(-batch_size // dp) * dp
+                log.info(
+                    "batch_size %d rounded up to %d (multiple of dp=%d)",
+                    batch_size, rounded, dp,
+                )
+                batch_size = rounded
         self.batch_size = batch_size
 
+    @_meshed
     def _decode_batch(self, waves: np.ndarray, prompt: torch.Tensor,
                       suppress_until_len: int, opt: DecodeOptions,
                       timestamps: bool = False, max_ts_idx: int = 50,
@@ -96,7 +116,23 @@ class BatchTranscriber(Transcriber):
         p(<|nospeech|>) (B,), -1 unless `quality` asks for it) as numpy,
         prompt included (batch.py:114-154): beam search over B x K lanes
         at temperature 0 with strategy "beam", else greedy (sampling at
-        temperature > 0 from `generator`)."""
+        temperature > 0 from `generator`). Under a mesh whose dp divides B,
+        this rank decodes its B / dp rows and the outputs are gathered over
+        dp; otherwise every rank decodes the whole batch."""
+        args = (prompt, suppress_until_len, opt, timestamps, max_ts_idx,
+                quality, temperature, generator, sot_pos)
+        if self.mesh is None or dp_axis(self.mesh, len(waves)) is None:
+            return self._decode_rows(waves, *args)
+        n = len(waves) // self.mesh.shape["dp"]
+        first = self.mesh.dp_rank * n
+        with dp_rows(first, len(waves)):
+            out = self._decode_rows(waves[first:first + n], *args)
+        return tuple(dp_all_gather(list(out), self.mesh))
+
+    def _decode_rows(self, waves, prompt, suppress_until_len, opt,
+                     timestamps, max_ts_idx, quality, temperature, generator,
+                     sot_pos):
+        """`_decode_batch` over the rows this rank decodes."""
         enc = self._encode_windows(waves, opt)
         common = self._decode_args(opt, suppress_until_len, timestamps,
                                    max_ts_idx, quality, sot_pos)

@@ -52,8 +52,9 @@ class StreamDecodeBatcher:
     submissions with the same decode key up to `batch_size`, waiting up to
     `max_wait_s` for partners (skipped when `clients` says at most one
     session exists). A group runs at the smallest power of two >= its size
-    (capped at `batch_size`), padded by repeating its first window, so
-    partial demand pays for its rung only. `decode()` raises TimeoutError
+    (capped at `batch_size`; always `batch_size` for a meshed transcriber),
+    padded by repeating its first window, so partial demand pays for its
+    rung only. `decode()` raises TimeoutError
     after `timeout_s`; `stop()` ends the thread, failing what is still
     queued."""
 
@@ -183,10 +184,15 @@ class StreamDecodeBatcher:
 
     def _run_group(self, group) -> None:
         it0 = group[0]
-        size = 1
-        while size < len(group):
-            size *= 2
-        size = min(size, self.batch_size)
+        # the smallest power of two >= the group, capped at batch_size; a
+        # meshed transcriber keeps the fixed size (dp must divide it), as
+        # in JAX (streaming.py:153-160)
+        size = self.batch_size
+        if getattr(self.t, "mesh", None) is None:
+            size = 1
+            while size < len(group):
+                size *= 2
+            size = min(size, self.batch_size)
         waves = np.stack([it["window"] for it in group])
         if len(group) < size:
             waves = np.concatenate(

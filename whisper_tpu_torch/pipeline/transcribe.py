@@ -25,6 +25,7 @@ ignored.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import logging
 import threading
 import time
@@ -42,6 +43,8 @@ from ..decode.greedy import greedy_decode
 from ..decode.speculative import speculative_greedy_decode
 from ..models.whisper import encoder_forward
 from ..ops.audio import max_waveform_samples, prep_audio
+from ..parallel.context import kernel_mesh
+from ..parallel.sharding import shard_params, validate_tp
 from ..params import ParamTree, from_numpy_tree
 from ..text.tokenizer import SpecialToken
 from . import vad
@@ -193,6 +196,18 @@ def _rung_generator(device, seed: int, stream: int) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(int(state))
 
 
+def _meshed(method):
+    """Run `method` under `kernel_mesh(self.mesh)`: the model functions it
+    calls read the mesh (local heads, the tp sums)."""
+
+    @functools.wraps(method)
+    def run(self, *args, **kwargs):
+        with kernel_mesh(self.mesh):
+            return method(self, *args, **kwargs)
+
+    return run
+
+
 class Transcriber:
     """Loads once, transcribes many: params on one device, one window after
     another.
@@ -215,12 +230,22 @@ class Transcriber:
     proposing `draft_k - 1` tokens a target step) with the same output;
     beam search, sampling rungs and the batched paths ignore it, as in
     JAX. The draft's weights go to `device` and `dtype`.
+
+    `mesh`: a ("dp", "tp") mesh of SPMD ranks (`parallel/mesh.py`), every
+    rank building its Transcriber from the same full params. Each rank
+    keeps its Megatron shard of them (`parallel/sharding.py`; quantized
+    trees are refused, as in JAX) and runs every window program under
+    `kernel_mesh(mesh)`: the kernels at n_head / tp local heads, the tp
+    sums after the row-parallel projections. This single-window path
+    decodes the same window on every dp rank (JAX's `dp_axis` is None at
+    batch 1); `BatchTranscriber` splits its batches over dp. `draft=` with
+    `mesh=` raises ValueError, as in JAX.
     """
 
     def __init__(self, params, cfg: WhisperConfig, tokenizer, dtype=None,
                  attention: str = "auto",
                  matmul_precision: Optional[str] = None, device=None,
-                 draft=None, draft_k: int = 4):
+                 draft=None, draft_k: int = 4, mesh=None):
         self.device = torch.device("cuda" if device is None else device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -253,6 +278,10 @@ class Transcriber:
                 f"tokenizer vocab size {tokenizer.vocab_size} does not match "
                 f"model n_vocab {cfg.text_decoder_config.n_vocab} -- wrong "
                 "tokenizer.json for this checkpoint?")
+        self.mesh = mesh
+        if mesh is not None:
+            validate_tp(cfg, mesh.shape.get("tp", 1))
+            params = shard_params(params, mesh, cfg)
         self.params = params
         self.cfg = dataclasses.replace(cfg, attention=attention)
         self.tok = tokenizer
@@ -275,6 +304,10 @@ class Transcriber:
         self._draft_cfg: Optional[WhisperConfig] = None
         self._draft_k = int(draft_k)
         if draft is not None:
+            if mesh is not None:
+                raise ValueError(
+                    "draft= does not compose with mesh= yet: speculative "
+                    "decoding is the B=1 single-chip latency path")
             self._draft_params, self._draft_cfg = self._load_draft(
                 draft, dtype, attention)
 
@@ -357,6 +390,7 @@ class Transcriber:
         keep = min(mel.shape[2], cfg.encoder_ctx_size - opt.padding)
         return F.pad(mel[:, :, :keep], (0, opt.padding))
 
+    @_meshed
     def _encode_windows(self, waves: np.ndarray, opt: DecodeOptions
                         ) -> torch.Tensor:
         """(B, n) windows -> encoder output of `_window_mel`."""
@@ -386,6 +420,7 @@ class Transcriber:
                          if quality else None),
             sot_pos=sot_pos)
 
+    @_meshed
     def _decode(self, window: np.ndarray, prompt: torch.Tensor,
                 suppress_until_len: int, opt: DecodeOptions,
                 timestamps: bool = False, max_initial_ts_idx: int = 50,
@@ -504,6 +539,7 @@ class Transcriber:
             t for t in tokens if not self.tok.is_special(t)])
         return prompt, n_cond, opt.suppress_until_len + n_cond
 
+    @_meshed
     def detect_language(self, waveform: np.ndarray,
                         sample_rate: int = SAMPLE_RATE,
                         vote_windows: int = 1,
@@ -713,6 +749,7 @@ class Transcriber:
         text = " ".join(s.text.strip() for s in segs)
         return text, segs
 
+    @_meshed
     def align_words(self, window: np.ndarray, tokens: Sequence[int],
                     heads=None, offset_s: float = 0.0) -> List[WordTiming]:
         """Word timings of one decoded window (transcribe.py:616): the

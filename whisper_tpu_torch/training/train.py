@@ -25,10 +25,20 @@ optax's parts, as this step reproduces them:
   * `warmup_cosine_decay_schedule(0, lr, warmup, max(total, warmup + 1))`.
 The per-step scalars (bias corrections, learning rate) are computed in
 float32, as JAX computes them.
+
+Over a mesh (`make_train_step(..., mesh=)`, the params sharded by
+`parallel/sharding.shard_params`), each rank takes its dp rows of the
+batch and runs the model's tp layout with Megatron's f and g around the
+projections (models/whisper.py), as JAX's jitted step does over a sharded
+tree. The loss divides by the mask count summed over dp, and the
+gradients are summed over dp, so they are the meshless batch's; the
+global norm sums the squares of the tp-sharded leaves over tp and counts
+the replicated leaves once; AdamW runs elementwise on the shards.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 import math
@@ -39,6 +49,8 @@ import torch
 
 from ..config import WhisperConfig
 from ..models import whisper as M
+from ..parallel import context as pctx
+from ..parallel.sharding import is_sharded
 from ..params import ParamTree
 
 Tensors = Dict[str, torch.Tensor]  # flat parameter name -> tensor
@@ -81,7 +93,10 @@ def cross_entropy_loss(params: ParamTree, batch: Batch, cfg: WhisperConfig,
                        ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Mean next-token cross entropy over masked positions: f32
     log-softmax of the logits, the mask normalised by max(sum, 1), and the
-    argmax accuracy over the same positions."""
+    argmax accuracy over the same positions. When the batch's rows are
+    split over dp (`parallel/context.dp_rows`), the count is summed over
+    dp first: the rank's loss is its share of the whole batch's, and the
+    metrics are the whole batch's."""
     logits = M.whisper_forward(params, batch.mel, batch.tokens, cfg,
                                remat=remat)
     logits = logits[:, :-1]  # predict token t+1 from position t
@@ -90,17 +105,37 @@ def cross_entropy_loss(params: ParamTree, batch: Batch, cfg: WhisperConfig,
 
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
-    denom = torch.clamp(mask.sum(), min=1.0)
+    split = pctx.dp_shard() is not None
+    count = pctx.dp_sum(mask.sum().detach()) if split else mask.sum()
+    denom = torch.clamp(count, min=1.0)
     loss = (nll * mask).sum() / denom
 
     acc = ((logits.argmax(-1) == targets) * mask).sum() / denom
-    return loss, {"loss": loss, "accuracy": acc, "tokens": mask.sum()}
+    metrics = {"loss": loss, "accuracy": acc, "tokens": count}
+    if split:
+        metrics.update(loss=pctx.dp_sum(loss.detach()),
+                       accuracy=pctx.dp_sum(acc.detach()))
+    return loss, metrics
 
 
 def global_norm(tensors) -> torch.Tensor:
     """sqrt of the sum over tensors of their sums of squares
     (`optax.global_norm`)."""
     return torch.sqrt(sum((t * t).sum() for t in tensors))
+
+
+def sharded_global_norm(grads: Tensors, cfg: WhisperConfig,
+                        mesh) -> torch.Tensor:
+    """`global_norm` of the whole tree from this rank's shards: the
+    squares of the tp-sharded leaves summed over tp, the replicated leaves
+    (equal on every tp rank) counted once."""
+    sq = {True: [], False: []}
+    for name, g in grads.items():
+        sq[is_sharded(name, cfg)].append((g * g).sum())
+    total = sum(sq[False])
+    if sq[True]:
+        total = total + pctx.tp_sum(sum(sq[True]).reshape(1), mesh)[0]
+    return torch.sqrt(total)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -136,11 +171,13 @@ class AdamW:
 
     @torch.no_grad()
     def update(self, grads: Tensors, state: AdamWState,
-               params: ParamTree) -> AdamWState:
-        """Clip `grads` (in place), then one AdamW update of `params` and
-        the moments, all in place; returns the state with the count
+               params: ParamTree, norm=None) -> AdamWState:
+        """Clip `grads` (in place) by their global `norm` (computed here
+        when not given), then one AdamW update of `params` and the
+        moments, all in place; returns the state with the count
         advanced."""
-        norm = global_norm(grads.values())
+        if norm is None:
+            norm = global_norm(grads.values())
         if not bool(norm < self.max_grad_norm):
             for g in grads.values():
                 g.div_(norm.to(g.dtype)).mul_(self.max_grad_norm)
@@ -187,34 +224,61 @@ def value_and_grad(params: ParamTree, batch: Batch, cfg: WhisperConfig,
     """(metrics, gradients by parameter name) of `cross_entropy_loss` at
     the params' current values (the `jax.value_and_grad` of the JAX train
     step); the batch moves to the params' device. A leaf the loss does not
-    reach gets a zero gradient, as in JAX."""
+    reach gets a zero gradient, as in JAX. With the rows split over dp
+    (`context.dp_rows`) the gradients are summed over dp."""
     names, leaves = zip(*params.named_parameters())
     batch = _on_params_device(batch, params)
     with torch.enable_grad():
         loss, metrics = cross_entropy_loss(params, batch, cfg, remat)
         grads = torch.autograd.grad(loss, leaves, materialize_grads=True)
+    if pctx.dp_shard() is not None:
+        grads = [pctx.dp_sum(g) for g in grads]
     return ({k: v.detach() for k, v in metrics.items()},
             dict(zip(names, grads)))
 
 
 def make_train_step(cfg: WhisperConfig, optimizer: AdamW,
-                    remat: bool = False):
+                    remat: bool = False, mesh=None):
     """(state, batch) -> (state, metrics): the loss and its gradients over
     every parameter, `grad_norm` of the UNCLIPPED gradients in the
     metrics, then the optimizer update in place. The batch moves to the
     params' device. `cfg.attention == "flash"` raises ValueError: the
-    kernels have no backward."""
+    kernels have no backward.
+
+    `mesh`: the state's params are this rank's shards
+    (`sharding.shard_params`), and every rank of the mesh passes the same
+    whole batch: a rank takes its B / dp rows (all of them when dp does not
+    divide B) and the step runs as the module docstring says. The metrics
+    are the whole batch's on every rank."""
     if cfg.attention == "flash":
         raise ValueError("attention='flash' is inference-only: no kernel "
                          "has a backward; train with attention='xla'")
 
     def train_step(state: TrainState, batch: Batch):
-        metrics, grads = value_and_grad(state.params, batch, cfg, remat)
-        metrics["grad_norm"] = global_norm(grads.values())
-        opt_state = optimizer.update(grads, state.opt_state, state.params)
+        with pctx.kernel_mesh(mesh), _dp_split(batch, mesh) as batch:
+            metrics, grads = value_and_grad(state.params, batch, cfg, remat)
+            norm = (global_norm(grads.values()) if mesh is None
+                    else sharded_global_norm(grads, cfg, mesh))
+        metrics["grad_norm"] = norm
+        opt_state = optimizer.update(grads, state.opt_state, state.params,
+                                     norm)
         return TrainState(state.step + 1, state.params, opt_state), metrics
 
     return train_step
+
+
+@contextlib.contextmanager
+def _dp_split(batch: Batch, mesh):
+    """This rank's rows of `batch`, inside `context.dp_rows` when the mesh's
+    dp divides the batch; the whole batch otherwise."""
+    b = batch.mel.shape[0]
+    if mesh is None or pctx.dp_axis(mesh, b) is None:
+        yield batch
+        return
+    n = b // mesh.shape["dp"]
+    first = mesh.dp_rank * n
+    with pctx.dp_rows(first, b):
+        yield Batch(*(t[first:first + n] for t in batch))
 
 
 def make_eval_step(cfg: WhisperConfig):
