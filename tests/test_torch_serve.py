@@ -297,9 +297,7 @@ def test_auto_language_vad_and_resample(server):
     assert status == 200
 
 
-def test_metrics(server):
-    url, _ = server
-    _post(url, "/transcribe?lang=en&greedy=1", _wav_bytes())
+def _metrics(url):
     status, body, ctype = _get(url, "/metrics")
     assert status == 200 and ctype.startswith("text/plain")
     m = {}
@@ -307,12 +305,33 @@ def test_metrics(server):
         if line.strip() and not line.startswith("#"):
             name, val = line.rsplit(" ", 1)
             m[name] = float(val)
-    assert m["whisper_requests_total"] >= 1
+    return m, body
+
+
+def test_metrics(server):
+    url, _ = server
+    before, _ = _metrics(url)
+    for seed in (0, 1):
+        _post(url, "/transcribe?lang=en&greedy=1", _wav_bytes(seed=seed))
+    m, body = _metrics(url)
+    assert m["whisper_requests_total"] >= 2
     assert m["whisper_batches_total"] >= 1
     assert m["whisper_audio_seconds_total"] > 0
     assert m['whisper_request_latency_seconds_bucket{le="+Inf"}'] == m[
-        "whisper_request_latency_seconds_count"] >= 1
-    assert m['whisper_responses_total{code="200"}'] >= 1
+        "whisper_request_latency_seconds_count"] >= 2
+    assert m['whisper_responses_total{code="200"}'] >= 2
+    # the queue wait: a histogram on the latency buckets, one observation
+    # for each request taken off the queue
+    assert "# TYPE whisper_queue_wait_seconds histogram" in body
+    wait = "whisper_queue_wait_seconds"
+    buckets = [m[f'{wait}_bucket{{le="{b}"}}']
+               for b in serve_mod.Metrics.LATENCY_BUCKETS]
+    assert buckets == sorted(buckets)
+    assert m[f'{wait}_bucket{{le="+Inf"}}'] == m[f"{wait}_count"]
+    assert m[f"{wait}_count"] - before[f"{wait}_count"] == 2
+    assert (m["whisper_requests_total"] - before["whisper_requests_total"]
+            == 2)
+    assert m[f"{wait}_sum"] >= before[f"{wait}_sum"]
 
 
 def test_round_robin_between_pools(server):

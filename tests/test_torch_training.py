@@ -537,7 +537,7 @@ def test_trace_records_a_named_scope(tmp_path):
     with profiling.trace(str(tmp_path)):
         with profiling.scope("encoder_pass"):
             torch.ones(8, 8) @ torch.ones(8, 8)
-        with profiling.annotate("host_step"):
+        with profiling.scope("host_step"):
             torch.zeros(3).sum()
     files = list(Path(tmp_path).glob("*.json"))
     assert len(files) == 1

@@ -48,6 +48,7 @@ from ..config import WhisperConfig
 from ..models import whisper as M
 from ..ops.kernels.permute import permute_lanes_arrays
 from ..quantize import QTensor
+from ..utils.profiling import scope
 from .greedy import apply_timestamp_rules, make_logp_fn
 
 NEG_INF = float("-inf")
@@ -229,74 +230,82 @@ def beam_search(
     cur_tokens = torch.zeros((k, ctx), dtype=torch.long, device=device)
     cur_tokens[:, :p] = prompt
     cache_len = min(ctx, -(-(p + max_depth) // 128) * 128)
-    cache = M.init_cache(params, enc_out, cfg, batch=k, cache_len=cache_len,
-                         kv_quant=kv_quant, self_quant=self_quant)
-    fused = _fuse_reshuffle(cache.self_k, cfg, fuse_reshuffle)
-    if not fused:
-        spare_k, spare_v = _spare(cache.self_k), _spare(cache.self_v)
-    logits, cache = M.decoder_step(params, cur_tokens[:, :p], 0, cache, cfg)
-    ns_prob = None
-    if nospeech_id is not None:
-        ns_prob = torch.softmax(logits[0, sot_pos].float(), -1)[nospeech_id]
-    logp_next = logp_fn(logits[:, -1], cur_tokens, p)
-
-    lane = torch.arange(k, device=device)
-    phys = lane.clone()  # slot of each logical lane's slab (COW)
-    cur_len = p
-    cur_logp = torch.where(lane == 0, 0.0, NEG_INF)
-    cur_valid = lane == 0
-    cur_eot = torch.zeros(k, dtype=torch.bool, device=device)
-    fin_tokens = torch.zeros((k, ctx), dtype=torch.long, device=device)
-    fin_len = torch.zeros(k, dtype=torch.long, device=device)
-    fin_logp = torch.full((k,), NEG_INF, device=device)
 
     def go_on(depth: int) -> bool:  # the JAX loop's cond; one host sync
         if depth >= max_depth or cur_len >= ctx:
             return False
         best_fin, best_active = _best_scores(cur_logp, cur_valid, cur_eot,
                                              fin_logp)
-        return bool(best_fin < best_active)
+        with scope("whisper.decode.sync"):
+            return bool(best_fin < best_active)
 
-    depth = 0
-    go = go_on(depth)
-    while go:
-        # (a) fold EOT-ended beams into the finished pool
-        cand_fin = torch.cat([fin_logp, torch.where(cur_valid & cur_eot,
-                                                    cur_logp, NEG_INF)])
-        fin_logp, fin_idx = top_k_stable(cand_fin, k)
-        fin_tokens = torch.cat([fin_tokens, cur_tokens])[fin_idx]
-        fin_len = torch.cat([fin_len, torch.full_like(fin_len, cur_len)])[
-            fin_idx]
-        # (b) expand the active beams: global top-K over (K x V)
-        active = cur_valid & ~cur_eot
-        cand = torch.where(active[:, None], cur_logp[:, None] + logp_next,
-                           NEG_INF)
-        new_logp, flat = top_k_stable(cand.reshape(-1), k)
-        parent, tok = flat // v, flat % v
-        cur_tokens = cur_tokens[parent]
-        cur_tokens[:, cur_len] = tok
-        cur_logp = new_logp
-        cur_valid = new_logp > NEG_INF
-        cur_eot = (tok == eot_id) & cur_valid
-        pos, cur_len, depth = cur_len, cur_len + 1, depth + 1
-        # the JAX loop runs one more decoder step whose output it never
-        # reads; the host loop checks the stop rule first
+    with scope("whisper.decode.prefill"):
+        cache = M.init_cache(params, enc_out, cfg, batch=k,
+                             cache_len=cache_len, kv_quant=kv_quant,
+                             self_quant=self_quant)
+        fused = _fuse_reshuffle(cache.self_k, cfg, fuse_reshuffle)
+        if not fused:
+            spare_k, spare_v = _spare(cache.self_k), _spare(cache.self_v)
+        logits, cache = M.decoder_step(params, cur_tokens[:, :p], 0, cache,
+                                       cfg)
+        ns_prob = None
+        if nospeech_id is not None:
+            ns_prob = torch.softmax(logits[0, sot_pos].float(),
+                                    -1)[nospeech_id]
+        logp_next = logp_fn(logits[:, -1], cur_tokens, p)
+
+        lane = torch.arange(k, device=device)
+        phys = lane.clone()  # slot of each logical lane's slab (COW)
+        cur_len = p
+        cur_logp = torch.where(lane == 0, 0.0, NEG_INF)
+        cur_valid = lane == 0
+        cur_eot = torch.zeros(k, dtype=torch.bool, device=device)
+        fin_tokens = torch.zeros((k, ctx), dtype=torch.long, device=device)
+        fin_len = torch.zeros(k, dtype=torch.long, device=device)
+        fin_logp = torch.full((k,), NEG_INF, device=device)
+        depth = 0
         go = go_on(depth)
-        if go and fused:  # (c) fused reshuffle + append + logits, COW slots
-            src, dest = _cow_assign(parent[None], phys[None])
-            logits, cache = M.decoder_step(params, tok[:, None], pos, cache,
-                                           cfg, parents=src[0], dests=dest[0])
-            phys = dest[0]
-        elif go:  # (c) reshuffle into the spare pair, swap, append + logits
-            new_k, new_v = _cache_gather(cache.self_k, cache.self_v,
-                                         parent.to(torch.int32), spare_k,
-                                         spare_v, valid_len=pos)
-            spare_k, spare_v = cache.self_k, cache.self_v
-            cache = M.DecoderCache(new_k, new_v, cache.cross_k, cache.cross_v)
-            logits, cache = M.decoder_step(params, tok[:, None], pos, cache,
-                                           cfg)
-        if go:
-            logp_next = logp_fn(logits[:, -1], cur_tokens, cur_len)
+    while go:
+        with scope("whisper.decode.step"):
+            # (a) fold EOT-ended beams into the finished pool
+            cand_fin = torch.cat([fin_logp, torch.where(cur_valid & cur_eot,
+                                                        cur_logp, NEG_INF)])
+            fin_logp, fin_idx = top_k_stable(cand_fin, k)
+            fin_tokens = torch.cat([fin_tokens, cur_tokens])[fin_idx]
+            fin_len = torch.cat([fin_len, torch.full_like(fin_len, cur_len)])[
+                fin_idx]
+            # (b) expand the active beams: global top-K over (K x V)
+            active = cur_valid & ~cur_eot
+            cand = torch.where(active[:, None], cur_logp[:, None] + logp_next,
+                               NEG_INF)
+            new_logp, flat = top_k_stable(cand.reshape(-1), k)
+            parent, tok = flat // v, flat % v
+            cur_tokens = cur_tokens[parent]
+            cur_tokens[:, cur_len] = tok
+            cur_logp = new_logp
+            cur_valid = new_logp > NEG_INF
+            cur_eot = (tok == eot_id) & cur_valid
+            pos, cur_len, depth = cur_len, cur_len + 1, depth + 1
+            # the JAX loop runs one more decoder step whose output it never
+            # reads; the host loop checks the stop rule first
+            go = go_on(depth)
+            if go and fused:  # (c) fused reshuffle + append + logits, COW
+                src, dest = _cow_assign(parent[None], phys[None])
+                logits, cache = M.decoder_step(
+                    params, tok[:, None], pos, cache, cfg, parents=src[0],
+                    dests=dest[0])
+                phys = dest[0]
+            elif go:  # (c) reshuffle into the spare pair, swap, append
+                new_k, new_v = _cache_gather(cache.self_k, cache.self_v,
+                                             parent.to(torch.int32), spare_k,
+                                             spare_v, valid_len=pos)
+                spare_k, spare_v = cache.self_k, cache.self_v
+                cache = M.DecoderCache(new_k, new_v, cache.cross_k,
+                                       cache.cross_v)
+                logits, cache = M.decoder_step(params, tok[:, None], pos,
+                                               cache, cfg)
+            if go:
+                logp_next = logp_fn(logits[:, -1], cur_tokens, cur_len)
 
     # result: the best beam overall; ties prefer a finished one
     fin_like = torch.where(cur_valid & cur_eot, cur_logp, NEG_INF)
@@ -396,94 +405,103 @@ def beam_search_batched(
     tokens0 = torch.zeros((b, ctx), dtype=torch.long, device=device)
     tokens0[:, :p] = prompt
     cache_len = min(ctx, -(-(p + max_depth) // 128) * 128)
-    cache = M.init_cache(params, enc_out, cfg, batch=b, cache_len=cache_len,
-                         kv_quant=kv_quant, self_quant=self_quant)
-    fused = _fuse_reshuffle(cache.self_k, cfg, fuse_reshuffle)
-    if not fused:
-        spare_k, spare_v = _spare(cache.self_k), _spare(cache.self_v)
-    logits, cache = M.decoder_step(params, tokens0[:, :p], 0, cache, cfg)
-    ns_prob = None
-    if nospeech_id is not None:  # lanes share the prompt: lane 0
-        ns_prob = torch.softmax(logits[::k, sot_pos].float(),
-                                -1)[:, nospeech_id]
-    next_vals, next_idx = proposals(logits[:, -1], tokens0, p)
-
-    lane = torch.arange(k, device=device)
-    offs = (torch.arange(w, device=device) * k)[:, None]
-    phys = lane.repeat(w, 1)  # (W, K) slot of each logical lane (COW)
-    cur_tokens = tokens0.reshape(w, k, ctx)
-    cur_len = p
-    cur_len_w = torch.full((w,), p, dtype=torch.long, device=device)
-    cur_logp = torch.where(lane == 0, 0.0, NEG_INF).repeat(w, 1)
-    cur_valid = (lane == 0).repeat(w, 1)
-    cur_eot = torch.zeros((w, k), dtype=torch.bool, device=device)
-    fin_tokens = torch.zeros((w, k, ctx), dtype=torch.long, device=device)
-    fin_len = torch.zeros((w, k), dtype=torch.long, device=device)
-    fin_logp = torch.full((w, k), NEG_INF, device=device)
 
     def stop_rule():  # the JAX loop's cond; the one host sync of a step
         stopped = _window_stopped(cur_logp, cur_valid, cur_eot, fin_logp)
-        go = (depth < max_depth and cur_len < ctx
-              and not bool(stopped.all()))
-        return go, stopped
+        if depth >= max_depth or cur_len >= ctx:
+            return False, stopped
+        with scope("whisper.decode.sync"):
+            return not bool(stopped.all()), stopped
 
-    depth = 0
-    go, stopped = stop_rule()
-    while go:
-        f1, f2 = stopped[:, None], stopped[:, None, None]
-        # (a) fold EOT-ended beams into each window's finished pool
-        cand_fin = torch.cat([fin_logp, torch.where(cur_valid & cur_eot,
-                                                    cur_logp, NEG_INF)], 1)
-        new_fin_logp, fin_idx = _top_k(cand_fin, k)
-        all_tokens = torch.cat([fin_tokens, cur_tokens], 1)
-        new_fin_tokens = torch.gather(
-            all_tokens, 1, fin_idx[:, :, None].expand(-1, -1, ctx))
-        all_len = torch.cat([fin_len, torch.full_like(fin_len, cur_len)], 1)
-        new_fin_len = torch.gather(all_len, 1, fin_idx)
-        # (b) expand: per-window top-K over the (K x K) proposals
-        active = cur_valid & ~cur_eot
-        cand = torch.where(active[:, :, None], cur_logp[:, :, None]
-                           + next_vals, NEG_INF)
-        new_logp, flat_idx = _top_k(cand.reshape(w, k * k), k)
-        parent = flat_idx // k  # in-window parent lane
-        tok = torch.gather(next_idx.reshape(w, k * k), 1, flat_idx)
-        new_tokens = torch.gather(cur_tokens, 1,
-                                  parent[:, :, None].expand(-1, -1, ctx))
-        new_tokens[:, :, cur_len] = tok
-        new_valid = new_logp > NEG_INF
-        new_eot = (tok == eot_id) & new_valid
-        # freeze the result-bearing state of stopped windows
-        cur_tokens = torch.where(f2, cur_tokens, new_tokens)
-        cur_len_w = torch.where(stopped, cur_len_w, cur_len + 1)
-        cur_logp = torch.where(f1, cur_logp, new_logp)
-        cur_valid = torch.where(f1, cur_valid, new_valid)
-        cur_eot = torch.where(f1, cur_eot, new_eot)
-        fin_tokens = torch.where(f2, fin_tokens, new_fin_tokens)
-        fin_len = torch.where(f1, fin_len, new_fin_len)
-        fin_logp = torch.where(f1, fin_logp, new_fin_logp)
-        pos, cur_len, depth = cur_len, cur_len + 1, depth + 1
+    with scope("whisper.decode.prefill"):
+        cache = M.init_cache(params, enc_out, cfg, batch=b,
+                             cache_len=cache_len, kv_quant=kv_quant,
+                             self_quant=self_quant)
+        fused = _fuse_reshuffle(cache.self_k, cfg, fuse_reshuffle)
+        if not fused:
+            spare_k, spare_v = _spare(cache.self_k), _spare(cache.self_v)
+        logits, cache = M.decoder_step(params, tokens0[:, :p], 0, cache,
+                                       cfg)
+        ns_prob = None
+        if nospeech_id is not None:  # lanes share the prompt: lane 0
+            ns_prob = torch.softmax(logits[::k, sot_pos].float(),
+                                    -1)[:, nospeech_id]
+        next_vals, next_idx = proposals(logits[:, -1], tokens0, p)
+
+        lane = torch.arange(k, device=device)
+        offs = (torch.arange(w, device=device) * k)[:, None]
+        phys = lane.repeat(w, 1)  # (W, K) slot of each logical lane (COW)
+        cur_tokens = tokens0.reshape(w, k, ctx)
+        cur_len = p
+        cur_len_w = torch.full((w,), p, dtype=torch.long, device=device)
+        cur_logp = torch.where(lane == 0, 0.0, NEG_INF).repeat(w, 1)
+        cur_valid = (lane == 0).repeat(w, 1)
+        cur_eot = torch.zeros((w, k), dtype=torch.bool, device=device)
+        fin_tokens = torch.zeros((w, k, ctx), dtype=torch.long,
+                                 device=device)
+        fin_len = torch.zeros((w, k), dtype=torch.long, device=device)
+        fin_logp = torch.full((w, k), NEG_INF, device=device)
+        depth = 0
         go, stopped = stop_rule()
-        if not go:
-            break
-        # (c) reshuffle + append + logits (stopped windows ride along on
-        # their stale proposals; their results are frozen above)
-        if fused:  # K5, copy-on-write slots
-            src, dest = _cow_assign(parent, phys)
-            logits, cache = M.decoder_step(
-                params, tok.reshape(b, 1), pos, cache, cfg,
-                parents=(src + offs).reshape(b),
-                dests=(dest + offs).reshape(b))
-            phys = dest
-        else:  # K4 into the spare pair, swap
-            gparent = (parent + offs).reshape(b).to(torch.int32)
-            new_k, new_v = _cache_gather(cache.self_k, cache.self_v, gparent,
-                                         spare_k, spare_v, valid_len=pos)
-            spare_k, spare_v = cache.self_k, cache.self_v
-            cache = M.DecoderCache(new_k, new_v, cache.cross_k, cache.cross_v)
-            logits, cache = M.decoder_step(params, tok.reshape(b, 1), pos,
-                                           cache, cfg)
-        next_vals, next_idx = proposals(logits[:, -1],
-                                        new_tokens.reshape(b, ctx), cur_len)
+    while go:
+        with scope("whisper.decode.step"):
+            f1, f2 = stopped[:, None], stopped[:, None, None]
+            # (a) fold EOT-ended beams into each window's finished pool
+            cand_fin = torch.cat([fin_logp, torch.where(cur_valid & cur_eot,
+                                                        cur_logp, NEG_INF)], 1)
+            new_fin_logp, fin_idx = _top_k(cand_fin, k)
+            all_tokens = torch.cat([fin_tokens, cur_tokens], 1)
+            new_fin_tokens = torch.gather(
+                all_tokens, 1, fin_idx[:, :, None].expand(-1, -1, ctx))
+            all_len = torch.cat([fin_len, torch.full_like(fin_len, cur_len)],
+                                1)
+            new_fin_len = torch.gather(all_len, 1, fin_idx)
+            # (b) expand: per-window top-K over the (K x K) proposals
+            active = cur_valid & ~cur_eot
+            cand = torch.where(active[:, :, None], cur_logp[:, :, None]
+                               + next_vals, NEG_INF)
+            new_logp, flat_idx = _top_k(cand.reshape(w, k * k), k)
+            parent = flat_idx // k  # in-window parent lane
+            tok = torch.gather(next_idx.reshape(w, k * k), 1, flat_idx)
+            new_tokens = torch.gather(cur_tokens, 1,
+                                      parent[:, :, None].expand(-1, -1, ctx))
+            new_tokens[:, :, cur_len] = tok
+            new_valid = new_logp > NEG_INF
+            new_eot = (tok == eot_id) & new_valid
+            # freeze the result-bearing state of stopped windows
+            cur_tokens = torch.where(f2, cur_tokens, new_tokens)
+            cur_len_w = torch.where(stopped, cur_len_w, cur_len + 1)
+            cur_logp = torch.where(f1, cur_logp, new_logp)
+            cur_valid = torch.where(f1, cur_valid, new_valid)
+            cur_eot = torch.where(f1, cur_eot, new_eot)
+            fin_tokens = torch.where(f2, fin_tokens, new_fin_tokens)
+            fin_len = torch.where(f1, fin_len, new_fin_len)
+            fin_logp = torch.where(f1, fin_logp, new_fin_logp)
+            pos, cur_len, depth = cur_len, cur_len + 1, depth + 1
+            go, stopped = stop_rule()
+            if not go:
+                break
+            # (c) reshuffle + append + logits (stopped windows ride along on
+            # their stale proposals; their results are frozen above)
+            if fused:  # K5, copy-on-write slots
+                src, dest = _cow_assign(parent, phys)
+                logits, cache = M.decoder_step(
+                    params, tok.reshape(b, 1), pos, cache, cfg,
+                    parents=(src + offs).reshape(b),
+                    dests=(dest + offs).reshape(b))
+                phys = dest
+            else:  # K4 into the spare pair, swap
+                gparent = (parent + offs).reshape(b).to(torch.int32)
+                new_k, new_v = _cache_gather(cache.self_k, cache.self_v,
+                                             gparent, spare_k, spare_v,
+                                             valid_len=pos)
+                spare_k, spare_v = cache.self_k, cache.self_v
+                cache = M.DecoderCache(new_k, new_v, cache.cross_k,
+                                       cache.cross_v)
+                logits, cache = M.decoder_step(params, tok.reshape(b, 1), pos,
+                                               cache, cfg)
+            next_vals, next_idx = proposals(
+                logits[:, -1], new_tokens.reshape(b, ctx), cur_len)
 
     # per-window result: the best beam overall, ties to a finished one
     fin_like = torch.where(cur_valid & cur_eot, cur_logp, NEG_INF)

@@ -21,6 +21,7 @@ import torch
 from ..config import WhisperConfig
 from ..models import whisper as M
 from ..parallel import context as pctx
+from ..utils.profiling import scope
 
 NEG_INF = float("-inf")
 
@@ -169,14 +170,18 @@ def greedy_decode(
     tokens = torch.zeros((b, ctx), dtype=torch.long, device=device)
     tokens[:, :n_prompt] = prompt
     cache_len = min(ctx, -(-(n_prompt + max_depth) // 128) * 128)
-    cache = M.init_cache(params, enc_out, cfg, batch=b, cache_len=cache_len,
-                         kv_quant=kv_quant, self_quant=self_quant)
-    logits, cache = M.decoder_step(params, tokens[:, :n_prompt], 0, cache, cfg)
-    ns_prob = None
-    if nospeech_id is not None:
-        # raw (unsuppressed) distribution at the SOT position
-        ns_prob = torch.softmax(logits[:, sot_pos].float(), -1)[:, nospeech_id]
-    logp_next = logp_fn(logits[:, -1], tokens, n_prompt)
+    with scope("whisper.decode.prefill"):
+        cache = M.init_cache(params, enc_out, cfg, batch=b,
+                             cache_len=cache_len, kv_quant=kv_quant,
+                             self_quant=self_quant)
+        logits, cache = M.decoder_step(params, tokens[:, :n_prompt], 0,
+                                       cache, cfg)
+        ns_prob = None
+        if nospeech_id is not None:
+            # raw (unsuppressed) distribution at the SOT position
+            ns_prob = torch.softmax(logits[:, sot_pos].float(),
+                                    -1)[:, nospeech_id]
+        logp_next = logp_fn(logits[:, -1], tokens, n_prompt)
 
     length = torch.full((b,), n_prompt, dtype=torch.long, device=device)
     done = torch.zeros((b,), dtype=torch.bool, device=device)
@@ -184,23 +189,27 @@ def greedy_decode(
     seq_len = n_prompt
     max_len = min(ctx, n_prompt + max_depth)
     while seq_len < max_len:
-        if temperature > 0.0:
-            tok = sample_tokens(logp_next, temperature, generator)
-        else:  # first index on ties, as jnp
-            tok = torch.argmax(logp_next, dim=-1)
-        tok_logp = logp_next.gather(1, tok[:, None])[:, 0]
-        tok = torch.where(done, torch.full_like(tok, eot_id), tok)
-        tokens[:, seq_len] = tok
-        length = torch.where(done, length, length + 1)
-        sum_logp = torch.where(done, sum_logp, sum_logp + tok_logp)
-        done = done | (tok == eot_id)
-        seq_len += 1
-        # the JAX loop runs one more step whose output it never reads
-        if seq_len >= max_len or bool(done.all()):
-            break
-        logits, cache = M.decoder_step(params, tok[:, None], seq_len - 1,
-                                       cache, cfg)
-        logp_next = logp_fn(logits[:, -1], tokens, seq_len)
+        with scope("whisper.decode.step"):
+            if temperature > 0.0:
+                tok = sample_tokens(logp_next, temperature, generator)
+            else:  # first index on ties, as jnp
+                tok = torch.argmax(logp_next, dim=-1)
+            tok_logp = logp_next.gather(1, tok[:, None])[:, 0]
+            tok = torch.where(done, torch.full_like(tok, eot_id), tok)
+            tokens[:, seq_len] = tok
+            length = torch.where(done, length, length + 1)
+            sum_logp = torch.where(done, sum_logp, sum_logp + tok_logp)
+            done = done | (tok == eot_id)
+            seq_len += 1
+            # the JAX loop runs one more step whose output it never reads
+            if seq_len >= max_len:
+                break
+            with scope("whisper.decode.sync"):
+                if bool(done.all()):
+                    break
+            logits, cache = M.decoder_step(params, tok[:, None], seq_len - 1,
+                                           cache, cfg)
+            logp_next = logp_fn(logits[:, -1], tokens, seq_len)
     if ns_prob is not None:
         return tokens, length, sum_logp, ns_prob
     return tokens, length, sum_logp

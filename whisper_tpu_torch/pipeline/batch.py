@@ -41,6 +41,15 @@ server's `BatchingWorker` (serve.py) drives: requests join at any time,
 each `step()` decodes one batch of `batch_size` full windows drawn across
 every admitted request, padded as `_decode_windows` pads a short batch,
 and finished requests are stitched as `transcribe_many` stitches them.
+
+`transcribe_many` names its phases in a profiler's trace
+(`utils/profiling.scope`, one attribute read when none records):
+`whisper.transcribe_many` around the call, `whisper.window` around the
+windowing, a `whisper.batch` a batch (inside it `whisper.batch.stack`,
+`whisper.encode`, `whisper.decode` and `whisper.readback`), a
+`whisper.tail` a tail window and a `whisper.stitch` a stream; the decode
+loops add `whisper.decode.prefill`, `whisper.decode.step` and the step's
+one blocking read, `whisper.decode.sync`.
 """
 
 from __future__ import annotations
@@ -58,6 +67,7 @@ from ..decode.beam import beam_search_batched
 from ..decode.greedy import greedy_decode
 from ..ops.audio import max_waveform_samples
 from ..parallel.context import dp_all_gather, dp_axis, dp_rows
+from ..utils.profiling import scope
 from . import vad
 from .transcribe import (DecodeOptions, Transcriber, _check_supported,
                          _meshed, _rung_generator, compression_ratio,
@@ -84,6 +94,26 @@ def _check_batch_supported(opt: DecodeOptions) -> None:
             "clip_timestamps is incompatible with the batched path (the JAX "
             "CLI refuses --clip with --parallel-windows); use "
             "Transcriber.transcribe")
+
+
+def _splice(windows: Sequence[Optional[List[int]]],
+            opt: DecodeOptions) -> List[int]:
+    """One stream's tokens from its windows' (None: not decoded), each
+    spliced onto the tokens before it where `find_chunk_overlap` finds an
+    overlap, else appended."""
+    tokens: List[int] = []
+    for new_tokens in windows:
+        if new_tokens is None:
+            continue
+        spliced = find_chunk_overlap(tokens, new_tokens,
+                                     opt.stitch_max_offsets,
+                                     opt.stitch_min_overlaps)
+        if spliced is not None:
+            prev_index, curr_index = spliced
+            tokens = tokens[:prev_index] + new_tokens[curr_index:]
+        else:
+            tokens.extend(new_tokens)
+    return tokens
 
 
 class BatchTranscriber(Transcriber):
@@ -136,17 +166,19 @@ class BatchTranscriber(Transcriber):
         enc = self._encode_windows(waves, opt)
         common = self._decode_args(opt, suppress_until_len, timestamps,
                                    max_ts_idx, quality, sot_pos)
-        if opt.strategy == "beam" and temperature == 0.0:
-            out = beam_search_batched(self.params, enc, prompt, self.cfg,
-                                      beam_size=opt.beam_size, **common)
-        else:
-            out = greedy_decode(self.params, enc, prompt, self.cfg,
-                                temperature=temperature, generator=generator,
-                                **common)
-        toks, lengths, logp = (t.cpu().numpy() for t in out[:3])
-        ns = (out[3].float().cpu().numpy()
-              if common["nospeech_id"] is not None
-              else np.full(len(waves), -1.0, np.float32))
+        with scope("whisper.decode"):
+            if opt.strategy == "beam" and temperature == 0.0:
+                out = beam_search_batched(self.params, enc, prompt, self.cfg,
+                                          beam_size=opt.beam_size, **common)
+            else:
+                out = greedy_decode(self.params, enc, prompt, self.cfg,
+                                    temperature=temperature,
+                                    generator=generator, **common)
+        with scope("whisper.readback"):
+            toks, lengths, logp = (t.cpu().numpy() for t in out[:3])
+            ns = (out[3].float().cpu().numpy()
+                  if common["nospeech_id"] is not None
+                  else np.full(len(waves), -1.0, np.float32))
         return toks, lengths, logp, ns
 
     def _decode_windows(self, waveforms: Sequence[np.ndarray],
@@ -186,21 +218,22 @@ class BatchTranscriber(Transcriber):
         tail: List[Window] = []
         n_windows = [0] * len(waveforms)
         bounds: Dict[Tuple[int, int], Tuple[int, int]] = {}
-        for s, wave in enumerate(waveforms):
-            wave = np.asarray(wave, np.float32)
-            for i, (start, end) in enumerate(
-                    window_waveform(wave, sample_rate, n_window, overlap)):
-                chunk = np.ascontiguousarray(wave[start:end])
-                n_windows[s] = i + 1
-                bounds[(s, i)] = (start, end)
-                if opt.vad and vad.is_silent(
-                        chunk, sample_rate, opt.vad_threshold_db,
-                        opt.vad_min_speech_seconds):
-                    continue
-                if len(chunk) == n_window:
-                    full.append((s, i, chunk))
-                elif len(chunk) >= 400:  # >= n_fft: one STFT frame at least
-                    tail.append((s, i, chunk))
+        with scope("whisper.window"):
+            for s, wave in enumerate(waveforms):
+                wave = np.asarray(wave, np.float32)
+                for i, (start, end) in enumerate(
+                        window_waveform(wave, sample_rate, n_window, overlap)):
+                    chunk = np.ascontiguousarray(wave[start:end])
+                    n_windows[s] = i + 1
+                    bounds[(s, i)] = (start, end)
+                    if opt.vad and vad.is_silent(
+                            chunk, sample_rate, opt.vad_threshold_db,
+                            opt.vad_min_speech_seconds):
+                        continue
+                    if len(chunk) == n_window:
+                        full.append((s, i, chunk))
+                    elif len(chunk) >= 400:  # >= n_fft: one STFT frame
+                        tail.append((s, i, chunk))
 
         results: Dict[Tuple[int, int], List[int]] = {}
         meta: Dict[Tuple[int, int], tuple] = {}
@@ -214,68 +247,75 @@ class BatchTranscriber(Transcriber):
         for ti, temp in enumerate(temps):
             failures: List[Window] = []
             for i in range(0, len(pending), bsz):
-                group = pending[i:i + bsz]
-                waves = np.stack([g[2] for g in group])
-                if len(group) < bsz:  # pad with the first window, discarded
-                    waves = np.concatenate(
-                        [waves, np.repeat(waves[:1], bsz - len(group),
-                                          axis=0)])
-                gen = (_rung_generator(self.device, opt.seed,
-                                       ti * 100003 + i)
-                       if temp > 0.0 else None)
-                t0 = time.perf_counter()
-                toks, lengths, logps, nss = self._decode_batch(
-                    waves, prompt, sup_len, opt, timestamps, max_ts_idx,
-                    quality, temp, gen, sot_pos=n_cond)
-                for j, (s, w, chunk) in enumerate(group):
-                    tl = [int(t) for t in toks[j, :lengths[j]]][n_cond:]
-                    if not quality:
-                        results[(s, w)] = tl
-                        continue
-                    ns = float(nss[j])
-                    if not use_ladder:  # metadata only, no gating
-                        results[(s, w)] = tl
-                        meta[(s, w)] = (
-                            float(logps[j]) / max(int(lengths[j]) - n_prompt,
-                                                  1),
-                            compression_ratio(
-                                self.tok.decode(tl, skip_special=True)),
-                            ns if ns >= 0.0 else None)
-                        continue
-                    ok, silence, avg_lp, cr = evaluate_window_quality(
-                        opt, self.tok, tl, int(lengths[j]) - n_prompt,
-                        logps[j], ns)
-                    m = (avg_lp, cr, ns if ns >= 0.0 else None)
-                    if silence:
-                        log.info("stream %d window %d: no speech (p=%.2f), "
-                                 "skipping", s, w, ns)
-                        results[(s, w)], meta[(s, w)] = [], m
-                    elif ok or ti == len(temps) - 1:
-                        if ti:
-                            log.info("stream %d window %d: accepted at "
-                                     "t=%.1f (avg_logprob %.2f, compression "
-                                     "%.2f)", s, w, temp, avg_lp, cr)
-                        results[(s, w)], meta[(s, w)] = tl, m
-                    else:
-                        log.info("stream %d window %d: t=%.1f failed checks "
-                                 "(avg_logprob %.2f, compression %.2f), "
-                                 "queueing re-decode", s, w, temp, avg_lp, cr)
-                        failures.append((s, w, chunk))
-                log.info("batch %d-%d/%d windows (t=%.1f) in %.2fs", i,
-                         i + len(group), len(pending), temp,
-                         time.perf_counter() - t0)
+                with scope("whisper.batch"):
+                    group = pending[i:i + bsz]
+                    with scope("whisper.batch.stack"):
+                        waves = np.stack([g[2] for g in group])
+                        if len(group) < bsz:  # pad with the first, discarded
+                            waves = np.concatenate(
+                                [waves, np.repeat(waves[:1], bsz - len(group),
+                                                  axis=0)])
+                    gen = (_rung_generator(self.device, opt.seed,
+                                           ti * 100003 + i)
+                           if temp > 0.0 else None)
+                    t0 = time.perf_counter()
+                    toks, lengths, logps, nss = self._decode_batch(
+                        waves, prompt, sup_len, opt, timestamps, max_ts_idx,
+                        quality, temp, gen, sot_pos=n_cond)
+                    for j, (s, w, chunk) in enumerate(group):
+                        tl = [int(t) for t in toks[j, :lengths[j]]][n_cond:]
+                        if not quality:
+                            results[(s, w)] = tl
+                            continue
+                        ns = float(nss[j])
+                        if not use_ladder:  # metadata only, no gating
+                            results[(s, w)] = tl
+                            n_sampled = max(int(lengths[j]) - n_prompt, 1)
+                            meta[(s, w)] = (
+                                float(logps[j]) / n_sampled,
+                                compression_ratio(
+                                    self.tok.decode(tl, skip_special=True)),
+                                ns if ns >= 0.0 else None)
+                            continue
+                        ok, silence, avg_lp, cr = evaluate_window_quality(
+                            opt, self.tok, tl, int(lengths[j]) - n_prompt,
+                            logps[j], ns)
+                        m = (avg_lp, cr, ns if ns >= 0.0 else None)
+                        if silence:
+                            log.info("stream %d window %d: no speech "
+                                     "(p=%.2f), skipping", s, w, ns)
+                            results[(s, w)], meta[(s, w)] = [], m
+                        elif ok or ti == len(temps) - 1:
+                            if ti:
+                                log.info("stream %d window %d: accepted at "
+                                         "t=%.1f (avg_logprob %.2f, "
+                                         "compression %.2f)", s, w, temp,
+                                         avg_lp, cr)
+                            results[(s, w)], meta[(s, w)] = tl, m
+                        else:
+                            log.info("stream %d window %d: t=%.1f failed "
+                                     "checks (avg_logprob %.2f, compression "
+                                     "%.2f), queueing re-decode", s, w, temp,
+                                     avg_lp, cr)
+                            failures.append((s, w, chunk))
+                    log.info("batch %d-%d/%d windows (t=%.1f) in %.2fs", i,
+                             i + len(group), len(pending), temp,
+                             time.perf_counter() - t0)
             pending = failures
             if not pending:
                 break
 
         for s, w, chunk in tail:
-            if quality:
-                results[(s, w)], _, meta[(s, w)] = self._decode_window_ladder(
-                    s * 100003 + w, chunk, prompt, n_cond, sup_len, opt, temps,
-                    timestamps=timestamps, max_initial_ts_idx=max_ts_idx)
-            else:
-                results[(s, w)] = self._decode(chunk, prompt, sup_len,
-                                               opt)[0][n_cond:]
+            with scope("whisper.tail"):
+                if quality:
+                    (results[(s, w)], _,
+                     meta[(s, w)]) = self._decode_window_ladder(
+                        s * 100003 + w, chunk, prompt, n_cond, sup_len, opt,
+                        temps, timestamps=timestamps,
+                        max_initial_ts_idx=max_ts_idx)
+                else:
+                    results[(s, w)] = self._decode(chunk, prompt, sup_len,
+                                                   opt)[0][n_cond:]
         return results, meta, bounds, n_windows
 
     def transcribe_many(self, waveforms: Sequence[np.ndarray],
@@ -285,27 +325,19 @@ class BatchTranscriber(Transcriber):
         """Transcribe N independent streams; returns [(text, tokens)] in
         input order, stitched per stream as `transcribe` stitches
         (src/transcribe.rs:56-63)."""
-        opt = options or DecodeOptions()
-        _check_batch_supported(opt)
-        with torch.inference_mode():
-            results, _, _, n_windows = self._decode_windows(
-                waveforms, sample_rate, opt)
-        out: List[Tuple[str, List[int]]] = []
-        for s in range(len(waveforms)):
-            tokens: List[int] = []
-            for w in range(n_windows[s]):
-                new_tokens = results.get((s, w))
-                if new_tokens is None:
-                    continue
-                spliced = find_chunk_overlap(tokens, new_tokens,
-                                             opt.stitch_max_offsets,
-                                             opt.stitch_min_overlaps)
-                if spliced is not None:
-                    prev_index, curr_index = spliced
-                    tokens = tokens[:prev_index] + new_tokens[curr_index:]
-                else:
-                    tokens.extend(new_tokens)
-            out.append((self.tok.decode(tokens, skip_special=True), tokens))
+        with scope("whisper.transcribe_many"):
+            opt = options or DecodeOptions()
+            _check_batch_supported(opt)
+            with torch.inference_mode():
+                results, _, _, n_windows = self._decode_windows(
+                    waveforms, sample_rate, opt)
+            out: List[Tuple[str, List[int]]] = []
+            for s in range(len(waveforms)):
+                with scope("whisper.stitch"):
+                    tokens = _splice([results.get((s, w))
+                                      for w in range(n_windows[s])], opt)
+                    out.append((self.tok.decode(tokens, skip_special=True),
+                                tokens))
         return out
 
     def transcribe_many_with_timestamps(
@@ -505,19 +537,8 @@ class WindowPool:
             if self._undecoded.get(rid) != 0:
                 continue
             res = self._results.pop(rid)
-            tokens: List[int] = []
-            for w in range(self._n_windows[rid]):
-                new_tokens = res.get(w)
-                if new_tokens is None:
-                    continue
-                spliced = find_chunk_overlap(tokens, new_tokens,
-                                             opt.stitch_max_offsets,
-                                             opt.stitch_min_overlaps)
-                if spliced is not None:
-                    prev_index, curr_index = spliced
-                    tokens = tokens[:prev_index] + new_tokens[curr_index:]
-                else:
-                    tokens.extend(new_tokens)
+            tokens = _splice([res.get(w)
+                              for w in range(self._n_windows[rid])], opt)
             done.append((rid, t.tok.decode(tokens, skip_special=True),
                          tokens))
             self._order.remove(rid)

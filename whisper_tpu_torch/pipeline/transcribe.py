@@ -47,6 +47,7 @@ from ..parallel.context import kernel_mesh
 from ..parallel.sharding import shard_params, validate_tp
 from ..params import ParamTree, from_numpy_tree
 from ..text.tokenizer import SpecialToken
+from ..utils.profiling import scope
 from . import vad
 
 log = logging.getLogger(__name__)
@@ -394,8 +395,9 @@ class Transcriber:
     def _encode_windows(self, waves: np.ndarray, opt: DecodeOptions
                         ) -> torch.Tensor:
         """(B, n) windows -> encoder output of `_window_mel`."""
-        return encoder_forward(self.params, self._window_mel(waves, opt),
-                               self.cfg)
+        with scope("whisper.encode"):
+            return encoder_forward(self.params, self._window_mel(waves, opt),
+                                   self.cfg)
 
     def _decode_args(self, opt: DecodeOptions, suppress_until_len: int,
                      timestamps: bool, max_initial_ts_idx: int,
@@ -436,13 +438,15 @@ class Transcriber:
         the same mel). Returns (the decoded sequence, prompt included;
         sum_logp; p(<|nospeech|>) at `sot_pos` when `quality`, -1 when not
         asked or when the tokenizer lacks the token)."""
-        mel = self._window_mel(window[None, :], opt)
-        enc = encoder_forward(self.params, mel, self.cfg)
+        with scope("whisper.encode"):
+            mel = self._window_mel(window[None, :], opt)
+            enc = encoder_forward(self.params, mel, self.cfg)
         common = self._decode_args(opt, suppress_until_len, timestamps,
                                    max_initial_ts_idx, quality, sot_pos)
         if opt.strategy == "beam" and temperature == 0.0:
-            out = beam_search(self.params, enc, prompt, self.cfg,
-                              beam_size=opt.beam_size, **common)
+            with scope("whisper.decode"):
+                out = beam_search(self.params, enc, prompt, self.cfg,
+                                  beam_size=opt.beam_size, **common)
         elif self._speculates(opt, temperature, int(prompt.shape[0])):
             enc_d = encoder_forward(self._draft_params, mel, self._draft_cfg)
             out = speculative_greedy_decode(
@@ -451,9 +455,10 @@ class Transcriber:
                 draft_cfg=self._draft_cfg, n_draft=self._draft_k, **common)
             out = [x[0] for x in out]
         else:
-            out = greedy_decode(self.params, enc, prompt, self.cfg,
-                                temperature=temperature, generator=generator,
-                                **common)
+            with scope("whisper.decode"):
+                out = greedy_decode(self.params, enc, prompt, self.cfg,
+                                    temperature=temperature,
+                                    generator=generator, **common)
             out = [x[0] for x in out]
         toks, length, logp = out[:3]
         ns = float(out[3]) if common["nospeech_id"] is not None else -1.0

@@ -43,6 +43,7 @@ before it reports ready, so no request pays the build.
 from __future__ import annotations
 
 import argparse
+import bisect
 import json
 import os
 import queue
@@ -83,6 +84,7 @@ class _Request:
         self.detected_lang: Optional[str] = None  # lang == "auto"
         self.detected_probs: Optional[dict] = None  # {code: p} when auto
         self.error: Optional[str] = None
+        self.t_enq: Optional[float] = None  # monotonic; set as it is queued
         # set by the handler when its waiter gave up (504): the worker
         # drops abandoned requests instead of decoding them
         self.abandoned = False
@@ -92,9 +94,36 @@ class _Request:
                 self.timestamps, self.words, self.vad)
 
 
+class _Histogram:
+    """Observations (seconds) counted per bucket, with their sum."""
+
+    def __init__(self, buckets):
+        self.buckets = buckets
+        self.counts = [0] * (len(buckets) + 1)  # the last: above them all
+        self.sum = 0.0
+        self.n = 0
+
+    def observe(self, seconds: float) -> None:
+        self.sum += seconds
+        self.n += 1
+        self.counts[bisect.bisect_left(self.buckets, seconds)] += 1
+
+    def lines(self, name: str) -> List[str]:
+        out = [f"# TYPE {name} histogram"]
+        acc = 0
+        for b, n in zip(self.buckets, self.counts):
+            acc += n
+            out.append(f'{name}_bucket{{le="{b}"}} {acc}')
+        out += [f'{name}_bucket{{le="+Inf"}} {self.n}',
+                f"{name}_sum {self.sum:.3f}", f"{name}_count {self.n}"]
+        return out
+
+
 class Metrics:
     """Lock-protected serving counters, exposed at /metrics (Prometheus
-    text exposition format)."""
+    text exposition format). `whisper_request_latency_seconds` runs from
+    a request's enqueue to its response, `whisper_queue_wait_seconds`
+    from its enqueue to the worker taking it off the queue."""
 
     # seconds; decode latency spans ~100 ms to minutes
     LATENCY_BUCKETS = (0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0,
@@ -108,19 +137,16 @@ class Metrics:
         self.batched_requests = 0  # sum of batch fills (for the average)
         self.audio_seconds_total = 0.0
         self.errors_total = 0
-        self._lat_counts = [0] * (len(self.LATENCY_BUCKETS) + 1)
-        self._lat_sum = 0.0
-        self._lat_n = 0
+        self._latency = _Histogram(self.LATENCY_BUCKETS)
+        self._queue_wait = _Histogram(self.LATENCY_BUCKETS)
 
     def observe_latency(self, seconds: float) -> None:
         with self._lock:
-            self._lat_sum += seconds
-            self._lat_n += 1
-            for i, b in enumerate(self.LATENCY_BUCKETS):
-                if seconds <= b:
-                    self._lat_counts[i] += 1
-                    return
-            self._lat_counts[-1] += 1
+            self._latency.observe(seconds)
+
+    def observe_queue_wait(self, seconds: float) -> None:
+        with self._lock:
+            self._queue_wait.observe(seconds)
 
     def count_response(self, code: int) -> None:
         with self._lock:
@@ -154,21 +180,9 @@ class Metrics:
                 "# TYPE whisper_open_streams gauge",
                 f"whisper_open_streams "
                 f"{0 if streams is None else streams.open_count()}",
-                "# TYPE whisper_request_latency_seconds histogram",
+                *self._latency.lines("whisper_request_latency_seconds"),
+                *self._queue_wait.lines("whisper_queue_wait_seconds"),
             ]
-            acc = 0
-            for b, n in zip(self.LATENCY_BUCKETS, self._lat_counts):
-                acc += n
-                lines.append(
-                    f'whisper_request_latency_seconds_bucket{{le="{b}"}} '
-                    f"{acc}")
-            acc += self._lat_counts[-1]
-            lines.append(
-                f'whisper_request_latency_seconds_bucket{{le="+Inf"}} {acc}')
-            lines.append(
-                f"whisper_request_latency_seconds_sum {self._lat_sum:.3f}")
-            lines.append(
-                f"whisper_request_latency_seconds_count {self._lat_n}")
         return "\n".join(lines) + "\n"
 
 
@@ -221,7 +235,7 @@ class BatchingWorker(threading.Thread):
         if block:
             while not out and not self._stop_event.is_set():
                 try:
-                    out.append(self.q.get(timeout=self.POLL_S))
+                    out.append(self._taken(self.q.get(timeout=self.POLL_S)))
                 except queue.Empty:
                     pass
             deadline = time.monotonic() + self.max_wait_s
@@ -230,16 +244,22 @@ class BatchingWorker(threading.Thread):
                 if timeout <= 0:
                     break
                 try:
-                    out.append(self.q.get(timeout=timeout))
+                    out.append(self._taken(self.q.get(timeout=timeout)))
                 except queue.Empty:
                     break
         else:
             while len(out) < self.max_batch:
                 try:
-                    out.append(self.q.get_nowait())
+                    out.append(self._taken(self.q.get_nowait()))
                 except queue.Empty:
                     break
         return out
+
+    def _taken(self, req: _Request) -> _Request:
+        """`req`, just taken off the queue: its wait there is observed."""
+        if req.t_enq is not None:
+            self.metrics.observe_queue_wait(time.monotonic() - req.t_enq)
+        return req
 
     def _poolable(self, req: _Request) -> bool:
         from .pipeline.batch import WindowPool
@@ -714,7 +734,7 @@ def make_handler(worker: BatchingWorker, sample_rate: int,
                            timestamps=timestamps,
                            words=_flag(params, "words"),
                            vad=_flag(params, "vad"))
-            t_enq = time.monotonic()
+            req.t_enq = time.monotonic()
             try:
                 worker.q.put_nowait(req)
             except queue.Full:
@@ -726,7 +746,7 @@ def make_handler(worker: BatchingWorker, sample_rate: int,
                 req.error = "timeout"
                 self._json(504, {"error": "transcription timed out"})
                 return
-            metrics.observe_latency(time.monotonic() - t_enq)
+            metrics.observe_latency(time.monotonic() - req.t_enq)
             if req.error is not None:
                 self._json(500, {"error": req.error})
             elif req.segments is not None:

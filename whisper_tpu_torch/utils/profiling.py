@@ -2,8 +2,9 @@
 
 `trace(log_dir)` records a `torch.profiler` trace (CPU, and the card's
 kernels where there is one) into log_dir as a Chrome trace JSON, viewable
-in Perfetto or TensorBoard; `scope` and `annotate` name a region in it
-(`torch.profiler.record_function`) and, on a CUDA machine, in NVTX.
+in Perfetto or TensorBoard. `scope(name)` names a region of the program
+in any trace a `torch.profiler` session records, `trace`'s or a caller's
+own, on the same clock as the kernels.
 """
 
 from __future__ import annotations
@@ -12,6 +13,8 @@ import contextlib
 from typing import Iterator, Optional
 
 import torch
+
+_OFF = contextlib.nullcontext()
 
 
 @contextlib.contextmanager
@@ -29,17 +32,15 @@ def trace(log_dir: Optional[str]) -> Iterator[None]:
         yield
 
 
-@contextlib.contextmanager
-def scope(name: str) -> Iterator[None]:
-    """Annotate a region so it shows up named in the trace viewer."""
-    with torch.profiler.record_function(name):
-        if torch.cuda.is_available():
-            with torch.cuda.nvtx.range(name):
-                yield
-        else:
-            yield
+def scope(name: str):
+    """A span named `name` while a profiler records, else one shared no-op
+    context manager: an untraced run pays one attribute read.
 
-
-def annotate(name: str):
-    """Host-side trace annotation; in torch the same range as `scope`."""
-    return scope(name)
+    The span is a host operator event (`_RecordFunctionFast`). It adds no
+    device synchronisation and no tensor. `torch.profiler.record_function`
+    would also mirror each span onto the card's timeline as a
+    `gpu_user_annotation` event covering the kernels it launched, which a
+    reader of device events takes for one more kernel."""
+    if not torch.autograd.profiler._is_profiler_enabled:
+        return _OFF
+    return torch._C._profiler._RecordFunctionFast(name)
