@@ -178,6 +178,15 @@ last line is {"ok": true, "device": {...}}. K3's launches over cross caches
 launches over self caches, and stand as launches_cross in its entry; K6's
 launches on the large-M route (`quantized_matmul.tile_launches`, int8 and
 int4) apart from those at decode rows, as launches_tiles.
+
+The phases hold `decode/step_graphs.STEP_GRAPHS.lock`, so every greedy
+decode steps eagerly and the kernels' launch counters count its steps (a
+graph replay runs the kernels without their wrappers). After phase 20,
+"step graphs" releases it and transcribes the greedy slice's stream
+twice, capturing then replaying the S = 1 steps: both texts must equal
+the greedy slice's, the second call's steps must all be replays
+(`greedy_decode.graph_steps`), and its seconds are printed beside the
+eager slice's.
 """
 
 from __future__ import annotations
@@ -1144,6 +1153,9 @@ def main(argv=None) -> int:
                     "%(default)s; the meshless references are taken at the "
                     "same depth)")
     args = ap.parse_args(argv)
+    from whisper_tpu_torch.decode.step_graphs import STEP_GRAPHS
+
+    STEP_GRAPHS.lock.acquire()  # eager steps, counted (the docstring)
     device = timed("device", phase_device)
     timed("build", phase_build)
     rows = timed("kernels", phase_kernels)
@@ -1186,6 +1198,8 @@ def main(argv=None) -> int:
     slices["streaming"] = timed("streaming", phase_streaming, tr, waves)
     slices["serve"] = timed("serve", phase_serve, tr, waves)
     slices["finetune"] = timed("finetune", phase_finetune, tr.tok)
+    graphs = timed("step graphs", phase_step_graphs, tr, wave,
+                   text["greedy"], slices["greedy"]["runs"][1]["seconds"])
     refs = timed("parallel references", parallel_references, tr, waves,
                  args.parallel_depth)
     tok_path = str(tokenizer_path())
@@ -1242,7 +1256,7 @@ def main(argv=None) -> int:
         if name == "quantized_matmul":
             entries[-1]["launches_tiles"] = k6_tiles
     log(json.dumps({"kernels": entries, **slices, "sites": sites,
-                    "forced_branches": forced}))
+                    "forced_branches": forced, "step_graphs": graphs}))
     print(json.dumps({"ok": True, "device": device}), flush=True)
     return 0
 
@@ -1650,6 +1664,48 @@ def phase_waveform_to_text(tr, wave, greedy_text) -> dict:
             raise AssertionError(f"waveform_to_text never launched {name}")
     return dict(launches=launches, seconds=total,
                 xrt=len(wave) / sr / total, n_tokens=len(tokens))
+
+
+def phase_step_graphs(tr, wave, greedy_text, eager_s) -> dict:
+    """The greedy slice's transcription with `STEP_GRAPHS.lock` released,
+    twice: the first call captures the S = 1 steps' graphs, the second
+    replays them at every step. Both texts must be the greedy slice's."""
+    from whisper_tpu_torch.decode.greedy import greedy_decode
+    from whisper_tpu_torch.decode.step_graphs import STEP_GRAPHS
+    from whisper_tpu_torch.pipeline.transcribe import DecodeOptions
+
+    opts = DecodeOptions(strategy="greedy", max_depth=100)
+    runs = []
+    STEP_GRAPHS.lock.release()
+    try:
+        for run in ("capture", "replay"):
+            before = (greedy_decode.graph_steps, greedy_decode.eager_steps,
+                      greedy_decode.graph_captures)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            text, _ = tr.transcribe(wave, 16000, opts,
+                                    on_chunk=lambda i, t: None)
+            torch.cuda.synchronize()
+            total = time.perf_counter() - t0
+            replays, eager, captures = (
+                greedy_decode.graph_steps - before[0],
+                greedy_decode.eager_steps - before[1],
+                greedy_decode.graph_captures - before[2])
+            log(f"step graphs, {run} call: {total:.3f} s (eager slice "
+                f"{eager_s:.3f} s), {replays} replayed steps, {eager} "
+                f"eager, {captures} captures")
+            if text != greedy_text:
+                raise AssertionError(f"the {run} call's text differs from "
+                                     "the eager greedy slice's")
+            if run == "replay" and (eager or not replays):
+                raise AssertionError(f"the replay call stepped eagerly "
+                                     f"{eager} times, replayed {replays}")
+            runs.append(dict(run=run, seconds=total, graph_steps=replays,
+                             eager_steps=eager, graph_captures=captures))
+        STEP_GRAPHS.clear()
+    finally:
+        STEP_GRAPHS.lock.acquire()
+    return dict(runs=runs, eager_seconds=eager_s)
 
 
 # ----------------------------------------------------------------------

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from whisper_tpu_torch import cli as torch_cli
+from whisper_tpu_torch.decode.step_graphs import STEP_GRAPHS
 from whisper_tpu_torch.models import whisper as M
 from whisper_tpu_torch.ops.kernels import decode_attention as KC
 from whisper_tpu_torch.ops.kernels import encoder_block as KB
@@ -24,6 +25,16 @@ from whisper_tpu_torch.ops.kernels import permute_attention as KF
 from whisper_tpu_torch.quantize import pack_int4
 
 pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(autouse=True)
+def no_held_step_graphs():
+    """Each test starts and ends with no captured greedy step: a replay of
+    a graph held from an earlier test runs no kernel wrapper, so a test's
+    launch counts would depend on the tests run before it."""
+    STEP_GRAPHS.clear()
+    yield
+    STEP_GRAPHS.clear()
 
 
 @pytest.fixture

@@ -42,7 +42,7 @@ when the batch is split over dp (`_quantize_cross`).
 from __future__ import annotations
 
 import functools
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -468,7 +468,8 @@ def _cross_kv_vmap_fallback(x, w: QTensor, b):
 
 def init_cache(params: ParamTree, enc_out: torch.Tensor, cfg: WhisperConfig,
                batch: Optional[int] = None, cache_len: Optional[int] = None,
-               kv_quant=False, self_quant=False) -> DecoderCache:
+               kv_quant=False, self_quant=False,
+               out: Optional[DecoderCache] = None) -> DecoderCache:
     """Zeroed self cache (capped at `cache_len` rows) and the cross K/V of
     every layer from enc_out. A `batch` that is a multiple R of enc_out's
     gives each window R decode lanes that share ONE cross-KV copy (the
@@ -478,7 +479,14 @@ def init_cache(params: ParamTree, enc_out: torch.Tensor, cfg: WhisperConfig,
     scale per (layer, channel); `self_quant` (True / "int8" / "int4") makes
     the self cache int8 (B, L, C, d), or packed int4 (B, L, C, d / 2)
     uint8, with f32 row scales (B, L, C) initialised to 1
-    (whisper.py:595-647). Other values raise ValueError, as in JAX."""
+    (whisper.py:595-647). Other values raise ValueError, as in JAX.
+
+    `out`, a cache of the shapes and dtypes this call makes (an
+    unquantized cross cache), is filled in place and returned instead:
+    the cross K/V written into its arrays, the self cache zeroed (row
+    scales set to 1)."""
+    if out is not None and kv_quant:
+        raise ValueError("out= takes an unquantized cross cache")
     if kv_quant and kv_quant not in (True, "int8", "int4"):
         raise ValueError(f"unsupported kv_quant: {kv_quant!r}")
     if self_quant and self_quant not in (True, "int8", "int4"):
@@ -494,8 +502,16 @@ def init_cache(params: ParamTree, enc_out: torch.Tensor, cfg: WhisperConfig,
             f"decode batch {b} must be a multiple of enc_out batch {b_enc}")
     dtype = dec["tok_emb"].dtype
     xa = enc_out.to(dtype)
-    ck = torch.empty((n_layer, b_enc, sa, d), dtype=dtype, device=xa.device)
-    cv = torch.empty_like(ck)
+    if out is None:
+        ck = torch.empty((n_layer, b_enc, sa, d), dtype=dtype,
+                         device=xa.device)
+        cv = torch.empty_like(ck)
+    else:
+        ck, cv = out.cross_k, out.cross_v
+        if ck.shape != (n_layer, b_enc, sa, d) or ck.dtype != dtype:
+            raise ValueError(f"out= cross cache {tuple(ck.shape)} "
+                             f"{ck.dtype} != {(n_layer, b_enc, sa, d)} "
+                             f"{dtype}")
     int8_impl = cfg.knobs.int8_impl
     for l, p in enumerate(dec["blocks"].layers()):
         w = p["cross_kv_w"]
@@ -508,6 +524,14 @@ def init_cache(params: ParamTree, enc_out: torch.Tensor, cfg: WhisperConfig,
         ck, cv = _quantize_cross(ck, bits), _quantize_cross(cv, bits)
     c = min(cache_len or dec_cfg.n_text_ctx, dec_cfg.n_text_ctx)
     shape = (b, n_layer, c, d)
+    if out is not None:
+        for t in (out.self_k, out.self_v):
+            if isinstance(t, QTensor):
+                t.q.zero_()
+                t.scale.fill_(1.0)
+            else:
+                t.zero_()
+        return out
     if self_quant:
         int4 = self_quant == "int4"
         qshape = (*shape[:3], d // 2) if int4 else shape
@@ -596,9 +620,24 @@ def _cached_attention(q, k_cache, v_cache, last_visible: torch.Tensor,
     return out.to(out_dtype)
 
 
-def _embed(dec, tokens, pos: int):
+def _embed(dec, tokens, pos):
+    """Token plus positional embedding of S new tokens at [pos, pos + S);
+    a (B,) int64 `pos` (S = 1) gathers each row's position."""
+    if isinstance(pos, torch.Tensor):
+        return dec["tok_emb"][tokens.long()] + dec["pos_emb"][pos][:, None]
     s = tokens.shape[1]
     return dec["tok_emb"][tokens.long()] + dec["pos_emb"][pos:pos + s]
+
+
+def _append(cache: torch.Tensor, layer: int, pos, rows: torch.Tensor):
+    """cache[:, layer, pos] = rows (B, ...), in place: at an int pos, or at
+    each row's position of a (B,) int64 tensor."""
+    if not isinstance(pos, torch.Tensor):
+        cache[:, layer, pos] = rows
+        return
+    idx = pos.view(-1, *([1] * rows.dim())).expand(rows.shape[0], 1,
+                                                   *rows.shape[1:])
+    cache[:, layer].scatter_(1, idx, rows[:, None])
 
 
 def _split(t):
@@ -606,8 +645,9 @@ def _split(t):
     return (t.q, t.scale) if isinstance(t, QTensor) else (t, None)
 
 
-def _decoder_step_fused(params, tokens, pos: int, cache: DecoderCache,
-                        cfg: WhisperConfig, parents=None, dests=None):
+def _decoder_step_fused(params, tokens, pos: Union[int, torch.Tensor],
+                        cache: DecoderCache, cfg: WhisperConfig,
+                        parents=None, dests=None):
     """Steady-state (S = 1) step over the layer-STACKED caches: the decode
     attention kernel takes the whole cache and the layer index, for the
     self cache (batch-major, rows <= pos visible) and the cross cache
@@ -618,7 +658,12 @@ def _decoder_step_fused(params, tokens, pos: int, cache: DecoderCache,
     kv_rep = R (the grouped kernel). A quantized cross cache folds K's
     per-channel scale into the query and V's into the output, so the
     kernel stays scale-free. Both calls pass pos as an int, which the
-    kernels take as an argument (no pos tensor a step).
+    kernels take as an argument (no pos tensor a step). A (B,) int32
+    device `pos` (the captured greedy step, decode/step_graphs.py) is
+    read on the device instead: the positional embedding is gathered at
+    it, the new self-cache rows are scattered to it, and the self
+    attention kernel takes the tensor; the code path is otherwise the
+    same.
 
     The self cache, by type: bf16/f32, the new row is written in place
     and K3 attends; int8 or packed int4 (QTensor), the new row is
@@ -641,8 +686,14 @@ def _decoder_step_fused(params, tokens, pos: int, cache: DecoderCache,
     sk, sv = cache.self_k, cache.self_v
     c_self = _arr(sk).shape[2]
 
+    if isinstance(pos, torch.Tensor) and parents is not None:
+        raise ValueError("the fused beam reshuffle (parents=...) takes an "
+                         "int pos")
+    # where the new rows go: the int, or each row's device position
+    at = pos.long() if isinstance(pos, torch.Tensor) else pos
+
     ii = cfg.knobs.int8_impl
-    h = _embed(dec, tokens, pos)  # (B, 1, d)
+    h = _embed(dec, tokens, at)  # (B, 1, d)
     for l, p in enumerate(dec["blocks"].layers()):
         hn = layer_norm(h, p["attn_ln_g"], p["attn_ln_b"], eps)
         q, k, v = _qkv_proj(hn, p["qkv_w"], p["qkv_b"], ii)
@@ -656,14 +707,16 @@ def _decoder_step_fused(params, tokens, pos: int, cache: DecoderCache,
                 pos, l, n_head, beam_k=max(kv_rep, 1), c_used=c_self,
                 dests=dests)[0]
         elif quant_self:
-            sk.q[:, l, pos], sk.scale[:, l, pos] = kq, ks  # in-place append
-            sv.q[:, l, pos], sv.scale[:, l, pos] = vq, vs
+            _append(sk.q, l, at, kq)  # in-place append
+            _append(sk.scale, l, at, ks)
+            _append(sv.q, l, at, vq)
+            _append(sv.scale, l, at, vs)
             attn = decode_attention_stacked(
                 q1, sk.q, sv.q, pos, l, n_head, batch_major=True,
                 k_rowscale=sk.scale, v_rowscale=sv.scale, c_used=c_self)
         else:
-            sk[:, l, pos] = k[:, 0]  # in-place append
-            sv[:, l, pos] = v[:, 0]
+            _append(sk, l, at, k[:, 0])  # in-place append
+            _append(sv, l, at, v[:, 0])
             attn = decode_attention_stacked(
                 q1, sk, sv, pos, l, n_head, batch_major=True,
                 c_used=c_self)
@@ -685,7 +738,8 @@ def _decoder_step_fused(params, tokens, pos: int, cache: DecoderCache,
     return _logits(layer_norm(h, dec["ln_g"], dec["ln_b"], eps), dec), cache
 
 
-def decoder_step(params: ParamTree, tokens: torch.Tensor, pos: int,
+def decoder_step(params: ParamTree, tokens: torch.Tensor,
+                 pos: Union[int, torch.Tensor],
                  cache: DecoderCache, cfg: WhisperConfig,
                  parents: Optional[torch.Tensor] = None,
                  dests: Optional[torch.Tensor] = None,
@@ -703,7 +757,10 @@ def decoder_step(params: ParamTree, tokens: torch.Tensor, pos: int,
     decode/beam.py::_cow_assign) redirects lane i's write-back to slot
     dests[i]; the cache is then in PHYSICAL slot order and the caller
     keeps the logical-to-physical map. The guards and errors are JAX's
-    (whisper.py:1005-1024)."""
+    (whisper.py:1005-1024).
+
+    `pos` may be a (B,) int32 tensor on the fused S = 1 path only (each
+    row's position, read on the device: `_decoder_step_fused`)."""
     if dests is not None and parents is None:
         raise ValueError(
             "dests= requires parents= (the fused COW reshuffle path)")
@@ -718,6 +775,8 @@ def decoder_step(params: ParamTree, tokens: torch.Tensor, pos: int,
         raise ValueError(
             "parents= is only supported on the S=1 flash decode path; "
             "permute the cache explicitly before this call")
+    if isinstance(pos, torch.Tensor):
+        raise ValueError("a tensor pos takes the S=1 flash decode path")
     dec = params["decoder"]
     dec_cfg = cfg.text_decoder_config
     n_head, eps = _local_heads(dec_cfg.n_text_head), cfg.ln_eps
