@@ -1467,7 +1467,9 @@ def phase_batched_timestamps(tr, waves) -> dict:
 
         def batch_spy(rows, *a, passes=passes, **kw):
             # (prompt, sup_len, opt, timestamps, max_ts_idx, quality, T, gen)
-            ids = sorted({i for row in rows for i, w in enumerate(full)
+            # the batch reaches `_decode_batch` on the card
+            ids = sorted({i for row in torch.as_tensor(rows).cpu().numpy()
+                          for i, w in enumerate(full)
                           if np.array_equal(row, w)})
             passes.append((a[6], ids))
             return BatchTranscriber._decode_batch(bt, rows, *a, **kw)

@@ -1225,6 +1225,50 @@ def test_batched_ladder_on_the_card(cli_dir):
     assert all(n > 0 for n in grew.values()), grew
 
 
+def test_transcribe_many_cuts_batches_on_the_card(gen, tmp_path,
+                                                 monkeypatch):
+    """`transcribe_many` on the card (bf16, batches of 4) over two streams
+    of unequal length, a batch crossing from one to the other and the last
+    one short: every batch reaches the encoder as a CUDA tensor, and the
+    tokens are those of the batches stacked on the host
+    (tests/host_stack_batches.py)."""
+    from host_stack_batches import host_stack_transcribe_many
+    from whisper_tpu_torch.config import tiny_test_config
+    from whisper_tpu_torch.params import init_params
+    from whisper_tpu_torch.pipeline import transcribe as TT
+    from whisper_tpu_torch.pipeline.batch import BatchTranscriber
+    from whisper_tpu_torch.text.tokenizer import (WhisperTokenizer,
+                                                  build_test_tokenizer_json)
+
+    build_test_tokenizer_json(str(tmp_path / "tokenizer.json"))
+    tok = WhisperTokenizer(str(tmp_path / "tokenizer.json"))
+    cfg = tiny_test_config(n_state=256, n_head=4, n_layer=2,
+                           n_vocab=tok.vocab_size, n_audio_ctx=96,
+                           n_text_ctx=48)
+    bt = BatchTranscriber(init_params(cfg, gen, dtype=torch.bfloat16), cfg,
+                          tok, batch_size=4)
+    rng = np.random.default_rng(11)
+    t = np.arange(86000) / 16000.0  # 7 full windows and a tail
+    speech = (0.3 * np.sin(2 * np.pi * 220.0 * t)
+              + 0.1 * rng.standard_normal(t.shape)) * (t % 0.8 < 0.5)
+    waves = [speech.astype(np.float32),
+             np.ascontiguousarray(speech[:35000][::-1],
+                                  dtype=np.float32)]
+    opt = TT.DecodeOptions(max_depth=8, chunk_overlap_seconds=0.15)
+    seen = []
+    real = TT.Transcriber._encode_windows
+
+    def spy(self, w, *a, **k):
+        seen.append(w.device.type if isinstance(w, torch.Tensor) else None)
+        return real(self, w, *a, **k)
+
+    want = host_stack_transcribe_many(bt, waves, opt)
+    monkeypatch.setattr(TT.Transcriber, "_encode_windows", spy)
+    got = bt.transcribe_many(waves, options=opt)
+    assert got == want and all(tokens for _, tokens in got)
+    assert len(seen) == 3 and set(seen) == {"cuda"}
+
+
 def test_cli_words_on_the_card(cli_dir, monkeypatch, capsys):
     """`transcribe --timestamps --words` on the card (beam 5, bf16): a
     words list on every JSON segment, word times inside the audio and in

@@ -12,6 +12,11 @@ the W8A8 kernel choice (K6 at <= 1024 rows, K7 above) -- is that of a full
 batch. Tail windows go one at a time through the single-window path, and
 each stream is stitched on its own.
 
+A batch is built on the device (`_BatchRows`): its windows are slices of
+the callers' samples, and consecutive windows of a stream overlap, so each
+stretch of a stream that a batch's windows cover crosses the bus once,
+through a pinned host buffer, and the rows are cut from it on the device.
+
 The fallback ladder runs batched (`_decode_windows`): a first pass decodes
 every full window at temps[0], the host-side quality gates judge each
 window, and only the windows that failed decode again -- batched again --
@@ -76,7 +81,72 @@ from .transcribe import (DecodeOptions, Transcriber, _check_supported,
 
 log = logging.getLogger(__name__)
 
-Window = Tuple[int, int, np.ndarray]  # (stream, window index, samples)
+Window = Tuple[int, int]  # (stream, window index)
+# (a stream's samples, contiguous writeable float32; a full window's start)
+Row = Tuple[np.ndarray, int]
+
+
+def _samples(wave) -> np.ndarray:
+    """A stream's samples as `_BatchRows` reads them: contiguous writeable
+    float32, copied only if the caller's array is not (torch wraps
+    read-only memory with a warning)."""
+    return np.require(wave, np.float32, ["C", "W"])
+
+
+class _BatchRows:
+    """Builds (B, n_window) float32 batches of full windows on `device`.
+
+    A row is a stream's samples (`_samples`) and a window's start in them;
+    the window is samples[start:start + n_window], and rows of one stream
+    that overlap or touch form one stretch. `batch` writes each stretch
+    once into a host buffer, enqueues one copy of them all to the device
+    without waiting for it, and cuts the rows out of the device copy with
+    slices, in row order, repeating the first row up to the batch size, as
+    a short batch is padded. On a CUDA device the buffer is pinned memory
+    from PyTorch's caching host allocator (the builders of later calls get
+    the same block back), and a builder writes it again only after the
+    copy out of it has finished."""
+
+    def __init__(self, device, n_window: int):
+        self.device = torch.device(device)
+        self.n = n_window
+        self._pin = self.device.type == "cuda"
+        self._host: Optional[torch.Tensor] = None
+        self._copied = None  # event after the last copy out of `_host`
+
+    def _stage(self, rows: Sequence[Row]) -> Tuple[torch.Tensor, List[int]]:
+        """(the rows' stretches on the device, each row's offset in it)."""
+        runs: List[list] = []  # [samples, first sample, end, offset]
+        offsets, total = [], 0
+        for wave, start in rows:
+            run = runs[-1] if runs else None
+            if run is None or run[0] is not wave or not (
+                    run[1] <= start <= run[2]):
+                run = [wave, start, start, total]
+                runs.append(run)
+            end = max(run[2], start + self.n)
+            total += end - run[2]
+            run[2] = end
+            offsets.append(run[3] + start - run[1])
+        if self._copied is not None:
+            self._copied.synchronize()
+        if self._host is None or self._host.numel() < total:
+            self._host = torch.empty(len(rows) * self.n, dtype=torch.float32,
+                                     pin_memory=self._pin)
+        for wave, lo, hi, at in runs:  # torch's copy runs on every core
+            self._host[at:at + hi - lo].copy_(torch.from_numpy(wave[lo:hi]))
+        audio = self._host[:total].to(self.device, non_blocking=True,
+                                      copy=True)
+        if self._pin:
+            self._copied = torch.cuda.Event()
+            self._copied.record(torch.cuda.current_stream(self.device))
+        return audio, offsets
+
+    def batch(self, rows: Sequence[Row], batch_size: int) -> torch.Tensor:
+        """The (batch_size, n_window) batch of `rows` on the device."""
+        audio, offsets = self._stage(rows)
+        offsets += offsets[:1] * (batch_size - len(offsets))
+        return torch.stack([audio[o:o + self.n] for o in offsets])
 
 
 def _check_batch_supported(opt: DecodeOptions) -> None:
@@ -136,19 +206,20 @@ class BatchTranscriber(Transcriber):
         self.batch_size = batch_size
 
     @_meshed
-    def _decode_batch(self, waves: np.ndarray, prompt: torch.Tensor,
+    def _decode_batch(self, waves, prompt: torch.Tensor,
                       suppress_until_len: int, opt: DecodeOptions,
                       timestamps: bool = False, max_ts_idx: int = 50,
                       quality: bool = False, temperature: float = 0.0,
                       generator: Optional[torch.Generator] = None,
                       sot_pos: int = 0):
-        """(B, n) windows -> (tokens (B, ctx), lengths (B,), sum_logp (B,),
-        p(<|nospeech|>) (B,), -1 unless `quality` asks for it) as numpy,
-        prompt included (batch.py:114-154): beam search over B x K lanes
-        at temperature 0 with strategy "beam", else greedy (sampling at
-        temperature > 0 from `generator`). Under a mesh whose dp divides B,
-        this rank decodes its B / dp rows and the outputs are gathered over
-        dp; otherwise every rank decodes the whole batch."""
+        """(B, n) windows (a tensor on the device, or numpy) -> (tokens (B,
+        ctx), lengths (B,), sum_logp (B,), p(<|nospeech|>) (B,), -1 unless
+        `quality` asks for it) as numpy, prompt included
+        (batch.py:114-154): beam search over B x K lanes at temperature 0
+        with strategy "beam", else greedy (sampling at temperature > 0 from
+        `generator`). Under a mesh whose dp divides B, this rank decodes its
+        B / dp rows and the outputs are gathered over dp; otherwise every
+        rank decodes the whole batch."""
         args = (prompt, suppress_until_len, opt, timestamps, max_ts_idx,
                 quality, temperature, generator, sot_pos)
         if self.mesh is None or dp_axis(self.mesh, len(waves)) is None:
@@ -219,21 +290,23 @@ class BatchTranscriber(Transcriber):
         n_windows = [0] * len(waveforms)
         bounds: Dict[Tuple[int, int], Tuple[int, int]] = {}
         with scope("whisper.window"):
-            for s, wave in enumerate(waveforms):
-                wave = np.asarray(wave, np.float32)
+            waves = [_samples(w) for w in waveforms]
+            for s, wave in enumerate(waves):
                 for i, (start, end) in enumerate(
                         window_waveform(wave, sample_rate, n_window, overlap)):
-                    chunk = np.ascontiguousarray(wave[start:end])
                     n_windows[s] = i + 1
                     bounds[(s, i)] = (start, end)
                     if opt.vad and vad.is_silent(
-                            chunk, sample_rate, opt.vad_threshold_db,
-                            opt.vad_min_speech_seconds):
+                            wave[start:end], sample_rate,
+                            opt.vad_threshold_db, opt.vad_min_speech_seconds):
                         continue
-                    if len(chunk) == n_window:
-                        full.append((s, i, chunk))
-                    elif len(chunk) >= 400:  # >= n_fft: one STFT frame
-                        tail.append((s, i, chunk))
+                    if end - start == n_window:
+                        full.append((s, i))
+                    elif end - start >= 400:  # >= n_fft: one STFT frame
+                        tail.append((s, i))
+
+        def rows(group: Sequence[Window]) -> List[Row]:
+            return [(waves[s], bounds[(s, w)][0]) for s, w in group]
 
         results: Dict[Tuple[int, int], List[int]] = {}
         meta: Dict[Tuple[int, int], tuple] = {}
@@ -243,6 +316,7 @@ class BatchTranscriber(Transcriber):
         # path's per-segment metadata
         quality = use_ladder or timestamps
         bsz = self.batch_size
+        builder = _BatchRows(self.device, n_window)
         pending = full
         for ti, temp in enumerate(temps):
             failures: List[Window] = []
@@ -250,19 +324,15 @@ class BatchTranscriber(Transcriber):
                 with scope("whisper.batch"):
                     group = pending[i:i + bsz]
                     with scope("whisper.batch.stack"):
-                        waves = np.stack([g[2] for g in group])
-                        if len(group) < bsz:  # pad with the first, discarded
-                            waves = np.concatenate(
-                                [waves, np.repeat(waves[:1], bsz - len(group),
-                                                  axis=0)])
+                        batch = builder.batch(rows(group), bsz)
                     gen = (_rung_generator(self.device, opt.seed,
                                            ti * 100003 + i)
                            if temp > 0.0 else None)
                     t0 = time.perf_counter()
                     toks, lengths, logps, nss = self._decode_batch(
-                        waves, prompt, sup_len, opt, timestamps, max_ts_idx,
+                        batch, prompt, sup_len, opt, timestamps, max_ts_idx,
                         quality, temp, gen, sot_pos=n_cond)
-                    for j, (s, w, chunk) in enumerate(group):
+                    for j, (s, w) in enumerate(group):
                         tl = [int(t) for t in toks[j, :lengths[j]]][n_cond:]
                         if not quality:
                             results[(s, w)] = tl
@@ -297,7 +367,7 @@ class BatchTranscriber(Transcriber):
                                      "checks (avg_logprob %.2f, compression "
                                      "%.2f), queueing re-decode", s, w, temp,
                                      avg_lp, cr)
-                            failures.append((s, w, chunk))
+                            failures.append((s, w))
                     log.info("batch %d-%d/%d windows (t=%.1f) in %.2fs", i,
                              i + len(group), len(pending), temp,
                              time.perf_counter() - t0)
@@ -305,7 +375,9 @@ class BatchTranscriber(Transcriber):
             if not pending:
                 break
 
-        for s, w, chunk in tail:
+        for s, w in tail:
+            start, end = bounds[(s, w)]
+            chunk = waves[s][start:end]
             with scope("whisper.tail"):
                 if quality:
                     (results[(s, w)], _,
@@ -398,8 +470,9 @@ class WindowPool:
     pending full windows drawn across all admitted requests (newest
     included), then the tail windows of requests whose full windows are
     done (one at a time, through `_decode`), and returns the requests that
-    are complete, stitched. A short batch is padded to `batch_size` by
-    repeating its first window, as `_decode_windows` pads it, so the
+    are complete, stitched. A batch is built by `_BatchRows`, as
+    `_decode_windows` builds it: a short one is padded to `batch_size` by
+    repeating its first window, so the
     encoder's row count -- and with it the GEMM shapes and the W8A8 kernel
     route -- are `transcribe_many`'s, and so are the texts and tokens.
     Scope: the plain single-temperature path; the ladder, timestamps,
@@ -428,7 +501,9 @@ class WindowPool:
         self._sup_len = opt.suppress_until_len + self._n_cond
         # a 1-tuple temperature is poolable (no ladder)
         self._temperature = float(Transcriber._ladder_temps(opt)[0][0])
-        self._queue: List[Tuple[object, int, np.ndarray]] = []  # full wins
+        self._queue: List[Tuple[object, int, int]] = []  # (rid, w, start)
+        self._waves: dict = {}  # rid -> samples
+        self._rows = _BatchRows(transcriber.device, self._n_window)
         self._tails: dict = {}  # rid -> [(w, chunk)]
         self._results: dict = {}  # rid -> {w: tokens}
         self._n_windows: dict = {}  # rid -> window count
@@ -458,7 +533,8 @@ class WindowPool:
         """Admit one request's audio; its windows join the shared pool."""
         if rid in self._n_windows:
             raise ValueError(f"duplicate request id {rid!r}")
-        wave = np.asarray(waveform, np.float32)
+        wave = _samples(waveform)
+        self._waves[rid] = wave
         self._results[rid] = {}
         self._n_windows[rid] = 0
         self._undecoded[rid] = 0
@@ -466,14 +542,14 @@ class WindowPool:
         self._order.append(rid)
         for w, (start, end) in enumerate(window_waveform(
                 wave, self.sr, self._n_window, self._overlap)):
-            chunk = np.ascontiguousarray(wave[start:end])
+            chunk = wave[start:end]
             self._n_windows[rid] = w + 1
             if self.opt.vad and vad.is_silent(
                     chunk, self.sr, self.opt.vad_threshold_db,
                     self.opt.vad_min_speech_seconds):
                 continue  # stitching skips missing windows
             if len(chunk) == self._n_window:
-                self._queue.append((rid, w, chunk))
+                self._queue.append((rid, w, start))
                 self._undecoded[rid] += 1
             elif len(chunk) >= 400:
                 self._tails[rid].append((w, chunk))
@@ -482,6 +558,7 @@ class WindowPool:
     def cancel(self, rid) -> None:
         """Drop a request's still-queued windows (an abandoned waiter)."""
         self._queue = [q for q in self._queue if q[0] != rid]
+        self._waves.pop(rid, None)
         self._tails.pop(rid, None)
         self._undecoded.pop(rid, None)
         self._n_windows.pop(rid, None)
@@ -502,11 +579,9 @@ class WindowPool:
             if self._queue:
                 group = self._queue[:t.batch_size]
                 self._queue = self._queue[t.batch_size:]
-                waves = np.stack([g[2] for g in group])
-                if len(group) < t.batch_size:
-                    waves = np.concatenate(
-                        [waves, np.repeat(waves[:1],
-                                          t.batch_size - len(group), axis=0)])
+                waves = self._rows.batch(
+                    [(self._waves[rid], start) for rid, _, start in group],
+                    t.batch_size)
                 toks, lengths, _, _ = t._decode_batch(
                     waves, self._prompt, self._sup_len, opt,
                     temperature=self._temperature, sot_pos=self._n_cond)
@@ -542,7 +617,7 @@ class WindowPool:
             done.append((rid, t.tok.decode(tokens, skip_special=True),
                          tokens))
             self._order.remove(rid)
-            del self._n_windows[rid], self._undecoded[rid]
+            del self._n_windows[rid], self._undecoded[rid], self._waves[rid]
         return done
 
     def flush(self) -> List[Tuple[object, str, List[int]]]:

@@ -36,6 +36,7 @@ from ..config import HOP_LENGTH, SAMPLE_RATE
 from ..ops.audio import max_waveform_samples
 from ..utils.logging import get_logger
 from . import vad
+from .batch import _BatchRows, _samples
 from .segments import Segment, segments_from_tokens
 from .transcribe import DecodeOptions, Transcriber, compression_ratio
 
@@ -108,7 +109,7 @@ class StreamDecodeBatcher:
         self._ensure_started()
         ids = tuple(int(t) for t in prompt.tolist())
         item = {
-            "window": np.asarray(window, np.float32),
+            "window": _samples(window),
             "prompt": prompt, "opt": opt, "sup_len": int(sup_len),
             "max_ts_idx": int(max_ts_idx),
             "key": (len(ids), opt.strategy, opt.beam_size, opt.max_depth,
@@ -193,11 +194,9 @@ class StreamDecodeBatcher:
             while size < len(group):
                 size *= 2
             size = min(size, self.batch_size)
-        waves = np.stack([it["window"] for it in group])
-        if len(group) < size:
-            waves = np.concatenate(
-                [waves, np.repeat(waves[:1], size - len(group), axis=0)])
         with torch.inference_mode():
+            waves = _BatchRows(self.t.device, len(it0["window"])).batch(
+                [(it["window"], 0) for it in group], size)
             toks, lengths, _, _ = self.t._decode_batch(
                 waves, it0["prompt"], it0["sup_len"], it0["opt"],
                 timestamps=True, max_ts_idx=it0["max_ts_idx"])

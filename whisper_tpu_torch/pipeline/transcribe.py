@@ -379,22 +379,25 @@ class Transcriber:
             n_cond = len(cond)
         return torch.tensor(ids, dtype=torch.long, device=self.device), n_cond
 
-    def _window_mel(self, waves: np.ndarray, opt: DecodeOptions
-                    ) -> torch.Tensor:
-        """(B, n) windows -> log-mel with a per-window dynamic-range clamp
-        (a window's mel does not depend on its batch mates), clipped to
-        (encoder_ctx - padding) frames and zero-padded by `padding` frames
-        (transcribe.py:548-560, batch.py:114-122)."""
+    def _window_mel(self, waves, opt: DecodeOptions) -> torch.Tensor:
+        """(B, n) windows (numpy, or a tensor already on the device) ->
+        log-mel with a per-window dynamic-range clamp (a window's mel does
+        not depend on its batch mates), clipped to (encoder_ctx - padding)
+        frames and zero-padded by `padding` frames (transcribe.py:548-560,
+        batch.py:114-122)."""
         cfg = self.cfg
-        x = torch.from_numpy(np.ascontiguousarray(waves)).to(self.device)
+        if isinstance(waves, torch.Tensor):
+            x = waves.to(self.device)
+        else:
+            x = torch.from_numpy(np.ascontiguousarray(waves)).to(self.device)
         mel = prep_audio(x, per_sample_max=True, n_mels=cfg.n_mels)
         keep = min(mel.shape[2], cfg.encoder_ctx_size - opt.padding)
         return F.pad(mel[:, :, :keep], (0, opt.padding))
 
     @_meshed
-    def _encode_windows(self, waves: np.ndarray, opt: DecodeOptions
-                        ) -> torch.Tensor:
-        """(B, n) windows -> encoder output of `_window_mel`."""
+    def _encode_windows(self, waves, opt: DecodeOptions) -> torch.Tensor:
+        """(B, n) windows (numpy or a device tensor) -> encoder output of
+        `_window_mel`."""
         with scope("whisper.encode"):
             return encoder_forward(self.params, self._window_mel(waves, opt),
                                    self.cfg)
