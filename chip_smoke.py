@@ -186,7 +186,8 @@ graph replay runs the kernels without their wrappers). After phase 20,
 twice, capturing then replaying the S = 1 steps: both texts must equal
 the greedy slice's, the second call's steps must all be replays
 (`greedy_decode.graph_steps`), and its seconds are printed beside the
-eager slice's.
+eager slice's; the tied head must have taken its bf16 GEMM, whose device
+ms at B = 128 and B = 1 are printed beside the f32 product's.
 """
 
 from __future__ import annotations
@@ -1671,13 +1672,18 @@ def phase_waveform_to_text(tr, wave, greedy_text) -> dict:
 def phase_step_graphs(tr, wave, greedy_text, eager_s) -> dict:
     """The greedy slice's transcription with `STEP_GRAPHS.lock` released,
     twice: the first call captures the S = 1 steps' graphs, the second
-    replays them at every step. Both texts must be the greedy slice's."""
+    replays them at every step. Both texts must be the greedy slice's, and
+    the tied head must have taken the bf16 GEMM (`_logits.tensor_core_calls`
+    moved); its device ms at B = 128 and B = 1 are printed beside the f32
+    product's (`head_ms`)."""
     from whisper_tpu_torch.decode.greedy import greedy_decode
     from whisper_tpu_torch.decode.step_graphs import STEP_GRAPHS
+    from whisper_tpu_torch.models import whisper as M
     from whisper_tpu_torch.pipeline.transcribe import DecodeOptions
 
     opts = DecodeOptions(strategy="greedy", max_depth=100)
     runs = []
+    head_calls = M._logits.tensor_core_calls
     STEP_GRAPHS.lock.release()
     try:
         for run in ("capture", "replay"):
@@ -1707,7 +1713,35 @@ def phase_step_graphs(tr, wave, greedy_text, eager_s) -> dict:
         STEP_GRAPHS.clear()
     finally:
         STEP_GRAPHS.lock.acquire()
-    return dict(runs=runs, eager_seconds=eager_s)
+    head_calls = M._logits.tensor_core_calls - head_calls
+    if not head_calls:
+        raise AssertionError("the step graphs' calls never took the tied "
+                             "head's bf16 GEMM")
+    emb = tr.params["decoder"]["tok_emb"]
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    heads = {"model": emb, "turbo": _randn((51866, emb.shape[1]), gen)}
+    head_ms = {name: _head_ms(e) for name, e in heads.items()}
+    del heads
+    return dict(runs=runs, eager_seconds=eager_s,
+                head_tensor_core_calls=head_calls, head_ms=head_ms)
+
+
+def _head_ms(emb) -> dict:
+    """Device ms of one tied-head call over the embedding `emb` at B = 128
+    and B = 1: the card's route (`_logits`, a bf16 GEMM with an f32
+    output) and the f32 product of the operands it replaced."""
+    from whisper_tpu_torch.models import whisper as M
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    out = {}
+    for b in (128, 1):
+        x = _randn((b, 1, emb.shape[1]), gen)
+        out[f"b{b}"] = dict(
+            ms=time_ms(lambda: M._logits(x, {"tok_emb": emb})),
+            f32_ms=time_ms(lambda: torch.matmul(x.float(), emb.float().t())))
+        log(f"tied head, V {emb.shape[0]}, B {b}: {out[f'b{b}']['ms']:.4f} "
+            f"ms (f32 product {out[f'b{b}']['f32_ms']:.4f} ms)")
+    return out
 
 
 # ----------------------------------------------------------------------

@@ -1675,6 +1675,36 @@ def test_tp_ranks_on_one_card_match_the_meshless_kernel_path(gen, tmp_path):
     assert outs[0]["tokens"] == outs[1]["tokens"]
 
 
+@pytest.mark.parametrize("v", [51866, 51865])
+@pytest.mark.parametrize("b", [1, 5, 128])
+def test_tied_head_is_one_bf16_gemm_with_f32_logits(gen, b, v):
+    """The tied head on bf16 operands on the card (turbo's and large-v2's
+    vocabularies, d 1280, N(0, 1) values): f32 logits within 1e-3 of the
+    f32 product, the same argmax on every row whose two best logits lie
+    more than 1e-3 apart, and no f32 copy of the embedding (the call's
+    peak rises by less than its V x d x 4 bytes)."""
+    d = 1280
+    x, emb = _randn((b, 1, d), gen), _randn((v, d), gen)
+    dec = {"tok_emb": emb}
+    want = torch.matmul(x.float(), emb.float().t())
+    M._logits(x, dec)  # cuBLAS's handle and workspace, outside the peak
+    torch.cuda.synchronize()
+    before = M._logits.tensor_core_calls, M._logits.f32_calls
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got = M._logits(x, dec)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - base < v * d * 4
+    assert (M._logits.tensor_core_calls, M._logits.f32_calls) == (
+        before[0] + 1, before[1])
+    assert got.dtype == torch.float32 and got.shape == (b, 1, v)
+    assert float((got - want).abs().max()) <= 1e-3
+    top = want[:, 0].topk(2, dim=-1).values
+    clear = (top[:, 0] - top[:, 1]) > 1e-3
+    assert torch.equal(got[:, 0].argmax(-1)[clear],
+                       want[:, 0].argmax(-1)[clear])
+
+
 def test_profiler_records_cuda_events_after_the_cli_tests(gen):
     """In this process, after the CLI tests above, the process's first
     profiling sessions: two that run one PyTorch op, then two that run one

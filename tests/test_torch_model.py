@@ -188,3 +188,24 @@ def test_beam_lanes_share_one_cross_cache(setup, attention):
             tp, torch.from_numpy(toks[:, i:i + n]), i, cache, cfg)
         np.testing.assert_allclose(logits.numpy(), want[j], atol=LOGIT_ATOL,
                                    rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("grad", [False, True])
+def test_logits_keep_the_f32_product_off_the_card(dtype, grad):
+    """On the CPU, and wherever autograd records, the tied head is the f32
+    product of the operands bit for bit, counted by `_logits.f32_calls`
+    alone; the bf16 GEMM with an f32 output is the card's route."""
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn((2, 3, 64), generator=gen).to(dtype)
+    emb = torch.randn((77, 64), generator=gen).to(dtype)
+    emb.requires_grad_(grad)
+    before = (TM._logits.tensor_core_calls, TM._logits.f32_calls)
+    with torch.set_grad_enabled(grad):
+        got = TM._logits(x, {"tok_emb": emb})
+    want = torch.matmul(x.float(), emb.detach().float().t())
+    assert got.dtype == torch.float32 and got.shape == (2, 3, 77)
+    assert torch.equal(got.detach(), want)
+    assert got.requires_grad == grad
+    assert (TM._logits.tensor_core_calls, TM._logits.f32_calls) == (
+        before[0], before[1] + 1)

@@ -76,6 +76,26 @@ def layer_norm(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
     return F.layer_norm(x, (x.shape[-1],), g, b, eps)
 
 
+def _on_tensor_cores(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether `_mm_f32(a, b)` takes the card's bf16 GEMM: both operands
+    bf16 on the card and no gradient recorded through them."""
+    return (a.is_cuda and a.dtype == b.dtype == torch.bfloat16
+            and not (torch.is_grad_enabled()
+                     and (a.requires_grad or b.requires_grad)))
+
+
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a (m, k) @ b (k, n) -> f32, as JAX's `preferred_element_type=f32`
+    dot: the products of bf16 operands are exact in f32, the sums run in
+    f32. On the card (`_on_tensor_cores`) one bf16 GEMM with an f32 output
+    (`torch.mm(..., out_dtype=torch.float32)`); elsewhere (the CPU, f32
+    operands, autograd) the f32 product of the operands. The two differ
+    only in the order of the f32 sums."""
+    if _on_tensor_cores(a, b):
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return torch.mm(a.float(), b.float())
+
+
 def _matmul(x: torch.Tensor, w, int8_impl: str = "xla") -> torch.Tensor:
     """x (..., d) @ w (d, ...), f32 accumulation, result in x's dtype.
 
@@ -99,10 +119,8 @@ def _matmul(x: torch.Tensor, w, int8_impl: str = "xla") -> torch.Tensor:
         128, JAX's own rule): x @ q (int4 unpacked first; the integers are
         exact in bf16) with the product kept in f32, as JAX's
         `preferred_element_type=f32` keeps it, times the per-channel scale
-        in f32, cast once to x's dtype. On the card a bf16 x takes the
-        f32-output bf16 GEMM (`torch.mm(..., out_dtype=torch.float32)`);
-        elsewhere the f32 product of the operands (bf16 x bf16 products
-        are exact in f32)."""
+        in f32, cast once to x's dtype (`_mm_f32`, over the integers in
+        x's dtype)."""
     if isinstance(w, QTensor):
         k = w.q.shape[0]
         n = w.scale.numel()  # out channels (int4 q packs two per byte)
@@ -117,11 +135,7 @@ def _matmul(x: torch.Tensor, w, int8_impl: str = "xla") -> torch.Tensor:
                         or (int8_impl == "auto" and m >= 4096)):
             return _w8a8(x, w)
         q = int_values(w.q)
-        x2, q2 = x.reshape(-1, k), q.reshape(k, -1)
-        if x.is_cuda and x.dtype == torch.bfloat16:
-            y = torch.mm(x2, q2.to(x.dtype), out_dtype=torch.float32)
-        else:
-            y = torch.mm(x2.float(), q2.float())
+        y = _mm_f32(x.reshape(-1, k), q.reshape(k, -1).to(x.dtype))
         y = y.reshape(*x.shape[:-1], *q.shape[1:])
         return (y * w.scale).to(x.dtype)
     y = torch.matmul(x, w.reshape(w.shape[0], -1))
@@ -164,11 +178,7 @@ def _row_linear(x: torch.Tensor, w, b: torch.Tensor,
     to x's dtype, then the replicated bias, added once."""
     if pctx.tp_size() == 1:
         return _linear(x, w, b, int8_impl)
-    x2 = x.reshape(-1, x.shape[-1])
-    if x.is_cuda and x.dtype == torch.bfloat16:
-        y = torch.mm(x2, w, out_dtype=torch.float32)
-    else:
-        y = torch.mm(x2.float(), w.float())
+    y = _mm_f32(x.reshape(-1, x.shape[-1]), w)
     y = pctx.reduce_from_tp(y).to(x.dtype)
     return y.reshape(*x.shape[:-1], w.shape[-1]) + b
 
@@ -354,8 +364,21 @@ def _decoder_block(x, p: Layer, xa, mask, n_head: int, eps: float,
 
 
 def _logits(x, dec) -> torch.Tensor:
-    """Tied output head, f32 logits (src/model/mod.rs:156)."""
-    return torch.matmul(x.float(), dec["tok_emb"].float().t())
+    """Tied output head, f32 logits (src/model/mod.rs:156) as JAX computes
+    them (whisper.py:479-481), through `_mm_f32`: on the card one bf16
+    GEMM, counted by `_logits.tensor_core_calls`, elsewhere the f32
+    product, by `_logits.f32_calls`."""
+    emb = dec["tok_emb"]
+    if _on_tensor_cores(x, emb):
+        _logits.tensor_core_calls += 1
+    else:
+        _logits.f32_calls += 1
+    y = _mm_f32(x.reshape(-1, x.shape[-1]), emb.t())
+    return y.reshape(*x.shape[:-1], emb.shape[0])
+
+
+_logits.tensor_core_calls = 0
+_logits.f32_calls = 0
 
 
 def decoder_forward(params: ParamTree, tokens: torch.Tensor,
