@@ -1558,8 +1558,8 @@ def phase_words(params, tr, wave) -> dict:
     then one window's cross-attention weights from the kernel path's
     encoder output against the plain path's."""
     from whisper_tpu_torch.align import cross_attention_weights
-    from whisper_tpu_torch.ops import audio
-    from whisper_tpu_torch.pipeline.transcribe import DecodeOptions
+    from whisper_tpu_torch.pipeline.transcribe import (DecodeOptions,
+                                                       window_samples)
 
     sr = 16000
     opts = DecodeOptions(strategy="greedy")
@@ -1593,8 +1593,7 @@ def phase_words(params, tr, wave) -> dict:
     # _attach_words aligns the segments whose start sample clamps to the
     # same window together, and hands the words out in token order: a word
     # that runs on into the next segment's tokens is the earlier one's
-    n_window = audio.max_waveform_samples(tr.cfg.encoder_ctx_size
-                                          - opts.padding)
+    n_window = window_samples(tr.cfg, opts)
     surplus = {}  # window start -> word tokens handed out - text tokens
     for seg in segs:
         w0 = min(int(seg.start * sr), max(0, len(wave) - n_window))
@@ -1803,7 +1802,7 @@ def _first_divergence(tr, spec_tr, wave, opts) -> None:
 
     prompt, _ = tr._build_prompt(opts)
     sup = opts.suppress_until_len
-    for i, _, _, window in tr._windows(wave, 16000, opts):
+    for i, _, _, window, _ in tr._windows(wave, 16000, opts):
         with torch.inference_mode():
             plain = tr._decode(window, prompt, sup, opts)[0]
             spec = spec_tr._decode(window, prompt, sup, opts)[0]
@@ -2761,14 +2760,11 @@ def run_slice(tr, wave, opts, label: str) -> dict:
     """Cold and warm `Transcriber.transcribe` runs; the launch counts of
     each kernel are set to 0 just before the cold run and read just after
     it."""
-    from whisper_tpu_torch.ops import audio
-    from whisper_tpu_torch.pipeline.transcribe import window_waveform
+    from whisper_tpu_torch.pipeline.transcribe import plan_windows
 
     sr = 16000
     cfg = tr.cfg
-    n_window = audio.max_waveform_samples(cfg.encoder_ctx_size - opts.padding)
-    bounds = list(window_waveform(wave, sr, n_window,
-                                  int(sr * opts.chunk_overlap_seconds)))
+    bounds = [(w.start, w.end) for w in plan_windows(wave, sr, cfg, opts)]
     n_layer = cfg.text_decoder_config.n_text_layer
     runs = []
     for run in ("cold", "warm"):
@@ -3059,12 +3055,10 @@ def run_many_slice(bt, waves, opts, label: str) -> dict:
 
 def _full_windows(waves, cfg, opts) -> list:
     """The full-length windows of the streams, in the pipeline's order."""
-    from whisper_tpu_torch.ops import audio
-    from whisper_tpu_torch.pipeline.transcribe import window_waveform
+    from whisper_tpu_torch.pipeline.transcribe import plan_windows
 
-    n = audio.max_waveform_samples(cfg.encoder_ctx_size - opts.padding)
-    return [w[a:b] for w in waves for a, b in window_waveform(
-        w, 16000, n, int(16000 * opts.chunk_overlap_seconds)) if b - a == n]
+    return [w.samples for wave in waves
+            for w in plan_windows(wave, 16000, cfg, opts) if w.kind == "full"]
 
 
 def phase_batched_greedy(tr, waves, greedy_text) -> dict:
@@ -3172,7 +3166,8 @@ def phase_int4_agreement(params, tr, wave) -> dict:
     from whisper_tpu_torch.config import KernelKnobs
     from whisper_tpu_torch.eval.agreement import decode_agreement
     from whisper_tpu_torch.ops import audio
-    from whisper_tpu_torch.pipeline.transcribe import DecodeOptions
+    from whisper_tpu_torch.pipeline.transcribe import (DecodeOptions,
+                                                       window_samples)
     from whisper_tpu_torch.quantize import quantize_params
 
     cfg = dataclasses.replace(tr.cfg, knobs=KernelKnobs(int8_impl="pallas"))
@@ -3206,8 +3201,7 @@ def phase_int4_agreement(params, tr, wave) -> dict:
         raise AssertionError(f"int4 agreement: logit delta "
                              f"{report['max_logit_delta_rel']}")
     opts = DecodeOptions(kv_quant="int4", self_quant="int4")
-    n_window = audio.max_waveform_samples(cfg.encoder_ctx_size - opts.padding)
-    window = wave[:n_window]
+    window = wave[:window_samples(cfg, opts)]
     paths = compare_kernel_and_plain_paths(
         qparams, cfg, tok, window, opts, shared_encoder=True,
         label="int4 greedy window (shared encoder output)")
@@ -3528,7 +3522,7 @@ def _window_divergence(tr, tr0, wave, opts):
     texts then differ in their stitching only)."""
     prompt, n_cond = tr._build_prompt(opts)
     sup = opts.suppress_until_len + n_cond
-    for i, _, _, window in tr._windows(wave, 16000, opts):
+    for i, _, _, window, _ in tr._windows(wave, 16000, opts):
         with torch.inference_mode():
             want = tr0._decode(window, prompt, sup, opts)[0]
             got = tr._decode(window, prompt, sup, opts)[0]

@@ -20,7 +20,7 @@ from whisper_tpu_torch.ops.audio import max_waveform_samples
 from whisper_tpu_torch.params import init_params
 from whisper_tpu_torch.pipeline import batch as TB
 from whisper_tpu_torch.pipeline.transcribe import (DecodeOptions,
-                                                   window_waveform)
+                                                   plan_windows)
 from whisper_tpu_torch.text.tokenizer import (WhisperTokenizer,
                                               build_test_tokenizer_json)
 from whisper_tpu_torch.utils import profiling
@@ -73,13 +73,11 @@ def _options(strategy):
                          chunk_overlap_seconds=0.0)
 
 
-def _windows(waves):
+def _windows(cfg, waves):
     """(full windows, tails) as `_decode_windows` splits the streams."""
-    n = max_waveform_samples(ENC_CTX - 10)
-    sizes = [e - s for w in waves
-             for s, e in window_waveform(w, 16000, n, 0)]
-    return (sum(x == n for x in sizes),
-            sum(400 <= x < n for x in sizes))
+    kinds = [w.kind for wave in waves
+             for w in plan_windows(wave, 16000, cfg, _options("greedy"))]
+    return kinds.count("full"), kinds.count("tail")
 
 
 def _spans(prof):
@@ -121,7 +119,7 @@ def test_scope_makes_no_record_function_without_a_profiler(monkeypatch):
 @pytest.mark.parametrize("strategy", ["greedy", "beam"])
 def test_transcribe_many_span_tree(transcriber, strategy):
     waves = _streams()
-    full, tails = _windows(waves)
+    full, tails = _windows(transcriber.cfg, waves)
     assert full == 3 and tails == 2  # the second batch is padded
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU]) as prof:

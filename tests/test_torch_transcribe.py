@@ -303,8 +303,9 @@ def test_masked_log_softmax_matches_jax(seq_len):
     mask = np.where(rng.random(30) < 0.2, -np.inf, 0.0).astype(np.float32)
     want = np.asarray(jbeam._masked_log_softmax(
         jnp.asarray(logits), jnp.int32(seq_len), jnp.asarray(mask), 5))
-    got = tgreedy._masked_log_softmax(torch.from_numpy(logits), seq_len,
-                                      torch.from_numpy(mask), 5).numpy()
+    logp_fn = tgreedy.make_logp_fn(0, 0, torch.from_numpy(mask), 5, None, 50,
+                                   None)
+    got = logp_fn(torch.from_numpy(logits), None, seq_len).numpy()
     np.testing.assert_allclose(got, want, atol=1e-6)
 
 
@@ -319,6 +320,78 @@ def test_stitching_and_windowing_match_jax():
     for win, ov in ((30_000, 5_000), (13_919, 2_400), (50, 80)):
         assert (list(TT.window_waveform(w, 16000, win, ov))
                 == list(JT.window_waveform(w, 16000, win, ov)))
+
+
+@pytest.mark.parametrize("n_samples,overlap_s,vad,kinds", [
+    # shift 11519: the third window holds 300 samples
+    pytest.param(23338, OVERLAP_S, False, ["full", "tail", "short"],
+                 id="short-tail"),
+    # 1 s >= the 13919-sample window: clamped to 6959
+    pytest.param(27838, 1.0, False, ["full", "full", "tail", "tail"],
+                 id="overlap-clamp"),
+    pytest.param(3 * 13919, 0.0, True, ["full", "silent", "full"],
+                 id="vad-silent-middle"),
+    pytest.param(13919, 0.0, False, ["full"], id="one-window"),
+])
+def test_window_plan(setup, monkeypatch, caplog, n_samples, overlap_s, vad,
+                     kinds):
+    """`plan_windows` against `window_waveform` with the rule written out
+    (the overlap clamped to half a window, a window under n_fft = 400
+    samples skipped, then a silent one under VAD, the rest full or tail),
+    its samples views of the stream; and `_decode_windows` and
+    `WindowPool.add` decode the same windows as full and as tails."""
+    from whisper_tpu_torch.pipeline import batch as TB
+    from whisper_tpu_torch.pipeline import vad as tvad
+
+    params, cfg, tok, _ = setup
+    opt = TT.DecodeOptions(strategy="greedy", chunk_overlap_seconds=overlap_s,
+                           vad=vad)
+    wave = _audio(n_samples, seed=5)
+    if vad:
+        wave[n_samples // 3:2 * n_samples // 3] = 0.0
+    n = max_waveform_samples(ENC_CTX - 10)
+    overlap = int(16000 * overlap_s)
+    overlap = n // 2 if overlap >= n else overlap
+    want = []
+    for i, (a, b) in enumerate(TT.window_waveform(wave, 16000, n, overlap)):
+        if b - a < 400:
+            kind = "short"
+        elif vad and tvad.is_silent(wave[a:b], 16000, opt.vad_threshold_db,
+                                    opt.vad_min_speech_seconds):
+            kind = "silent"
+        else:
+            kind = "full" if b - a == n else "tail"
+        want.append((i, a, b, kind))
+    assert [k for *_, k in want] == kinds  # each case is what it says
+
+    caplog.clear()
+    plan = list(TT.plan_windows(wave, 16000, cfg, opt))
+    assert [(w.i, w.start, w.end, w.kind) for w in plan] == want
+    assert all(w.samples.base is wave for w in plan)  # views, not copies
+    assert sum("clamping" in r.getMessage() for r in caplog.records) == (
+        overlap_s == 1.0)
+    full = [w.i for w in plan if w.kind == "full"]
+    tails = [w.i for w in plan if w.kind == "tail"]
+
+    bt = TB.BatchTranscriber(params, cfg, tok, batch_size=2, device="cpu")
+    pool = TB.WindowPool(bt, opt)
+    pool.add("r", wave)
+    assert [w for _, w, _ in pool._queue] == full
+    assert [w for w, _ in pool._tails["r"]] == tails
+    assert pool._n_windows["r"] == len(want)
+
+    def batch(waves, *args, **kwargs):  # every full window decodes to [1]
+        rows = len(waves)
+        return (np.ones((rows, 1), np.int64), np.ones(rows, np.int64),
+                np.zeros(rows, np.float32), np.full(rows, -1.0, np.float32))
+
+    monkeypatch.setattr(bt, "_decode_batch", batch)
+    monkeypatch.setattr(bt, "_decode", lambda *a, **k: ([2], 0.0, -1.0))
+    results, _, bounds, n_windows = bt._decode_windows([wave], 16000, opt)
+    assert sorted(w for (_, w), r in results.items() if r == [1]) == full
+    assert sorted(w for (_, w), r in results.items() if r == [2]) == tails
+    assert n_windows == [len(want)]
+    assert bounds == {(0, i): (a, b) for i, a, b, _ in want}
 
 
 def test_condition_on_previous_text_matches_jax(setup):
@@ -343,15 +416,16 @@ def test_condition_on_previous_text_matches_jax(setup):
                  id="change2"),
 ])
 def test_unported_options_raise(setup, change, ported):
-    """An option the port lacks raises NotImplementedError naming its
-    ROADMAP item; a ported one (the int4 self cache, with or without the
-    int4 cross cache) transcribes as the JAX Transcriber does."""
+    """A strategy other than "beam" or "greedy" raises ValueError (JAX
+    decodes it greedily: a documented difference); a ported option (the
+    int4 self cache, with or without the int4 cross cache) transcribes as
+    the JAX Transcriber does."""
     params, cfg, tok, _ = setup
     opts = {"strategy": "greedy", "max_depth": 8, **change}
     t = TT.Transcriber(params, cfg, tok, device="cpu")
     wave = _audio(8000, 0)
     if not ported:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(ValueError, match='"beam" or "greedy"'):
             t.transcribe(wave, options=TT.DecodeOptions(**opts))
         return
     want = JT.Transcriber(params, cfg, tok, attention="xla",

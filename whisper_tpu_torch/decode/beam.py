@@ -1,24 +1,26 @@
-"""Beam search with a KV cache, in PyTorch: over one window
-(`beam_search`) and over W windows at once (`beam_search_batched`).
+"""Beam search with a KV cache, in PyTorch: one loop over W windows of K
+lanes each (`beam_search_batched`); `beam_search` is its W = 1 case.
 
-Counterpart of `whisper_tpu/decode/beam.py::beam_search` (reference:
-whisper-burn `src/beam.rs` as driven by `src/transcribe.rs:148-383`), with
-the same semantics:
+Counterpart of `whisper_tpu/decode/beam.py::beam_search` and
+`beam_search_batched` (reference: whisper-burn `src/beam.rs` as driven by
+`src/transcribe.rs:148-383`), with the same semantics per window:
 
   * scores are raw summed log-probs, no length normalisation;
-  * each step takes a global top-K over the (K x V) candidates of the
-    active beams;
+  * each step takes the top-K over the (K x V) candidates of the window's
+    active beams, found exactly as the top-K over the (K x K) proposals
+    of each lane's own top-K;
   * a beam whose last token is EOT is finished: it is frozen into a
     separate top-K finished pool;
-  * the search stops when the best finished beam is at least as good as
-    the best active one (ties prefer the finished beam), after
-    `max_depth` steps, or at the context length;
+  * a window stops when its best finished beam is at least as good as its
+    best active one (ties prefer the finished beam); the loop ends when
+    every window has stopped, after `max_depth` steps, or at the context
+    length;
   * the suppression window, timestamp rules and logits hook of
-    `greedy.py` shape each step's distribution.
+    `greedy.py::make_masked_logits_fn` shape each step's distribution.
 
 The JAX search is one `lax.while_loop` on the device; here the loop runs
 on the host over eager steps and reads one flag back per step (the stop
-rule). The cross cache stays at one copy for the window (bf16, or int8 /
+rule). The cross cache stays at one copy per window (bf16, or int8 /
 int4 with `kv_quant`), which the decode step reads through the grouped
 kernel (K3g). The self-KV reshuffle by the new beams' parents takes one of
 two routes, as in JAX:
@@ -49,7 +51,7 @@ from ..models import whisper as M
 from ..ops.kernels.permute import permute_lanes_arrays
 from ..quantize import QTensor
 from ..utils.profiling import scope
-from .greedy import apply_timestamp_rules, make_logp_fn
+from .greedy import make_masked_logits_fn
 
 NEG_INF = float("-inf")
 
@@ -185,13 +187,6 @@ def _spare(t):
     return torch.zeros_like(t)
 
 
-def _best_scores(logp, valid, eot, fin_logp):
-    """(best finished score, best active score) for the stop rule."""
-    fin_like = torch.where(valid & eot, logp, NEG_INF)
-    best_fin = torch.maximum(fin_like.max(), fin_logp.max())
-    return best_fin, torch.where(valid & ~eot, logp, NEG_INF).max()
-
-
 def beam_search(
     params,
     enc_out: torch.Tensor,  # (1, Sa, d)
@@ -211,121 +206,21 @@ def beam_search(
     fuse_reshuffle: Optional[bool] = None,
     logits_hook: Optional[Callable] = None,
 ) -> Tuple[torch.Tensor, ...]:
-    """Returns (tokens (n_text_ctx,) int64, length, log_prob) as 0-d
-    tensors, plus p(<|nospeech|>) at the SOT position when `nospeech_id`
-    is given. The sequence includes the prompt. `kv_quant` / `self_quant`
-    pick the cache types (`models/whisper.py::init_cache`);
-    `fuse_reshuffle=False` keeps a quantized self cache off the fused kernel
-    (module doc)."""
-    k = beam_size
-    dec_cfg = cfg.text_decoder_config
-    v, ctx = dec_cfg.n_vocab, dec_cfg.n_text_ctx
-    device = enc_out.device
-    prompt = prompt.to(device=device, dtype=torch.long)
-    p = prompt.shape[0]
-    logp_fn = make_logp_fn(p, eot_id, suppress_mask, suppress_until_len,
-                           ts_begin, max_initial_ts_idx, logits_hook)
+    """Beam search over one window, JAX's `beam_search`: returns (tokens
+    (n_text_ctx,) int64, length, log_prob) as 0-d tensors, plus
+    p(<|nospeech|>) at the SOT position when `nospeech_id` is given. The
+    sequence includes the prompt. `kv_quant` / `self_quant` pick the cache
+    types (`models/whisper.py::init_cache`); `fuse_reshuffle=False` keeps a
+    quantized self cache off the fused kernel (module doc).
 
-    # prefill: all K lanes carry the prompt; only lane 0 is live
-    cur_tokens = torch.zeros((k, ctx), dtype=torch.long, device=device)
-    cur_tokens[:, :p] = prompt
-    cache_len = min(ctx, -(-(p + max_depth) // 128) * 128)
-
-    def go_on(depth: int) -> bool:  # the JAX loop's cond; one host sync
-        if depth >= max_depth or cur_len >= ctx:
-            return False
-        best_fin, best_active = _best_scores(cur_logp, cur_valid, cur_eot,
-                                             fin_logp)
-        with scope("whisper.decode.sync"):
-            return bool(best_fin < best_active)
-
-    with scope("whisper.decode.prefill"):
-        cache = M.init_cache(params, enc_out, cfg, batch=k,
-                             cache_len=cache_len, kv_quant=kv_quant,
-                             self_quant=self_quant)
-        fused = _fuse_reshuffle(cache.self_k, cfg, fuse_reshuffle)
-        if not fused:
-            spare_k, spare_v = _spare(cache.self_k), _spare(cache.self_v)
-        logits, cache = M.decoder_step(params, cur_tokens[:, :p], 0, cache,
-                                       cfg)
-        ns_prob = None
-        if nospeech_id is not None:
-            ns_prob = torch.softmax(logits[0, sot_pos].float(),
-                                    -1)[nospeech_id]
-        logp_next = logp_fn(logits[:, -1], cur_tokens, p)
-
-        lane = torch.arange(k, device=device)
-        phys = lane.clone()  # slot of each logical lane's slab (COW)
-        cur_len = p
-        cur_logp = torch.where(lane == 0, 0.0, NEG_INF)
-        cur_valid = lane == 0
-        cur_eot = torch.zeros(k, dtype=torch.bool, device=device)
-        fin_tokens = torch.zeros((k, ctx), dtype=torch.long, device=device)
-        fin_len = torch.zeros(k, dtype=torch.long, device=device)
-        fin_logp = torch.full((k,), NEG_INF, device=device)
-        depth = 0
-        go = go_on(depth)
-    while go:
-        with scope("whisper.decode.step"):
-            # (a) fold EOT-ended beams into the finished pool
-            cand_fin = torch.cat([fin_logp, torch.where(cur_valid & cur_eot,
-                                                        cur_logp, NEG_INF)])
-            fin_logp, fin_idx = top_k_stable(cand_fin, k)
-            fin_tokens = torch.cat([fin_tokens, cur_tokens])[fin_idx]
-            fin_len = torch.cat([fin_len, torch.full_like(fin_len, cur_len)])[
-                fin_idx]
-            # (b) expand the active beams: global top-K over (K x V)
-            active = cur_valid & ~cur_eot
-            cand = torch.where(active[:, None], cur_logp[:, None] + logp_next,
-                               NEG_INF)
-            new_logp, flat = top_k_stable(cand.reshape(-1), k)
-            parent, tok = flat // v, flat % v
-            cur_tokens = cur_tokens[parent]
-            cur_tokens[:, cur_len] = tok
-            cur_logp = new_logp
-            cur_valid = new_logp > NEG_INF
-            cur_eot = (tok == eot_id) & cur_valid
-            pos, cur_len, depth = cur_len, cur_len + 1, depth + 1
-            # the JAX loop runs one more decoder step whose output it never
-            # reads; the host loop checks the stop rule first
-            go = go_on(depth)
-            if go and fused:  # (c) fused reshuffle + append + logits, COW
-                src, dest = _cow_assign(parent[None], phys[None])
-                logits, cache = M.decoder_step(
-                    params, tok[:, None], pos, cache, cfg, parents=src[0],
-                    dests=dest[0])
-                phys = dest[0]
-            elif go:  # (c) reshuffle into the spare pair, swap, append
-                new_k, new_v = _cache_gather(cache.self_k, cache.self_v,
-                                             parent.to(torch.int32), spare_k,
-                                             spare_v, valid_len=pos)
-                spare_k, spare_v = cache.self_k, cache.self_v
-                cache = M.DecoderCache(new_k, new_v, cache.cross_k,
-                                       cache.cross_v)
-                logits, cache = M.decoder_step(params, tok[:, None], pos,
-                                               cache, cfg)
-            if go:
-                logp_next = logp_fn(logits[:, -1], cur_tokens, cur_len)
-
-    # result: the best beam overall; ties prefer a finished one
-    fin_like = torch.where(cur_valid & cur_eot, cur_logp, NEG_INF)
-    best_cur = torch.argmax(fin_like)
-    best_pool = torch.argmax(fin_logp)
-    use_pool = fin_logp[best_pool] >= fin_like[best_cur]
-    best_fin_logp = torch.where(use_pool, fin_logp[best_pool],
-                                fin_like[best_cur])
-    best_fin_tokens = torch.where(use_pool, fin_tokens[best_pool],
-                                  cur_tokens[best_cur])
-    best_fin_len = torch.where(use_pool, fin_len[best_pool], cur_len)
-    active_logp = torch.where(cur_valid & ~cur_eot, cur_logp, NEG_INF)
-    best_active = torch.argmax(active_logp)
-    take_fin = best_fin_logp >= active_logp[best_active]
-    tokens = torch.where(take_fin, best_fin_tokens, cur_tokens[best_active])
-    length = torch.where(take_fin, best_fin_len, cur_len)
-    logp = torch.where(take_fin, best_fin_logp, active_logp[best_active])
-    if ns_prob is not None:
-        return tokens, length, logp, ns_prob
-    return tokens, length, logp
+    It runs `beam_search_batched` at W = 1: the same tokens and length as
+    JAX's global top-K over (K x V); log_prob sums each step's x - lse
+    where JAX sums a log-softmax, so it may differ in the last bits."""
+    out = beam_search_batched(
+        params, enc_out, prompt, cfg, eot_id, suppress_mask, beam_size,
+        max_depth, suppress_until_len, kv_quant, self_quant, nospeech_id,
+        sot_pos, fuse_reshuffle, ts_begin, max_initial_ts_idx, logits_hook)
+    return tuple(x[0] for x in out)
 
 
 def _window_stopped(logp, valid, eot, fin_logp) -> torch.Tensor:
@@ -371,8 +266,9 @@ def beam_search_batched(
     masking its result-bearing state; the batch runs until every window
     has stopped, `max_depth` steps, or the context length. The cross cache
     holds one copy per window (lane i reads window i // K); the self cache
-    reshuffles as in `beam_search` (K5 with copy-on-write slots over a
-    quantized self cache on the flash config, else K4 into a spare pair).
+    reshuffles by one of the module doc's routes (K5 with copy-on-write
+    slots over a quantized self cache on the flash config, else K4 into a
+    spare pair).
     One host sync per step reads the stop rule; the decoder step whose
     output JAX computes and never reads after the last expansion is
     skipped.
@@ -388,18 +284,14 @@ def beam_search_batched(
     w = enc_out.shape[0]
     b = w * k
 
+    masked = make_masked_logits_fn(p, eot_id, suppress_mask,
+                                   suppress_until_len, ts_begin,
+                                   max_initial_ts_idx, logits_hook)
+
     def proposals(logits, tokens_flat, seq_len: int):
         """Masked (B, V) logits -> each lane's top-K (normalized log-prob,
         token id), (W, K, K) each (beam.py:704)."""
-        x = logits.float()
-        if suppress_mask is not None and seq_len <= suppress_until_len:
-            x = x + suppress_mask
-        if ts_begin is not None:
-            x = apply_timestamp_rules(x, tokens_flat, seq_len, p, ts_begin,
-                                      eot_id, max_initial_ts_idx)
-        if logits_hook is not None:
-            x = logits_hook(x, tokens_flat, seq_len)
-        vals, idx, lse = _topk_lse(x, k)
+        vals, idx, lse = _topk_lse(masked(logits, tokens_flat, seq_len), k)
         return (vals - lse[:, None]).reshape(w, k, k), idx.reshape(w, k, k)
 
     tokens0 = torch.zeros((b, ctx), dtype=torch.long, device=device)

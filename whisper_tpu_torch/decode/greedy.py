@@ -38,17 +38,6 @@ from .step_graphs import STEP_GRAPHS, StepGraphs, StepState
 NEG_INF = float("-inf")
 
 
-def _masked_log_softmax(logits: torch.Tensor, seq_len: int,
-                        suppress_mask: Optional[torch.Tensor],
-                        suppress_until_len: int) -> torch.Tensor:
-    """Special-token maskout while seq_len <= suppress_until_len, then an
-    f32 log-softmax (src/transcribe.rs:271-276)."""
-    x = logits.float()
-    if suppress_mask is not None and seq_len <= suppress_until_len:
-        x = x + suppress_mask
-    return torch.log_softmax(x, dim=-1)
-
-
 def sample_tokens(logp: torch.Tensor, temperature: float,
                   generator: torch.Generator) -> torch.Tensor:
     """One token per row drawn from softmax(logp / temperature), (B, V) ->
@@ -115,15 +104,18 @@ def apply_timestamp_rules(logits: torch.Tensor, tokens: torch.Tensor,
     return logits.masked_fill(force_ts[:, None] & ~is_ts, NEG_INF)
 
 
-def make_logp_fn(prompt_len: int, eot_id: int,
-                 suppress_mask: Optional[torch.Tensor],
-                 suppress_until_len: int, ts_begin: Optional[int],
-                 max_initial_ts_idx: int, logits_hook: Optional[Callable]):
-    """The token-selection distribution `(logits (B, V), tokens (B, ctx),
-    seq_len) -> logp (B, V)`: suppression window, timestamp rules, the
-    custom hook (after both, before the log-softmax), f32 log-softmax."""
+def make_masked_logits_fn(prompt_len: int, eot_id: int,
+                          suppress_mask: Optional[torch.Tensor],
+                          suppress_until_len: int, ts_begin: Optional[int],
+                          max_initial_ts_idx: int,
+                          logits_hook: Optional[Callable]):
+    """The token-selection rule `(logits (B, V), tokens (B, ctx), seq_len)
+    -> f32 logits (B, V)`: the suppression window (src/transcribe.rs:
+    271-276), then the timestamp rules, then the custom hook. Greedy and
+    speculative decoding take its log-softmax (`make_logp_fn`); beam
+    search its per-lane top-K and logsumexp (`decode/beam.py`)."""
 
-    def _logp(logits, tokens, seq_len: int, out=None):
+    def _masked(logits, tokens, seq_len: int):
         x = logits.float()
         if suppress_mask is not None and seq_len <= suppress_until_len:
             x = x + suppress_mask
@@ -132,7 +124,19 @@ def make_logp_fn(prompt_len: int, eot_id: int,
                                       ts_begin, eot_id, max_initial_ts_idx)
         if logits_hook is not None:
             x = logits_hook(x, tokens, seq_len)
-        return torch.log_softmax(x, dim=-1, out=out)
+        return x
+
+    return _masked
+
+
+def make_logp_fn(*args):
+    """The token-selection distribution `(logits, tokens, seq_len, out=None)
+    -> logp (B, V)`: the f32 log-softmax of `make_masked_logits_fn(*args)`."""
+    masked = make_masked_logits_fn(*args)
+
+    def _logp(logits, tokens, seq_len: int, out=None):
+        return torch.log_softmax(masked(logits, tokens, seq_len), dim=-1,
+                                 out=out)
 
     return _logp
 

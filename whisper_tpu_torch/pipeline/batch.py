@@ -70,18 +70,16 @@ import torch
 from ..config import SAMPLE_RATE
 from ..decode.beam import beam_search_batched
 from ..decode.greedy import greedy_decode
-from ..ops.audio import max_waveform_samples
 from ..parallel.context import dp_all_gather, dp_axis, dp_rows
 from ..utils.profiling import scope
-from . import vad
-from .transcribe import (DecodeOptions, Transcriber, _check_supported,
-                         _meshed, _rung_generator, compression_ratio,
-                         evaluate_window_quality, find_chunk_overlap,
-                         window_waveform)
+from .transcribe import (DecodeOptions, Transcriber, Window,
+                         _check_supported, _meshed, _rung_generator,
+                         compression_ratio, evaluate_window_quality,
+                         find_chunk_overlap, plan_windows, window_samples)
 
 log = logging.getLogger(__name__)
 
-Window = Tuple[int, int]  # (stream, window index)
+WindowKey = Tuple[int, int]  # (stream, window index)
 # (a stream's samples, contiguous writeable float32; a full window's start)
 Row = Tuple[np.ndarray, int]
 
@@ -277,35 +275,25 @@ class BatchTranscriber(Transcriber):
         ti * 100003 + i), JAX's `fold_in(PRNGKey(seed), ti * 100003 + i)`.
         Tail windows take `_decode_window_ladder(s * 100003 + w, ...)`
         whenever the quality path runs."""
-        cfg = self.cfg
-        n_window = max_waveform_samples(cfg.encoder_ctx_size - opt.padding)
-        overlap = int(sample_rate * opt.chunk_overlap_seconds)
-        if overlap >= n_window:
-            overlap = n_window // 2
         prompt, n_cond = self._build_prompt(opt)
         sup_len = opt.suppress_until_len + n_cond
 
-        full: List[Window] = []
-        tail: List[Window] = []
+        full: List[WindowKey] = []
+        tail: List[Tuple[int, Window]] = []
         n_windows = [0] * len(waveforms)
-        bounds: Dict[Tuple[int, int], Tuple[int, int]] = {}
+        bounds: Dict[WindowKey, Tuple[int, int]] = {}
         with scope("whisper.window"):
             waves = [_samples(w) for w in waveforms]
             for s, wave in enumerate(waves):
-                for i, (start, end) in enumerate(
-                        window_waveform(wave, sample_rate, n_window, overlap)):
-                    n_windows[s] = i + 1
-                    bounds[(s, i)] = (start, end)
-                    if opt.vad and vad.is_silent(
-                            wave[start:end], sample_rate,
-                            opt.vad_threshold_db, opt.vad_min_speech_seconds):
-                        continue
-                    if end - start == n_window:
-                        full.append((s, i))
-                    elif end - start >= 400:  # >= n_fft: one STFT frame
-                        tail.append((s, i))
+                for w in plan_windows(wave, sample_rate, self.cfg, opt):
+                    n_windows[s] = w.i + 1
+                    bounds[(s, w.i)] = (w.start, w.end)
+                    if w.kind == "full":
+                        full.append((s, w.i))
+                    elif w.kind == "tail":
+                        tail.append((s, w))
 
-        def rows(group: Sequence[Window]) -> List[Row]:
+        def rows(group: Sequence[WindowKey]) -> List[Row]:
             return [(waves[s], bounds[(s, w)][0]) for s, w in group]
 
         results: Dict[Tuple[int, int], List[int]] = {}
@@ -316,10 +304,10 @@ class BatchTranscriber(Transcriber):
         # path's per-segment metadata
         quality = use_ladder or timestamps
         bsz = self.batch_size
-        builder = _BatchRows(self.device, n_window)
+        builder = _BatchRows(self.device, window_samples(self.cfg, opt))
         pending = full
         for ti, temp in enumerate(temps):
-            failures: List[Window] = []
+            failures: List[WindowKey] = []
             for i in range(0, len(pending), bsz):
                 with scope("whisper.batch"):
                     group = pending[i:i + bsz]
@@ -376,18 +364,16 @@ class BatchTranscriber(Transcriber):
                 break
 
         for s, w in tail:
-            start, end = bounds[(s, w)]
-            chunk = waves[s][start:end]
+            key = (s, w.i)
             with scope("whisper.tail"):
                 if quality:
-                    (results[(s, w)], _,
-                     meta[(s, w)]) = self._decode_window_ladder(
-                        s * 100003 + w, chunk, prompt, n_cond, sup_len, opt,
-                        temps, timestamps=timestamps,
+                    results[key], _, meta[key] = self._decode_window_ladder(
+                        s * 100003 + w.i, w.samples, prompt, n_cond, sup_len,
+                        opt, temps, timestamps=timestamps,
                         max_initial_ts_idx=max_ts_idx)
                 else:
-                    results[(s, w)] = self._decode(chunk, prompt, sup_len,
-                                                   opt)[0][n_cond:]
+                    results[key] = self._decode(w.samples, prompt, sup_len,
+                                                opt)[0][n_cond:]
         return results, meta, bounds, n_windows
 
     def transcribe_many(self, waveforms: Sequence[np.ndarray],
@@ -491,19 +477,14 @@ class WindowPool:
         self.t = transcriber
         self.opt = opt
         self.sr = sample_rate
-        self._n_window = max_waveform_samples(
-            transcriber.cfg.encoder_ctx_size - opt.padding)
-        overlap = int(sample_rate * opt.chunk_overlap_seconds)
-        if overlap >= self._n_window:
-            overlap = self._n_window // 2
-        self._overlap = overlap
         self._prompt, self._n_cond = transcriber._build_prompt(opt)
         self._sup_len = opt.suppress_until_len + self._n_cond
         # a 1-tuple temperature is poolable (no ladder)
         self._temperature = float(Transcriber._ladder_temps(opt)[0][0])
         self._queue: List[Tuple[object, int, int]] = []  # (rid, w, start)
         self._waves: dict = {}  # rid -> samples
-        self._rows = _BatchRows(transcriber.device, self._n_window)
+        self._rows = _BatchRows(transcriber.device,
+                                window_samples(transcriber.cfg, opt))
         self._tails: dict = {}  # rid -> [(w, chunk)]
         self._results: dict = {}  # rid -> {w: tokens}
         self._n_windows: dict = {}  # rid -> window count
@@ -540,20 +521,15 @@ class WindowPool:
         self._undecoded[rid] = 0
         self._tails[rid] = []
         self._order.append(rid)
-        for w, (start, end) in enumerate(window_waveform(
-                wave, self.sr, self._n_window, self._overlap)):
-            chunk = wave[start:end]
-            self._n_windows[rid] = w + 1
-            if self.opt.vad and vad.is_silent(
-                    chunk, self.sr, self.opt.vad_threshold_db,
-                    self.opt.vad_min_speech_seconds):
-                continue  # stitching skips missing windows
-            if len(chunk) == self._n_window:
-                self._queue.append((rid, w, start))
-                self._undecoded[rid] += 1
-            elif len(chunk) >= 400:
-                self._tails[rid].append((w, chunk))
-                self._undecoded[rid] += 1
+        for w in plan_windows(wave, self.sr, self.t.cfg, self.opt):
+            self._n_windows[rid] = w.i + 1  # skipped: a gap in the stitch
+            if w.kind == "full":
+                self._queue.append((rid, w.i, w.start))
+            elif w.kind == "tail":
+                self._tails[rid].append((w.i, w.samples))
+            else:
+                continue
+            self._undecoded[rid] += 1
 
     def cancel(self, rid) -> None:
         """Drop a request's still-queued windows (an abandoned waiter)."""

@@ -33,12 +33,12 @@ import numpy as np
 import torch
 
 from ..config import HOP_LENGTH, SAMPLE_RATE
-from ..ops.audio import max_waveform_samples
 from ..utils.logging import get_logger
 from . import vad
 from .batch import _BatchRows, _samples
 from .segments import Segment, segments_from_tokens
-from .transcribe import DecodeOptions, Transcriber, compression_ratio
+from .transcribe import (DecodeOptions, Transcriber, compression_ratio,
+                         under_n_fft, window_samples)
 
 log = get_logger(__name__)
 
@@ -247,8 +247,7 @@ class StreamingTranscriber:
                                        timestamps=True)
         self.min_step_seconds = float(min_step_seconds)
         self.confirm_margin_seconds = float(confirm_margin_seconds)
-        self._n_window = max_waveform_samples(
-            self._t.cfg.encoder_ctx_size - self.opt.padding)
+        self._n_window = window_samples(self._t.cfg, self.opt)
         self._prompt, self._n_cond = self._t._build_prompt(self.opt)
         self._buffer = np.zeros(0, np.float32)
         self._offset = 0.0  # stream time (s) of buffer[0]
@@ -292,7 +291,7 @@ class StreamingTranscriber:
             tail.extend(s for s in self._decode() if self._confirm_ok(s))
             self._trim_to(self._offset + self._n_window / SAMPLE_RATE)
             self._prev = []
-        if len(self._buffer) < 400:  # < n_fft: nothing left to decode
+        if under_n_fft(self._buffer):  # nothing left to decode
             tail.extend(s for s in self._prev if self._confirm_ok(s))
         elif not self._skip_silence():
             tail.extend(s for s in self._decode() if self._confirm_ok(s))

@@ -1,8 +1,8 @@
 """Long-form transcription: windowing, per-window decode, stitching.
 
 Counterpart of `whisper_tpu/pipeline/transcribe.py` (reference:
-whisper-burn `src/transcribe.rs`): ~14.9 s windows
-(`max_waveform_samples(encoder_ctx - 10)` samples) with a 3 s overlap,
+whisper-burn `src/transcribe.rs`): ~14.9 s windows (`window_samples`:
+a mel of encoder_ctx - 10 frames) with a 3 s overlap,
 each window's mel clipped to (encoder_ctx - padding) frames and
 zero-padded by `padding` frames, the [SOT, lang, task, notimestamps]
 prompt, suppression while seq len <= 5, token-overlap stitching, and the
@@ -16,28 +16,30 @@ model (`draft=`); and `waveform_to_text`, the reference's one-shot entry.
 
 The JAX pipeline dispatches window i+1 before fetching window i; this port
 runs windows one after another (the result is the same: windows are
-independent unless `condition_on_previous_text` chains them). Options of
-`DecodeOptions` that the port does not cover yet raise
-NotImplementedError naming their ROADMAP item -- none is silently
-ignored.
+independent unless `condition_on_previous_text` chains them). Every path
+cuts its windows with `plan_windows`. A documented difference: a
+`strategy` other than "beam" or "greedy" raises ValueError, where JAX
+decodes it greedily (transcribe.py:559).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import itertools
 import logging
 import threading
 import time
 import zlib
-from typing import Callable, List, Optional, Sequence, Tuple
+from typing import (Callable, Iterator, List, NamedTuple, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..align import WordTiming, find_word_timings
-from ..config import SAMPLE_RATE, WhisperConfig
+from ..config import N_FFT, SAMPLE_RATE, WhisperConfig
 from ..decode.beam import beam_search
 from ..decode.greedy import greedy_decode
 from ..decode.speculative import speculative_greedy_decode
@@ -91,13 +93,11 @@ class DecodeOptions:
 
 
 def _check_supported(opt: DecodeOptions) -> None:
-    """Raise for every option the port does not cover."""
-    todo = []
+    """Raise ValueError for a strategy other than "beam" or "greedy" (JAX
+    decodes any other strategy greedily, transcribe.py:559)."""
     if opt.strategy not in ("beam", "greedy"):
-        todo.append(f"strategy={opt.strategy!r} (ROADMAP queue 1 item 7)")
-    if todo:
-        raise NotImplementedError(
-            "not ported to whisper_tpu_torch yet: " + "; ".join(todo))
+        raise ValueError(
+            f'strategy must be "beam" or "greedy", got {opt.strategy!r}')
 
 
 def parse_clip_timestamps(clips: object, total_seconds: float
@@ -187,6 +187,60 @@ def window_waveform(waveform: np.ndarray, sample_rate: int,
     for i in range(n):
         start = i * shift
         yield start, min(start + window_samples, len(waveform))
+
+
+def window_samples(cfg: WhisperConfig, opt: DecodeOptions) -> int:
+    """The samples of a full window: a mel of (encoder_ctx - padding)
+    frames."""
+    return max_waveform_samples(cfg.encoder_ctx_size - opt.padding)
+
+
+def under_n_fft(samples) -> bool:
+    """Too short for one STFT frame (< n_fft samples): not decoded."""
+    return len(samples) < N_FFT
+
+
+class Window(NamedTuple):
+    """One window of a stream, as `plan_windows` cuts it."""
+
+    i: int  # its index in the stream
+    start: int  # its bounds in the stream's samples
+    end: int
+    samples: np.ndarray  # the stream's float32 samples [start, end), a view
+    kind: str  # decoded: "full" or "tail"; skipped: "short" or "silent"
+
+
+def plan_windows(waveform, sample_rate: int, cfg: WhisperConfig,
+                 opt: DecodeOptions) -> Iterator[Window]:
+    """Every window of one stream, in order: `window_waveform`'s bounds of
+    `window_samples` windows that overlap by `opt.chunk_overlap_seconds`
+    (clamped to half a window, with a warning). A window is "full" or a
+    "tail", or skipped: "short" (`under_n_fft`) or, with `opt.vad`,
+    "silent". Skipped windows count in the stream's windows and splice as
+    gaps. The samples are views of the stream as contiguous float32 (a
+    stream that is not is converted once)."""
+    n_window = window_samples(cfg, opt)
+    overlap = int(sample_rate * opt.chunk_overlap_seconds)
+    if overlap >= n_window:
+        log.warning("chunk overlap (%d samples) >= window (%d); clamping "
+                    "overlap to half a window", overlap, n_window)
+        overlap = n_window // 2
+    wave = np.ascontiguousarray(waveform, dtype=np.float32)
+    for i, (start, end) in enumerate(
+            window_waveform(wave, sample_rate, n_window, overlap)):
+        samples = wave[start:end]
+        if under_n_fft(samples):
+            log.warning("skipping %d-sample tail window (< n_fft)",
+                        len(samples))
+            kind = "short"
+        elif opt.vad and vad.is_silent(samples, sample_rate,
+                                       opt.vad_threshold_db,
+                                       opt.vad_min_speech_seconds):
+            log.info("chunk %d: silent window skipped by VAD", i)
+            kind = "silent"
+        else:
+            kind = "full" if len(samples) == n_window else "tail"
+        yield Window(i, start, end, samples, kind)
 
 
 def _rung_generator(device, seed: int, stream: int) -> torch.Generator:
@@ -515,30 +569,11 @@ class Transcriber:
         return temps, active
 
     def _windows(self, waveform: np.ndarray, sample_rate: int,
-                 opt: DecodeOptions):
-        """(i, start, end, samples) of each window that gets decoded: the
-        sub-n_fft tail and (with `opt.vad`) silent windows are skipped."""
-        n_window = max_waveform_samples(self.cfg.encoder_ctx_size
-                                        - opt.padding)
-        overlap = int(sample_rate * opt.chunk_overlap_seconds)
-        if overlap >= n_window:
-            log.warning("chunk overlap (%d samples) >= window (%d); clamping "
-                        "overlap to half a window", overlap, n_window)
-            overlap = n_window // 2
-        for i, (start, end) in enumerate(
-                window_waveform(waveform, sample_rate, n_window, overlap)):
-            window = np.ascontiguousarray(waveform[start:end],
-                                          dtype=np.float32)
-            if len(window) < 400:  # < n_fft: no STFT frame
-                log.warning("skipping %d-sample tail window (< n_fft)",
-                            len(window))
-                continue
-            if opt.vad and vad.is_silent(
-                    window, sample_rate, opt.vad_threshold_db,
-                    opt.vad_min_speech_seconds):
-                log.info("chunk %d: silent window skipped by VAD", i)
-                continue
-            yield i, start, end, window
+                 opt: DecodeOptions) -> Iterator[Window]:
+        """The windows of `plan_windows` that get decoded."""
+        for w in plan_windows(waveform, sample_rate, self.cfg, opt):
+            if w.kind in ("full", "tail"):
+                yield w
 
     def _prev_prompt(self, opt: DecodeOptions, tokens: Sequence[int]):
         """(prompt, n_cond, suppression length) of a window conditioned on
@@ -559,34 +594,36 @@ class Transcriber:
         first window when all are below the VAD threshold."""
         from .detect import detect_language as _detect
 
-        n_window = max_waveform_samples(self.cfg.encoder_ctx_size - 10)
-        wave = np.asarray(waveform, np.float32)
-        if len(wave) < 400:
+        # back-to-back windows at the default padding of 10 frames
+        opt = DecodeOptions(padding=10, chunk_overlap_seconds=0.0, vad=True,
+                            vad_threshold_db=vad_threshold_db,
+                            vad_min_speech_seconds=vad_min_speech_seconds)
+        windows = plan_windows(waveform, sample_rate, self.cfg, opt)
+        first = next(windows)
+        if first.kind == "short":
             raise ValueError("audio too short for language detection")
-        starts: List[int] = []
-        for s0 in range(0, len(wave), n_window):
-            win = wave[s0:s0 + n_window]
-            if len(win) < 400:
+        speech: List[np.ndarray] = []
+        for w in itertools.chain([first], windows):
+            if w.kind == "short":
                 break
-            if not vad.is_silent(win, sample_rate, vad_threshold_db,
-                                 vad_min_speech_seconds):
-                starts.append(s0)
-                if len(starts) >= max(1, int(vote_windows)):
+            if w.kind != "silent":
+                speech.append(w.samples)
+                if len(speech) >= max(1, int(vote_windows)):
                     break
-        if not starts:
-            starts = [0]  # all silent: the first window is as good as any
+        if not speech:
+            # all silent: the first window is as good as any
+            speech = [first.samples]
         acc: dict = {}
         dtype = self.params["decoder"]["tok_emb"].dtype
         with torch.inference_mode():
-            for s0 in starts:
-                window = torch.from_numpy(
-                    np.ascontiguousarray(wave[s0:s0 + n_window]))
+            for samples in speech:
+                window = torch.from_numpy(samples)
                 mel = prep_audio(window.to(self.device)[None, :],
                                  n_mels=self.cfg.n_mels)
                 enc = encoder_forward(self.params, mel.to(dtype), self.cfg)
                 _, dist = _detect(self.params, enc, self.cfg, self.tok)[0]
                 for code, p in dist.items():
-                    acc[code] = acc.get(code, 0.0) + p / len(starts)
+                    acc[code] = acc.get(code, 0.0) + p / len(speech)
         best = max(acc, key=acc.get)
         return best, acc
 
@@ -613,8 +650,8 @@ class Transcriber:
         prompt_reset_at = 0  # OpenAI's prompt_reset_since: a permanent cut
         total_t0 = time.perf_counter()
         with torch.inference_mode():
-            for i, start, end, window in self._windows(waveform, sample_rate,
-                                                       opt):
+            for i, start, end, window, _ in self._windows(
+                    waveform, sample_rate, opt):
                 t0 = time.perf_counter()
                 prompt_i, n_cond_i, sup_i = prompt, n_cond, sup_len
                 if opt.condition_on_previous_text:
@@ -726,8 +763,8 @@ class Transcriber:
         stitcher = TimestampStitcher(tok, opt.stitch_max_offsets,
                                      opt.stitch_min_overlaps)
         with torch.inference_mode():
-            for i, start, end, window in self._windows(waveform, sample_rate,
-                                                       opt):
+            for i, start, end, window, _ in self._windows(
+                    waveform, sample_rate, opt):
                 if opt.condition_on_previous_text:
                     prompt, n_cond, sup_len = self._prev_prompt(
                         opt, stitcher.all_tokens[prompt_reset_at:])
@@ -789,8 +826,7 @@ class Transcriber:
         holds their start, the window's tokens (the timestamped prompt,
         every segment's tokens, EOT) align once, and the words are handed
         back to the segments in token order."""
-        n_window = max_waveform_samples(self.cfg.encoder_ctx_size
-                                        - opt.padding)
+        n_window = window_samples(self.cfg, opt)
         prompt_ids = self.tok.prompt_ids(opt.lang, task=opt.task,
                                          timestamps=True)
         groups: dict = {}

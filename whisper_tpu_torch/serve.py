@@ -59,7 +59,7 @@ from urllib.parse import parse_qs, urlparse
 import numpy as np
 import torch
 
-from .pipeline.transcribe import DecodeOptions
+from .pipeline.transcribe import DecodeOptions, window_samples
 from .utils.logging import get_logger
 
 log = get_logger(__name__)
@@ -807,9 +807,7 @@ def warm_up(transcriber) -> float:
     options (beam search, at a depth of 4) and return its seconds: on the
     card this builds the kernels (nvcc) and touches every kernel of the
     default path, so the first request pays none of it."""
-    from .ops.audio import max_waveform_samples
-
-    n = max_waveform_samples(transcriber.cfg.encoder_ctx_size - 10)
+    n = window_samples(transcriber.cfg, DecodeOptions())
     wave = (np.random.default_rng(0).standard_normal(n) * 0.01).astype(
         np.float32)
     t0 = time.perf_counter()
