@@ -187,7 +187,9 @@ twice, capturing then replaying the S = 1 steps: both texts must equal
 the greedy slice's, the second call's steps must all be replays
 (`greedy_decode.graph_steps`), and its seconds are printed beside the
 eager slice's; the tied head must have taken its bf16 GEMM, whose device
-ms at B = 128 and B = 1 are printed beside the f32 product's.
+ms at B = 128 and B = 1 are printed beside the f32 product's, and some
+projection its bias epilogue, whose device ms at large-v3-turbo's
+encoder and step shapes are printed beside the separate add's.
 """
 
 from __future__ import annotations
@@ -1683,6 +1685,7 @@ def phase_step_graphs(tr, wave, greedy_text, eager_s) -> dict:
     opts = DecodeOptions(strategy="greedy", max_depth=100)
     runs = []
     head_calls = M._logits.tensor_core_calls
+    bias_calls = M._linear.epilogue_bias_calls
     STEP_GRAPHS.lock.release()
     try:
         for run in ("capture", "replay"):
@@ -1716,13 +1719,18 @@ def phase_step_graphs(tr, wave, greedy_text, eager_s) -> dict:
     if not head_calls:
         raise AssertionError("the step graphs' calls never took the tied "
                              "head's bf16 GEMM")
+    bias_calls = M._linear.epilogue_bias_calls - bias_calls
+    if not bias_calls:  # the encoder, init_cache, prefill, captured steps
+        raise AssertionError("the step graphs' calls never added a "
+                             "projection's bias in a GEMM's epilogue")
     emb = tr.params["decoder"]["tok_emb"]
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     heads = {"model": emb, "turbo": _randn((51866, emb.shape[1]), gen)}
     head_ms = {name: _head_ms(e) for name, e in heads.items()}
     del heads
     return dict(runs=runs, eager_seconds=eager_s,
-                head_tensor_core_calls=head_calls, head_ms=head_ms)
+                head_tensor_core_calls=head_calls, head_ms=head_ms,
+                epilogue_bias_calls=bias_calls, bias_ms=_bias_ms())
 
 
 def _head_ms(emb) -> dict:
@@ -1740,6 +1748,75 @@ def _head_ms(emb) -> dict:
             f32_ms=time_ms(lambda: torch.matmul(x.float(), emb.float().t())))
         log(f"tied head, V {emb.shape[0]}, B {b}: {out[f'b{b}']['ms']:.4f} "
             f"ms (f32 product {out[f'b{b}']['f32_ms']:.4f} ms)")
+    return out
+
+
+def _bias_ms() -> dict:
+    """Device ms of a projection's bias both ways at large-v3-turbo's
+    shapes: in the GEMM's epilogue (`_linear` on the card, one
+    `torch.addmm`) and as the separate add it replaced
+    (`_epilogue_bias` forced false: `_matmul(x, w) + b`). The encoder's
+    QKV and attention out-projection and `init_cache`'s cross K/V at
+    M = 96,000 (a batch of 128 windows of 750 positions), with the
+    kernels each route launches, then the whole greedy step
+    (`decoder_step`: 4 layers, the 750-row cross cache of a window) at
+    B = 128 and at a tail's B = 1."""
+    import dataclasses
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from whisper_tpu_torch.config import preset
+    from whisper_tpu_torch.models import whisper as M
+    from whisper_tpu_torch.params import init_params
+
+    def kernels(fn) -> list:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return sorted(e.key for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA)
+
+    def both(fn, with_kernels: bool) -> dict:
+        fused = M._epilogue_bias
+        out = {}
+        try:
+            for route in ("epilogue", "add"):
+                if route == "add":
+                    M._epilogue_bias = lambda x, w, b: False
+                out[f"{route}_ms"] = time_ms(fn)
+                if with_kernels:
+                    out[f"{route}_kernels"] = kernels(fn)
+        finally:
+            M._epilogue_bias = fused
+        return out
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    d, m = 1280, 96000
+    x = _randn((m, d), gen)
+    out = {}
+    for name, shape in (("qkv", (3, d)), ("attn_o", (d,)),
+                        ("cross_kv", (2, d))):
+        w, b = _randn((d, *shape), gen, d ** -0.5), _randn(shape, gen)
+        out[name] = both(lambda: M._linear(x, w, b), True)
+        log(f"bias, {name} M {m} N {w[0].numel()}: epilogue "
+            f"{out[name]['epilogue_ms']:.4f} ms {out[name]['epilogue_kernels']}"
+            f", separate add {out[name]['add_ms']:.4f} ms "
+            f"{out[name]['add_kernels']}")
+    del x, w, b
+    cfg = dataclasses.replace(preset("large-v3-turbo"), attention="flash")
+    params = init_params(cfg, gen, dtype=torch.bfloat16)
+    for bsz in (128, 1):
+        cache = M.init_cache(params, _randn((bsz, 750, d), gen), cfg)
+        tokens = torch.randint(0, 50000, (bsz, 1), generator=gen,
+                               device="cuda")
+        with torch.no_grad():
+            step = out[f"step_b{bsz}"] = both(
+                lambda: M.decoder_step(params, tokens, 100, cache, cfg),
+                bsz == 1)
+        log(f"bias, B {bsz} turbo step: epilogue {step['epilogue_ms']:.4f}"
+            f" ms {step.get('epilogue_kernels', '')}, separate add "
+            f"{step['add_ms']:.4f} ms {step.get('add_kernels', '')}")
+        del cache
     return out
 
 

@@ -7,6 +7,8 @@ are the ones each kernel module states; chip_smoke.py holds the same
 kernels at the full large-v2 shapes.
 """
 
+import copy
+import dataclasses
 import os
 import wave as wave_mod
 
@@ -1703,6 +1705,142 @@ def test_tied_head_is_one_bf16_gemm_with_f32_logits(gen, b, v):
     clear = (top[:, 0] - top[:, 1]) > 1e-3
     assert torch.equal(got[:, 0].argmax(-1)[clear],
                        want[:, 0].argmax(-1)[clear])
+
+
+# (rows, in width, out shape) at large-v3-turbo's widths: the encoder's
+# QKV, out-projection and `init_cache`'s cross K/V over two windows of 750
+# positions, then the B = 128 step's QKV, attention out / cross q / cross
+# out, MLP1 and MLP2, then the same at B = 1 (a tail's step, where PyTorch
+# copies the bias and runs a beta = 1 GEMM in place of cuBLASLt's epilogue)
+EPILOGUE_SHAPES = [(1500, 1280, (3, 1280)), (1500, 1280, (1280,)),
+                   (1500, 1280, (2, 1280)), (128, 1280, (3, 1280)),
+                   (128, 1280, (1280,)), (128, 1280, (5120,)),
+                   (128, 5120, (1280,)), (1, 1280, (3, 1280)),
+                   (1, 1280, (1280,)), (1, 1280, (5120,)),
+                   (1, 5120, (1280,))]
+
+
+@pytest.mark.parametrize("m,k,out_shape", EPILOGUE_SHAPES)
+def test_projection_bias_goes_into_the_gemm_epilogue(gen, m, k, out_shape):
+    """A bf16 projection on the card (`_linear`, or `_qkv_proj` /
+    `_kv_proj` for a (3, d) / (2, d) out shape) adds its bias to the f32
+    sums and rounds once: within one bf16 ulp (atol 0, rtol 2^-8) of the
+    f32 product plus the bias, rounded to bf16 (the two may differ only
+    in the order of the f32 sums), counted by
+    `_linear.epilogue_bias_calls` alone."""
+    x = _randn((m, 1, k), gen)
+    w = _randn((k, *out_shape), gen, k ** -0.5)
+    b = _randn(out_shape, gen)
+    proj = {(3, 1280): M._qkv_proj, (2, 1280): M._kv_proj}.get(out_shape,
+                                                                 M._linear)
+    before = M._linear.epilogue_bias_calls, M._linear.bias_add_calls
+    got = proj(x, w, b)
+    after = M._linear.epilogue_bias_calls, M._linear.bias_add_calls
+    got = torch.stack(got, dim=-2) if isinstance(got, tuple) else got
+    want = (torch.mm(x.reshape(m, k), w.reshape(k, -1),
+                     out_dtype=torch.float32) + b.reshape(-1).float())
+    want = want.bfloat16().reshape(m, 1, *out_shape)
+    assert after == (before[0] + 1, before[1])
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    _close(got, want, atol=0, rtol=2 ** -8)
+
+
+def _bias_params(cfg, gen):
+    """Random bf16 weights on the card with N(0, 0.1) biases and layer
+    norm shifts (`init_params` makes them zero, which no rounding of the
+    bias would show)."""
+    from whisper_tpu_torch.params import init_params
+
+    params = init_params(cfg, gen, dtype=torch.bfloat16)
+    for name, t in params.named_buffers():
+        if name.endswith("_b"):
+            t.copy_(_randn(t.shape, gen, 0.1))
+    return params
+
+
+@pytest.mark.parametrize("b", [128, 1])
+def test_step_graph_replays_the_eager_step_with_the_epilogue_bias(gen, b):
+    """A B = 128 or B = 1 S = 1 step (tiny's widths through the kernels, a
+    tensor pos as the greedy step graphs take it) captured as a CUDA graph
+    with the biases in the GEMMs' epilogues: the replay's logits and self
+    cache equal the eager step's bit for bit, the capture counts six
+    epilogue projections a layer and no separate add, the replay none."""
+    from whisper_tpu_torch.config import preset
+
+    cfg = dataclasses.replace(preset("tiny"), attention="flash")
+    params = _bias_params(cfg, gen)
+    vocab = cfg.text_decoder_config.n_vocab
+    enc = _randn((b, 750, cfg.n_state), gen)
+    cache = M.init_cache(params, enc, cfg, cache_len=64)
+    tokens = torch.randint(0, vocab, (b, 1), generator=gen, device="cuda")
+    pos = torch.full((b,), 5, dtype=torch.int32, device="cuda")
+    with torch.no_grad():
+        eager = M.DecoderCache(*(t.clone() for t in cache))
+        want, _ = M.decoder_step(params, tokens, pos, eager, cfg)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):  # the warm-up a capture needs
+            M.decoder_step(params, tokens, pos, cache, cfg)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        before = M._linear.epilogue_bias_calls, M._linear.bias_add_calls
+        with torch.cuda.graph(graph):
+            got, _ = M.decoder_step(params, tokens, pos, cache, cfg)
+        captured = M._linear.epilogue_bias_calls, M._linear.bias_add_calls
+        graph.replay()
+        torch.cuda.synchronize()
+    n_layer = cfg.text_decoder_config.n_text_layer
+    assert captured == (before[0] + 6 * n_layer, before[1])
+    assert (M._linear.epilogue_bias_calls,
+            M._linear.bias_add_calls) == captured
+    assert torch.equal(got, want)
+    assert torch.equal(cache.self_k, eager.self_k)
+    assert torch.equal(cache.self_v, eager.self_v)
+
+
+# encoder_forward on the card (bf16, the kernels, the biases in the
+# GEMMs' epilogues) against the same weights in f32 on the CPU: relative
+# L2 over the output. bf16 keeps 8 significant bits (a rounding's
+# relative error up to 2^-9, ~1.1e-3 rms); tiny's 4 layers round ~10
+# times each, ~1e-2 as a random walk, and 2e-2 leaves twice that. On an
+# H100 (torch 2.11, cuBLAS 12.8) the epilogue read 0.005231 and the
+# separate add 0.005246: rounding once lands 0.3% closer
+ENC_CARD_RTOL = 2e-2
+
+
+def test_encoder_with_epilogue_bias_against_f32_on_the_cpu(gen,
+                                                           monkeypatch):
+    """`encoder_forward` at B = 2 (tiny's widths: d 384, 6 heads, 4
+    layers, 750 positions a window; N(0, 0.1) biases) on the card within
+    ENC_CARD_RTOL of the f32 forward on the CPU; two epilogue projections
+    a layer (QKV and the attention out; the MLP is K2). The fused route
+    rounds once where the separate add rounds twice: it lands no farther
+    from f32 than the separate add (`_epilogue_bias` forced false), within
+    2% of its error, and both errors are printed."""
+    from whisper_tpu_torch.config import preset
+
+    cfg = dataclasses.replace(preset("tiny"), attention="flash")
+    params = _bias_params(cfg, gen)
+    mel = torch.randn((2, 80, 1500), generator=gen, device="cuda")
+    ref = copy.deepcopy(params).to(device="cpu", dtype=torch.float32)
+    with torch.no_grad():
+        want = M.encoder_forward(ref, mel.cpu(), dataclasses.replace(
+            cfg, attention="xla"))
+        before = M._linear.epilogue_bias_calls, M._linear.bias_add_calls
+        fused = M.encoder_forward(params, mel, cfg).float().cpu()
+        after = M._linear.epilogue_bias_calls, M._linear.bias_add_calls
+        monkeypatch.setattr(M, "_epilogue_bias", lambda x, w, b: False)
+        added = M.encoder_forward(params, mel, cfg).float().cpu()
+    n_layer = cfg.audio_encoder_config.n_audio_layer
+    assert after == (before[0] + 2 * n_layer, before[1])
+
+    def rel(got):
+        return float((got - want).norm() / want.norm())
+
+    print(f"encoder vs f32: epilogue {rel(fused):.6f}, separate add "
+          f"{rel(added):.6f}")
+    assert rel(fused) <= ENC_CARD_RTOL
+    assert rel(fused) <= 1.02 * rel(added)
 
 
 def test_profiler_records_cuda_events_after_the_cli_tests(gen):

@@ -209,3 +209,80 @@ def test_logits_keep_the_f32_product_off_the_card(dtype, grad):
     assert got.requires_grad == grad
     assert (TM._logits.tensor_core_calls, TM._logits.f32_calls) == (
         before[0], before[1] + 1)
+
+
+# (function, the weight's out shape): `_linear` and the fused projections
+PROJECTIONS = [(TM._linear, (256,)), (TM._qkv_proj, (3, 128)),
+               (TM._kv_proj, (2, 128))]
+# route cases: (dtype, grad, QTensor weight, rows, `_on_tensor_cores`
+# forced true, tp); all but those in BIAS_FUSED keep the separate add
+BIAS_CASES = {
+    "cpu-f32": (torch.float32, False, False, 6, False, 1),
+    "cpu-f32-grad": (torch.float32, True, False, 6, False, 1),
+    "cpu-bf16": (torch.bfloat16, False, False, 6, False, 1),
+    "cpu-bf16-grad": (torch.bfloat16, True, False, 6, False, 1),
+    "qtensor": (torch.bfloat16, False, True, 6, True, 1),
+    "one-row": (torch.bfloat16, False, False, 1, True, 1),
+    "tp2": (torch.bfloat16, False, False, 6, True, 2),
+    "epilogue": (torch.bfloat16, False, False, 6, True, 1),
+}
+BIAS_FUSED = ("one-row", "epilogue")
+
+
+def _bf16_ulp(v: torch.Tensor) -> torch.Tensor:
+    """The spacing of bf16 (8 significant bits) at each element of v."""
+    return torch.ldexp(torch.ones_like(v, dtype=torch.float32),
+                       torch.frexp(v.float()).exponent - 8)
+
+
+@pytest.mark.parametrize("case", list(BIAS_CASES))
+@pytest.mark.parametrize("proj,out_shape", PROJECTIONS,
+                         ids=["linear", "qkv", "kv"])
+def test_projection_bias_keeps_the_separate_add_off_the_card(
+        proj, out_shape, case, monkeypatch):
+    """A projection's bias: on the CPU, in f32 or bf16, with grad on or
+    off, and (with the card's test forced true) for a QTensor weight and
+    tp = 2, the result is `_matmul(x, w) + b` bit for bit, counted by
+    `_linear.bias_add_calls` alone. Only the card's route (bf16, no grad,
+    a plain weight, no tp; six rows or one) takes one `torch.addmm` of the
+    2-D operands, counted by `_linear.epilogue_bias_calls` alone, in the
+    separate add's layout, and within one bf16 ulp of the f32 product
+    plus the bias rounded once."""
+    dtype, grad, quant, rows, forced, tp = BIAS_CASES[case]
+    if forced:
+        monkeypatch.setattr(TM, "_on_tensor_cores", lambda a, b: True)
+    monkeypatch.setattr(TM.pctx, "tp_size", lambda mesh=None: tp)
+    gen = torch.Generator().manual_seed(0)
+    k = 128
+    x = torch.randn((rows, 1, k), generator=gen).to(dtype)
+    w = torch.randn((k, *out_shape), generator=gen).to(dtype)
+    b = torch.randn(out_shape, generator=gen).to(dtype)
+    impl = "xla"
+    if quant:  # the W8A8 route: no `_mm_f32`, which the CPU cannot force
+        w, impl = TQ.quantize_tensor(w), "w8a8"
+    else:
+        w.requires_grad_(grad)
+        b.requires_grad_(grad)
+    fused = case in BIAS_FUSED
+    before = (TM._linear.epilogue_bias_calls, TM._linear.bias_add_calls)
+    with torch.set_grad_enabled(grad):
+        got = proj(x, w, b, impl)
+        if fused:
+            y = (x.float().reshape(-1, k) @ w.float().reshape(k, -1)
+                 + b.float().reshape(-1)).to(dtype)
+            y = y.reshape(*x.shape[:-1], *out_shape)
+        else:
+            y = TM._matmul(x, w, impl) + b
+    got = got if isinstance(got, tuple) else (got,)
+    want = y.unbind(-2) if len(out_shape) == 2 else (y,)
+    assert len(got) == len(want)
+    for g, v in zip(got, want):
+        assert g.dtype == dtype and g.shape == (rows, 1, out_shape[-1])
+        if fused:
+            err = (g.float() - v.float()).abs()
+            assert bool((err <= _bf16_ulp(v)).all())
+        else:
+            assert torch.equal(g.detach(), v.detach())
+        assert g.requires_grad == grad
+    assert (TM._linear.epilogue_bias_calls, TM._linear.bias_add_calls) == (
+        before[0] + fused, before[1] + (not fused))

@@ -18,7 +18,10 @@ decode design does not arise.
 `cfg.attention` picks the path: "xla" is plain PyTorch everywhere;
 "flash" routes the encoder attention, the encoder MLP and the S = 1 decode
 step through the hand-written kernels in `ops/kernels/` on a CUDA device
-(on the CPU their wrappers run the kernels' plain versions).
+(on the CPU their wrappers run the kernels' plain versions). On the card
+two rounding points move off JAX's: a bf16 projection adds its bias in
+its GEMM's epilogue, rounding once (`_linear`), and the tied head sums in
+f32 on tensor cores (`_mm_f32`); the CPU keeps JAX's.
 
 Quantization (`quantize.py`): weights may be QTensors (int8 or packed
 int4, dequantized inside the matmul; int8 through the W8A8 kernels with
@@ -77,8 +80,9 @@ def layer_norm(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
 
 
 def _on_tensor_cores(a: torch.Tensor, b: torch.Tensor) -> bool:
-    """Whether `_mm_f32(a, b)` takes the card's bf16 GEMM: both operands
-    bf16 on the card and no gradient recorded through them."""
+    """Whether `_mm_f32(a, b)` takes the card's bf16 GEMM (and, with the
+    bias, `_linear` its epilogue): both operands bf16 on the card and no
+    gradient recorded through them."""
     return (a.is_cuda and a.dtype == b.dtype == torch.bfloat16
             and not (torch.is_grad_enabled()
                      and (a.requires_grad or b.requires_grad)))
@@ -163,10 +167,37 @@ def _w8a8(x: torch.Tensor, w: QTensor) -> torch.Tensor:
     return y.reshape(*x.shape[:-1], *q.shape[1:])
 
 
-def _linear(x: torch.Tensor, w, b: Optional[torch.Tensor] = None,
+def _epilogue_bias(x: torch.Tensor, w, b: torch.Tensor) -> bool:
+    """Whether `_linear` adds the bias in its GEMM's epilogue: a plain
+    (not quantized) weight, no tp, and x, w and b `_on_tensor_cores`.
+    Any number of rows: at one row PyTorch declines cuBLASLt and instead
+    copies the bias into the output and runs a beta = 1 GEMM, which also
+    adds it to the f32 sums and rounds once, so a one-row step rounds as
+    a batched one does."""
+    return (not isinstance(w, QTensor) and pctx.tp_size() == 1
+            and _on_tensor_cores(x, w) and _on_tensor_cores(x, b))
+
+
+def _linear(x: torch.Tensor, w, b: torch.Tensor,
             int8_impl: str = "xla") -> torch.Tensor:
-    y = _matmul(x, w, int8_impl)
-    return y if b is None else y + b
+    """x (..., k) @ w (k, ...) + b (w's out shape), in x's dtype. Where
+    `_epilogue_bias` holds, one `torch.addmm`: cuBLASLt adds the bias to
+    the f32 sums and rounds once, with no pass of its own. Elsewhere (the
+    CPU, f32, autograd, QTensor weights, tp > 1) `_matmul`
+    rounds the product to x's dtype and the bias is added after, as in
+    JAX (whisper.py:235-251). Counted by `_linear.epilogue_bias_calls` /
+    `.bias_add_calls`, a graph capture once and its replays not."""
+    if _epilogue_bias(x, w, b):
+        _linear.epilogue_bias_calls += 1
+        k = w.shape[0]
+        y = torch.addmm(b.reshape(-1), x.reshape(-1, k), w.reshape(k, -1))
+        return y.reshape(*x.shape[:-1], *w.shape[1:])
+    _linear.bias_add_calls += 1
+    return _matmul(x, w, int8_impl) + b
+
+
+_linear.epilogue_bias_calls = 0
+_linear.bias_add_calls = 0
 
 
 def _row_linear(x: torch.Tensor, w, b: torch.Tensor,
@@ -180,6 +211,7 @@ def _row_linear(x: torch.Tensor, w, b: torch.Tensor,
         return _linear(x, w, b, int8_impl)
     y = _mm_f32(x.reshape(-1, x.shape[-1]), w)
     y = pctx.reduce_from_tp(y).to(x.dtype)
+    _linear.bias_add_calls += 1
     return y.reshape(*x.shape[:-1], w.shape[-1]) + b
 
 
@@ -190,14 +222,14 @@ def _local_heads(n_head: int) -> int:
 
 def _qkv_proj(x, w, b, int8_impl: str = "xla"):
     """Fused QKV projection: x (..., d) @ w (d, 3, d) + b (3, d) -> q, k, v
-    (strided views of one GEMM output)."""
-    y = _matmul(pctx.copy_to_tp(x), w, int8_impl) + b
+    (strided views of one GEMM output, `_linear`'s)."""
+    y = _linear(pctx.copy_to_tp(x), w, b, int8_impl)
     return y[..., 0, :], y[..., 1, :], y[..., 2, :]
 
 
 def _kv_proj(x, w, b, int8_impl: str = "xla"):
     """Fused KV projection: x (..., d) @ w (d, 2, d) + b (2, d) -> k, v."""
-    y = _matmul(pctx.copy_to_tp(x), w, int8_impl) + b
+    y = _linear(pctx.copy_to_tp(x), w, b, int8_impl)
     return y[..., 0, :], y[..., 1, :]
 
 
@@ -486,6 +518,7 @@ def _cross_kv_vmap_fallback(x, w: QTensor, b):
     k = q.shape[0]
     y = torch.matmul(x.to(torch.bfloat16).float(), q.float().reshape(k, -1))
     y = (y.reshape(*x.shape[:-1], *q.shape[1:]) * w.scale).to(x.dtype) + b
+    _linear.bias_add_calls += 1
     return y[..., 0, :], y[..., 1, :]
 
 
